@@ -6,12 +6,18 @@
 Builds the port's CUDA kernels from ``water_sandbox_tpu_torch/csrc``, holds
 each against its plain PyTorch version at the main path's shapes, checks
 the exact overflow rescue and the ``mini-3d`` golden pins, then drives the
-main path through ``Simulation.from_scene(...).run(n)`` on
+single-device path through ``Simulation.from_scene(...).run(n)`` on
 ``reference-cube`` (65,536 particles) and ``moving-container-256k``
-(266,112 particles), and checks that both runs went through the kernels.
-Any failed check raises, so the exit code is non-zero. The last two lines
-are a JSON summary of the kernels and ``{"ok": true, "device": {...}}``.
-Needs one CUDA device; without one it exits non-zero and prints no result.
+(266,112 particles). The domain-decomposed step runs next: 8 shards of a
+128-particle flow against the single-device step (migration and the
+cross-shard rescue included), then ``DistributedSimulation`` on
+``sharded-1m`` (1,015,920 particles, 4 shards on the one card), with the
+kernels held against their plain versions on one shard's halo-filled
+planes. Last, the bitonic sort against its plain version. Each path's
+kernel launches are counted from 0 over its run and checked. Any failed
+check raises, so the exit code is non-zero. The last two lines are a JSON
+summary of the kernels and ``{"ok": true, "device": {...}}``. Needs one
+CUDA device; without one it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -38,13 +44,23 @@ MINI_3D_PIN = dict(
     mean_rho=156.2288, vq=[1.79178, 5.23468, 8.81625],
     rq=[152.7888, 152.7888, 168.9195])
 
+# The domain step's parity bar against the single-device step, summed over
+# the axes per particle (tests/test_domain.py:42).
+DOMAIN_TOL = 1e-3
+
 KERNELS = {
     "sph_density": dict(
         source="water_sandbox_tpu_torch/csrc/sph_density.cu",
         replaces="water_sandbox_tpu/ops/pallas/sph_bucket.py:571"),
+    # the query-side force kernel the domain step pins (gate "qrow3"); on
+    # the single-device path it also stands in for the pair-once kernel
+    # (sph_bucket.py:1128)
     "sph_force": dict(
         source="water_sandbox_tpu_torch/csrc/sph_force.cu",
-        replaces="water_sandbox_tpu/ops/pallas/sph_bucket.py:1128"),
+        replaces="water_sandbox_tpu/ops/pallas/sph_bucket.py:774"),
+    "bitonic_sort": dict(
+        source="water_sandbox_tpu_torch/csrc/bitonic_sort.cu",
+        replaces="water_sandbox_tpu/ops/pallas/bitonic_sort.py:55"),
 }
 
 
@@ -237,6 +253,243 @@ def phase_main_path(scene: str, steps: int, warmup: int) -> dict:
     return launches
 
 
+def sharded_by_id(states, active) -> np.ndarray:
+    """Positions of the active slots of all shards, row = particle id."""
+    act = torch.cat([a.cpu() for a in active]).numpy() > 0
+    ids = torch.cat([s.ids.cpu() for s in states]).numpy()[act]
+    pos = torch.cat([s.pos.cpu() for s in states]).numpy()[act]
+    check(bool((np.sort(ids) == np.arange(ids.size)).all()),
+          "sharded ids are not a permutation")
+    out = np.empty_like(pos)
+    out[ids] = pos
+    return out
+
+
+def phase_domain_parity(dev) -> None:
+    """__graft_entry__.py::dryrun_multichip on the port: 8 shards of a
+    128-particle cube in rightward flow (real migration), then forced
+    overflow, each against the single-device step from the same state."""
+    import dataclasses
+    import water_sandbox_tpu_torch as wst
+    from water_sandbox_tpu_torch.core.params import Container
+    from water_sandbox_tpu_torch.parallel import domain, mesh as mesh_mod
+    nsh = 8
+    gx = 3 * nsh
+    pts = wst.cube_fluid(8, 4, 4)
+    vel = np.zeros_like(pts)
+    vel[:, 0] = 3.0
+    params = wst.SimParams.create(
+        dim=3, device=dev, container=Container.create(
+            (0.0, 0.0, 0.0), (gx * 0.25 - 1.0, 1.8, 1.8), device=dev))
+    cfg = wst.SimConfig(n=pts.shape[0], dim=3, grid_dims=(gx, 8, 8),
+                        cell_capacity=16)
+    state0 = wst.init_state(pts, vel, device=dev)
+    mesh = mesh_mod.make_mesh(nsh, dev)
+    cases = (("flow", cfg, 8),
+             ("rescue cap 2", dataclasses.replace(
+                 cfg, cell_capacity=2, rescue_capacity=512), 6),
+             ("rescue cap 1", dataclasses.replace(
+                 cfg, cell_capacity=1, rescue_capacity=512), 6))
+    for label, c, steps in cases:
+        states, active = domain.shard_state(state0, mesh, c, params,
+                                            slack=float(nsh))
+        raw = sum(int(o) for o in domain.halo_planes(
+            [s.predicted for s in states], [s.vel for s in states], active,
+            [params] * nsh, c, gx // nsh, mesh)[3])
+        step = domain.make_domain_step(mesh, c)
+        before = [int(a.sum()) for a in active]
+        lost = ovf = 0.0
+        for _ in range(steps):
+            states, active, lost_step = step(states, active, params)
+            lost += float(lost_step)
+            ovf += float(states[0].overflow)
+        after = [int(a.sum()) for a in active]
+        single = wst.rollout(state0, params, c, steps)
+        err = float(np.abs(sharded_by_id(states, active)
+                           - by_id(single, "pos")).sum(axis=1).max())
+        log(f"[domain] parity {label}: {steps} steps, per-shard counts "
+            f"{before} -> {after}, overflowing at step 0 {raw}, lost {lost}, "
+            f"unrescued {ovf}, max |dpos| by id {err:.3e}")
+        check(lost == 0.0, f"domain {label}: lost {lost} particles")
+        check(ovf == 0.0, f"domain {label}: {ovf} unrescued")
+        check(float(single.overflow_total) == 0.0,
+              f"domain {label}: the single-device reference overflowed")
+        check(err <= DOMAIN_TOL, f"domain {label}: parity {err:.3e}")
+        if label == "flow":
+            check(after != before, "domain flow: no shard crossing")
+        if label.startswith("rescue"):
+            check(raw > 0, f"domain {label} must overflow")
+
+
+def domain_kernels_vs_plain(sim, shard: int, record) -> None:
+    """K1 and K3 against their plain versions on one shard's halo-filled
+    planes: the shards' builds, the position and velocity halo exchange,
+    every shard's density, the density halo exchange, then the force on
+    ``shard``'s planes (the inputs the domain step gives the kernels)."""
+    from water_sandbox_tpu_torch.core.params import KernelCoeffs
+    from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
+    from water_sandbox_tpu_torch.parallel import domain
+    mesh, cfg = sim.mesh, sim.cfg
+    gx_loc = cfg.grid_dims[0] // mesh.size
+    cfg_loc = domain._local_cfg(cfg, gx_loc)
+    g = sb._geometry(cfg_loc)
+    feats, counts, addr, _ = domain.halo_planes(
+        [s.predicted for s in sim.states], [s.vel for s in sim.states],
+        sim.active, [sim.params] * mesh.size, cfg, gx_loc, mesh)
+    coeffs = KernelCoeffs.from_radius(sim.params.smoothing_radius, cfg.dim)
+    pv = sb._param_vector(sim.params, coeffs)
+    dens = [sb.run_density(feats[d], counts[d], addr[d], pv, cfg_loc)
+            for d in range(mesh.size)]
+    dens = domain._exchange_halo_slabs(dens, gx_loc, g.S_pad, g.PAD, mesh)
+    f, c, a, dn = feats[shard], counts[shard], addr[shard], dens[shard]
+    halo = (float(c[0, g.PAD - g.S_pad:g.PAD].sum()),
+            float(c[0, g.PAD + gx_loc * g.S_pad:
+                    g.PAD + (gx_loc + 1) * g.S_pad].sum()))
+    check(min(halo) > 0, f"shard {shard}: a halo slab is empty {halo}")
+    occ = a[a < sb._cap_pad(cfg.cell_capacity) * g.L].long()
+    dens_p = sb.density_plain(f, c, a, pv, cfg_loc)
+    torch.cuda.synchronize()
+    label = f"{sim.name} shard {shard} (halo-filled)"
+    err_d = compare_planes(f"{label} sph_density", dn, dens_p, occ)
+    out_k = sb.run_force(f, dn, c, a, pv, cfg_loc)
+    out_p = sb.force_plain(f, dn, c, a, pv, cfg_loc)
+    torch.cuda.synchronize()
+    err_f = compare_planes(f"{label} sph_force", out_k, out_p, occ)
+    t = {
+        "sph_density": (
+            cuda_ms(lambda: sb.run_density(f, c, a, pv, cfg_loc)),
+            cuda_ms(lambda: sb.density_plain(f, c, a, pv, cfg_loc), reps=5)),
+        "sph_force": (
+            cuda_ms(lambda: sb.run_force(f, dn, c, a, pv, cfg_loc)),
+            cuda_ms(lambda: sb.force_plain(f, dn, c, a, pv, cfg_loc),
+                    reps=5)),
+    }
+    for name, err in (("sph_density", err_d), ("sph_force", err_f)):
+        ms, plain_ms = t[name]
+        log(f"[kernels] {label}: {name} max_abs_err={err:.3e} "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} (rows "
+            f"{occ.numel()}, halo particles {halo}, planes "
+            f"{tuple(f.shape)})")
+        rec = record[name]
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["domain_ms"], rec["domain_plain_ms"] = ms, plain_ms
+
+
+def phase_domain_full(record, scene="sharded-1m", dev="cuda") -> dict:
+    """DistributedSimulation on ``scene``, 4 shards on the card: 10 steps
+    held by id against the single-device step from the same state, the
+    kernels against their plain versions on halo-filled planes, then 20
+    timed steps. Returns the kernel launches of the 30 steps."""
+    import water_sandbox_tpu_torch as wst
+    from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
+    from water_sandbox_tpu_torch.runtime.distributed import (
+        DistributedSimulation)
+    nsh, warm, timed = 4, 10, 20
+    cfg, params, state = wst.scenes.build(scene, device=dev)
+    single = wst.rollout(state, params, cfg, warm)
+    want = by_id(single, "pos")
+    check(float(single.overflow_total) == 0.0,
+          f"{scene}: the single-device reference overflowed")
+    del single, state
+    sim = DistributedSimulation.from_scene(scene, n_shards=nsh, device=dev)
+
+    sb.reset_launches()
+    sim.run(warm)
+    launches = dict(sb.LAUNCHES)
+    err = float(np.abs(sharded_by_id(sim.states, sim.active) - want)
+                .sum(axis=1).max())
+    log(f"[domain] {scene}: n={sim.cfg.n}, {warm} steps on {nsh} shards "
+        f"(gx_loc {sim.cfg.grid_dims[0] // nsh}), max |dpos| by id vs "
+        f"single device {err:.3e}")
+    check(err <= DOMAIN_TOL, f"{scene}: parity {err:.3e}")
+    domain_kernels_vs_plain(sim, 1, record)
+
+    sb.reset_launches()
+    t0 = time.perf_counter()
+    sim.run(timed)
+    ms = 1000.0 * (time.perf_counter() - t0) / timed
+    for k, v in sb.LAUNCHES.items():
+        launches[k] += v
+    st = sim.stats()
+    dense = sim.to_dense_state().to(dev)
+    check(dense.n == sim.cfg.n, f"{scene}: lost slots")
+    check(bool(torch.isfinite(dense.pos).all()
+               and torch.isfinite(dense.vel).all()),
+          f"{scene}: non-finite state")
+    half = sim.params.container.half_size
+    check(bool((box_local(sim.params, dense).abs() <= half + 1e-4).all()),
+          f"{scene}: particles outside the box")
+    check(st["lost_particles"] == 0.0, f"{scene}: lost_total > 0")
+    check(st["overflow_total"] == 0.0, f"{scene}: overflow_total > 0")
+    for k, v in launches.items():
+        check(v == nsh * (warm + timed),
+              f"{scene}: {k} launched {v} times in {warm + timed} steps "
+              f"on {nsh} shards")
+    log(f"[main] {scene} on {nsh} shards: ms/step {ms:.3f} (host clock "
+        f"over {timed} synced steps after {warm} warm-up), lost_total "
+        f"{st['lost_particles']}, overflow_total {st['overflow_total']}, "
+        f"per-shard counts {st['per_shard_counts']}, ke "
+        f"{st['kinetic_energy']:.2f}, launches {launches}")
+    return launches
+
+
+def phase_sort(record, dev="cuda") -> int:
+    """K4 against its plain version (bit-identical keys and values) at
+    n = 1,000, 50,000 (padded) and 65,536, with torch.sort's time beside;
+    then its path: argsort_keys on reference-cube's 65,536 cell keys, the
+    reference's use. Returns that path's launches."""
+    import water_sandbox_tpu_torch as wst
+    from water_sandbox_tpu_torch.ops import hashing
+    from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
+    rng = np.random.default_rng(0)
+    for n in (1000, 50000, 65536):
+        keys = torch.from_numpy(
+            rng.integers(-2000, 2000, n).astype(np.int32)).to(dev)
+        vals = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(dev)
+        gk, gv = bs.sort_pairs(keys, vals)
+        wk, wv = bs.sort_pairs_plain(keys, vals)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(gk, wk) and torch.equal(gv, wv)),
+              f"sort n={n}: kernel and plain differ")
+        check(bool(torch.equal(gk, torch.sort(keys).values)),
+              f"sort n={n}: keys not sorted")
+        ms = cuda_ms(lambda: bs.sort_pairs(keys, vals))
+        plain_ms = cuda_ms(lambda: bs.sort_pairs_plain(keys, vals))
+        torch_ms = cuda_ms(lambda: torch.sort(keys, stable=True))
+        log(f"[sort] n={n}: bit-identical, kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} torch.sort_ms={torch_ms:.4f}")
+        if n == 65536:
+            record["bitonic_sort"] = {"max_abs_err": 0.0, "ms": ms,
+                                      "plain_ms": plain_ms,
+                                      "torch_sort_ms": torch_ms}
+    try:
+        big = torch.zeros(65537, dtype=torch.int32, device=dev)
+        bs.sort_pairs(big, big)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("sort: n_pad > 65,536 did not raise")
+
+    cfg, params, state = wst.scenes.build("reference-cube", device=dev)
+    h = params.smoothing_radius
+    cell = hashing.get_cell(state.predicted
+                            - hashing.grid_origin(state.predicted, h), h)
+    gy, gz = cfg.grid_dims[1], cfg.grid_dims[2]
+    keys = (cell[:, 0] * gy + cell[:, 1]) * gz + cell[:, 2]
+    bs.reset_launches()
+    sk, order = bs.argsort_keys(keys)
+    launches = bs.LAUNCHES["bitonic_sort"]
+    wk, worder = bs.sort_pairs_plain(
+        keys, torch.arange(keys.shape[0], dtype=torch.int32, device=dev))
+    check(bool(torch.equal(sk, wk) and torch.equal(order, worder)),
+          "argsort_keys: kernel and plain differ")
+    check(bool(torch.equal(keys[order.long()], sk)), "argsort_keys order")
+    log(f"[sort] argsort_keys on reference-cube's {keys.shape[0]} cell "
+        f"keys: bit-identical to the plain version, launches {launches}")
+    check(launches == 1, "argsort_keys did not launch the kernel")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -284,17 +537,33 @@ def main() -> int:
     # 5. golden pins
     phase_golden()
 
-    # 6. main path
-    launches = phase_main_path("reference-cube", 200, warmup=20)
-    phase_main_path("moving-container-256k", 50, warmup=10)
+    # 6. single-device path
+    paths = {"reference-cube": phase_main_path("reference-cube", 200,
+                                               warmup=20),
+             "moving-container-256k": phase_main_path(
+                 "moving-container-256k", 50, warmup=10)}
 
+    # 7. domain-decomposed path
+    phase_domain_parity("cuda:0")
+    paths["sharded-1m"] = phase_domain_full(record)
+
+    # 8. the bitonic sort and its own path
+    paths["argsort_keys"] = {"bitonic_sort": phase_sort(record)}
+
+    main_path = {"sph_density": "sharded-1m", "sph_force": "sharded-1m",
+                 "bitonic_sort": "argsort_keys"}
     kernels = []
     for name, meta in KERNELS.items():
         rec = record[name]
-        kernels.append({"name": name, "route": "cuda", **meta,
-                        "launches": launches[name],
-                        "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-                        "plain_ms": rec["plain_ms"]})
+        kernels.append({
+            "name": name, "route": "cuda", **meta,
+            "launches": paths[main_path[name]][name],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"],
+            **{k: v for k, v in rec.items()
+               if k not in ("max_abs_err", "ms", "plain_ms")},
+            "launches_by_path": {p: c[name] for p, c in paths.items()
+                                 if name in c}})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -15,6 +15,7 @@ import torch
 
 import water_sandbox_tpu_torch as wt
 from water_sandbox_tpu_torch.core.params import KernelCoeffs, SimConfig
+from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
 from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -71,6 +72,84 @@ def test_step_matches_cpu(cuda_device):
         np.testing.assert_allclose(getattr(got, f).cpu().numpy(),
                                    getattr(want, f).numpy(), **TOL,
                                    err_msg=f)
+
+
+@pytest.mark.parametrize("n", [1000, 50000, 65536])
+def test_bitonic_sort_matches_plain(cuda_device, n):
+    """Keys and values bit-identical, ties included."""
+    rng = np.random.default_rng(n)
+    keys = torch.from_numpy(rng.integers(-500, 500, n).astype(np.int32))
+    vals = torch.from_numpy(rng.permutation(n).astype(np.int32))
+    bs.reset_launches()
+    gk, gv = bs.sort_pairs(keys.to(cuda_device), vals.to(cuda_device))
+    torch.cuda.synchronize()
+    assert bs.LAUNCHES == {"bitonic_sort": 1}
+    wk, wv = bs.sort_pairs_plain(keys, vals)
+    np.testing.assert_array_equal(gk.cpu().numpy(), wk.numpy())
+    np.testing.assert_array_equal(gv.cpu().numpy(), wv.numpy())
+    with pytest.raises(ValueError, match="too large"):
+        big = torch.zeros(65537, dtype=torch.int32, device=cuda_device)
+        bs.sort_pairs(big, big)
+
+
+def test_domain_kernels_on_halo_filled_planes(cuda_device):
+    """K1 and K3 on every shard's halo-filled planes (8 shards of a
+    128-particle flow on one device) against their plain versions, and one
+    domain step on the card against the same step on the CPU."""
+    from water_sandbox_tpu_torch.core.params import Container
+    from water_sandbox_tpu_torch.parallel import domain, mesh as mesh_mod
+    pts = wt.cube_fluid(8, 4, 4)
+    vel = np.zeros_like(pts)
+    vel[:, 0] = 3.0
+    cfg = SimConfig(n=pts.shape[0], dim=3, grid_dims=(24, 8, 8),
+                    cell_capacity=16)
+    cfg_loc = domain._local_cfg(cfg, 3)
+    g = sb._geometry(cfg_loc)
+
+    def setup(dev):
+        params = wt.SimParams.create(dim=3, device=dev, container=(
+            Container.create((0.0, 0.0, 0.0), (5.0, 1.8, 1.8), device=dev)))
+        mesh = mesh_mod.make_mesh(8, dev)
+        states, active = domain.shard_state(wt.init_state(pts, vel), mesh,
+                                            cfg, params, slack=8.0)
+        return params, mesh, states, active
+
+    params, mesh, states, active = setup(cuda_device)
+    feats, counts, addr, _ = domain.halo_planes(
+        [s.predicted for s in states], [s.vel for s in states], active,
+        [params] * 8, cfg, 3, mesh)
+    pv = sb._param_vector(params, KernelCoeffs.from_radius(
+        params.smoothing_radius, 3))
+    sb.reset_launches()
+    dens = [sb.run_density(feats[d], counts[d], addr[d], pv, cfg_loc)
+            for d in range(8)]
+    dens = domain._exchange_halo_slabs(dens, 3, g.S_pad, g.PAD, mesh)
+    out = [sb.run_force(feats[d], dens[d], counts[d], addr[d], pv, cfg_loc)
+           for d in range(8)]
+    torch.cuda.synchronize()
+    assert sb.LAUNCHES == {"sph_density": 8, "sph_force": 8}
+    halo = 0.0
+    for d in range(8):
+        occ = addr[d][addr[d] < sb._cap_pad(16) * g.L].long()
+        halo += float(counts[d][0, g.PAD - g.S_pad:g.PAD].sum())
+        dens_p = sb.density_plain(feats[d], counts[d], addr[d], pv, cfg_loc)
+        out_p = sb.force_plain(feats[d], dens[d], counts[d], addr[d], pv,
+                               cfg_loc)
+        np.testing.assert_allclose(_at(dens[d], occ), _at(dens_p, occ),
+                                   **TOL)
+        np.testing.assert_allclose(_at(out[d], occ), _at(out_p, occ), **TOL)
+    assert halo > 0, "no shard had a filled left halo"
+
+    step = domain.make_domain_step(mesh, cfg)
+    got, got_act, lost = step(states, active, params)
+    params_c, mesh_c, states_c, active_c = setup("cpu")
+    want, want_act, _ = domain.make_domain_step(mesh_c, cfg)(
+        states_c, active_c, params_c)
+    assert float(lost) == 0.0
+    for a, b in zip(got_act, want_act):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.pos.cpu().numpy(), b.pos.numpy(), **TOL)
 
 
 def test_wrappers_refuse_mixed_devices(cuda_device):

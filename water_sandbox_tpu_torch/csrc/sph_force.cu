@@ -14,6 +14,13 @@
 // one gather returns every per-particle result. Output (2 + DIM planes) at
 // empty slots is left unwritten.
 //
+// The domain-decomposed step (parallel/domain.py) launches it where the JAX
+// package pins _force_kernel itself: the queries are a shard's local rows,
+// and the neighbours' boundary slabs, copied into the lanes just inside the
+// pads, are read as candidates only (through `counts`). A pair-once kernel
+// would write the mirrored halves of boundary pairs into those halo lanes,
+// which no shard reads back.
+//
 // Design. One thread per particle row, as in sph_density.cu: the thread
 // walks the occupied slots of its 3^DIM neighbour lanes and evaluates every
 // pair from the query side, so it writes only its own slot and needs no

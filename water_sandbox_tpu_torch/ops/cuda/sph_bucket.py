@@ -198,6 +198,50 @@ def _build_slab_buckets(predicted, vel, params, cfg: SimConfig, time=None):
     return planes, counts, addr, overflow
 
 
+def build_local_slab_buckets(pred, vel, active, origin, gx_loc: int,
+                             my_dev: int, params, cfg_loc: SimConfig):
+    """Per-shard build of the domain-decomposed step: like
+    ``_build_slab_buckets`` over the shard's slab range of the global grid
+    (x clamps into the local range — stragglers between migrations; the
+    distance test keeps their pairs exact), with inactive slots sorting last
+    and dropped. The halo exchange writes the neighbours' boundary slabs
+    into the lanes just inside the pads (``parallel/domain.py``).
+
+    Returns (planes, counts (1, L) local only, addr (n,) i32 — cap_p·L for
+    inactive and capacity-overflow rows —, overflow () i32)."""
+    n, dim = pred.shape
+    h = params.smoothing_radius
+    cap = cfg_loc.cell_capacity
+    g = _geometry(cfg_loc)
+
+    cell = torch.floor((pred - origin) / h).to(torch.int32)
+    cell_x = torch.clamp(cell[:, 0] - my_dev * gx_loc, 0, gx_loc - 1)
+    r = torch.clamp(cell[:, 1], 0, g.gy - 1)
+    if dim == 3:
+        r = r * g.gz + torch.clamp(cell[:, 2], 0, g.gz - 1)
+    col = cell_x * g.S_pad + r
+
+    end = gx_loc * g.S_pad
+    key = torch.where(active > 0, col, end)          # inactive sort last
+    sorted_key, order = torch.sort(key, stable=True)
+    ranks = torch.arange(n, dtype=torch.int32, device=pred.device)
+    first = torch.ones(n, dtype=torch.bool, device=pred.device)
+    first[1:] = sorted_key[1:] != sorted_key[:-1]
+    run_start = torch.cummax(torch.where(first, ranks, 0), dim=0).values
+    slot = ranks - run_start
+    cap_p = _cap_pad(cap)
+    ok = (slot < cap) & (sorted_key < end)
+    flat = torch.where(ok, slot * g.L + g.PAD + sorted_key, cap_p * g.L)
+
+    srows = torch.cat([pred, vel], dim=1)[order]
+    planes = _scatter_planes(srows, flat, dim, cap_p, g.L)
+    counts = (planes[0] < _FAR * 0.5).sum(dim=0, dtype=pred.dtype)[None, :]
+    addr = torch.empty(n, dtype=torch.int32, device=pred.device)
+    addr[order] = flat.to(torch.int32)
+    overflow = (active.sum() - ok.sum()).to(torch.int32)
+    return planes, counts, addr, overflow
+
+
 def _param_vector(params: SimParams, coeffs: KernelCoeffs) -> torch.Tensor:
     """(1, 16) f32 scalars the kernels read, assembled on the device."""
     vals = [params.smoothing_radius, coeffs.pow2, coeffs.pow2_der,
@@ -267,7 +311,7 @@ def _check_inputs(cfg, planes, counts, addr, params_vec, dens=None):
 
 def _launch(name: str, *args) -> None:
     from . import _build
-    err = getattr(_build.library(), "wst_" + name)(*args)
+    err = _build.entry("wst_" + name)(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
