@@ -13,11 +13,16 @@ single-device path through ``Simulation.from_scene(...).run(n)`` on
 cross-shard rescue included), then ``DistributedSimulation`` on
 ``sharded-1m`` (1,015,920 particles, 4 shards on the one card), with the
 kernels held against their plain versions on one shard's halo-filled
-planes. Last, the bitonic sort against its plain version. Each path's
-kernel launches are counted from 0 over its run and checked. Any failed
-check raises, so the exit code is non-zero. The last two lines are a JSON
-summary of the kernels and ``{"ok": true, "device": {...}}``. Needs one
-CUDA device; without one it exits non-zero and prints no result.
+planes. Last, the bitonic sort against its plain version at every padded
+size class (bit-identical, one launch a call), beside ``torch.sort``. Each
+path's kernel launches are counted from 0 over its run and checked. Each
+kernel's time is given as CUDA-event time of one call and as device time
+from ``torch.profiler``, beside its bound: the larger of the bytes it must
+move over 3.35 TB/s and its operations over 67 TFLOP/s (f32), counted from
+this run's inputs. Any failed check raises, so the exit code is non-zero.
+The last two lines are a JSON summary of the kernels and
+``{"ok": true, "device": {...}}``. Needs one CUDA device; without one it
+exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -48,17 +53,42 @@ MINI_3D_PIN = dict(
 # the axes per particle (tests/test_domain.py:42).
 DOMAIN_TOL = 1e-3
 
+# H100 SXM peaks (NVIDIA's data sheet): f32 outside the tensor cores, HBM3.
+PEAK_OPS = 67e12
+PEAK_BYTES = 3.35e12
+
+# The TPU kernels (K1-K4) and, for each, the wrapper's launch counter, the
+# path whose launches and the call site whose time the summary reports, and
+# the step paths it runs on (launches a step are read from each of their
+# runs).
 KERNELS = {
     "sph_density": dict(
+        counter="sph_density", path="reference-cube",
+        paths=("reference-cube", "moving-container-256k", "sharded-1m"),
+        at="reference-cube step 100",
         source="water_sandbox_tpu_torch/csrc/sph_density.cu",
         replaces="water_sandbox_tpu/ops/pallas/sph_bucket.py:571"),
-    # the query-side force kernel the domain step pins (gate "qrow3"); on
-    # the single-device path it also stands in for the pair-once kernel
-    # (sph_bucket.py:1128)
+    # the pair-once force of the single-device step (gate "qsym"), ported
+    # with the query-side contract
     "sph_force": dict(
+        counter="sph_force", path="reference-cube",
+        paths=("reference-cube", "moving-container-256k"),
+        at="reference-cube step 100",
+        source="water_sandbox_tpu_torch/csrc/sph_force.cu",
+        replaces="water_sandbox_tpu/ops/pallas/sph_bucket.py:1128"),
+    # the query-side force kernel the domain step pins (gate "qrow3"): the
+    # same source, launched on halo-filled planes
+    "sph_force_halo": dict(
+        counter="sph_force", path="sharded-1m", paths=("sharded-1m",),
+        at="sharded-1m shard 1 (halo-filled)",
         source="water_sandbox_tpu_torch/csrc/sph_force.cu",
         replaces="water_sandbox_tpu/ops/pallas/sph_bucket.py:774"),
+    # on no step path, as in the JAX package: its launches a step are read
+    # from every step path's run all the same
     "bitonic_sort": dict(
+        counter="bitonic_sort", path="argsort_keys",
+        paths=("reference-cube", "moving-container-256k", "sharded-1m"),
+        at="sort n=65536",
         source="water_sandbox_tpu_torch/csrc/bitonic_sort.cu",
         replaces="water_sandbox_tpu/ops/pallas/bitonic_sort.py:55"),
 }
@@ -89,6 +119,60 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, kernel: str, reps: int = 20):
+    """Device time per call of the kernels whose name holds ``kernel``
+    (all device work for ""), from torch.profiler over ``reps`` calls after
+    one warm-up; None where the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum((getattr(e, "device_time_total", None)
+              or getattr(e, "cuda_time_total", 0.0))
+             for e in prof.key_averages() if kernel in e.key)
+    return us / reps / 1e3 if us > 0 else None
+
+
+def bound(ops: float, nbytes: float):
+    """(bound_ms, bound_by): the least time the card could take."""
+    t_ops, t_bytes = ops / PEAK_OPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
+                                        else "bytes")
+
+
+def pair_counts(planes, counts, addr, cfg, h):
+    """(rows, P_c, P_h) of this input: occupied rows, candidate slots the
+    kernels walk (every occupied slot of the 3^dim neighbour lanes), and
+    pairs within h (self excluded)."""
+    from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
+    P = planes[:cfg.dim].reshape(cfg.dim, -1)
+    rows = p_c = p_h = 0
+    for a, cidx, mask in sb._candidate_chunks(counts, addr, cfg):
+        d2 = sum((P[k][cidx] - P[k][a][:, None, None]) ** 2
+                 for k in range(cfg.dim))
+        rows += a.numel()
+        p_c += int(mask.sum())
+        p_h += int((mask & (cidx != a[:, None, None]) & (d2 <= h * h)).sum())
+    return rows, p_c, p_h
+
+
+def density_bound(rows, p_c, L, dim):
+    """Reads positions and addr, writes 6 planes a row, reads counts; per
+    candidate 3*dim - 1 flops of distance and 9 of the two kernels."""
+    return bound(p_c * (3 * dim - 1 + 9), rows * (4 * dim + 4 + 24) + 4 * L)
+
+
+def force_bound(rows, p_c, p_h, L, dim):
+    """Reads positions, velocities and the 6 density planes, writes 2 + dim
+    planes a row, reads counts; 3*dim - 1 flops a candidate, 20 + 5*dim a
+    pair within h."""
+    return bound(p_c * (3 * dim - 1) + p_h * (20 + 5 * dim),
+                 rows * (8 * dim + 24 + 4 * (2 + dim)) + 4 * L)
+
+
 def compare_planes(name, got, want, occ) -> float:
     """Max |got - want| over the occupied slots ``occ``; raises past the
     bar."""
@@ -116,42 +200,85 @@ def kernel_inputs(cfg, params, state):
     return planes, counts, flat, sb._param_vector(params, coeffs), cfg
 
 
+def hold_and_time(label, record, planes, counts, addr, pv, cfg, h, dens_k,
+                  dens_in, plain_reps=20, force_key="sph_force") -> None:
+    """K1's output ``dens_k`` against density_plain, and the force kernel
+    on ``dens_in`` against force_plain; their event and device times, the
+    plain versions' event times, and the bounds from this input's pair
+    counts. Where run_force puts several threads on a row, the force
+    kernel with one thread a row too, checked and timed beside it."""
+    from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
+    occ = addr[addr < sb._cap_pad(cfg.cell_capacity)
+               * sb._geometry(cfg).L].long()
+    dens_p = sb.density_plain(planes, counts, addr, pv, cfg)
+    torch.cuda.synchronize()
+    err_d = compare_planes(f"{label} sph_density", dens_k, dens_p, occ)
+    out_p = sb.force_plain(planes, dens_in, counts, addr, pv, cfg)
+    err_f = compare_planes(
+        f"{label} sph_force", sb.run_force(planes, dens_in, counts, addr, pv,
+                                           cfg), out_p, occ)
+    rows, p_c, p_h = pair_counts(planes, counts, addr, cfg, h)
+    L = sb._geometry(cfg).L
+
+    def density():
+        return sb.run_density(planes, counts, addr, pv, cfg)
+
+    def force():
+        return sb.run_force(planes, dens_in, counts, addr, pv, cfg)
+    rec_d = dict(
+        max_abs_err=err_d, ms=cuda_ms(density),
+        plain_ms=cuda_ms(lambda: sb.density_plain(planes, counts, addr, pv,
+                                                  cfg), reps=plain_reps),
+        device_ms=device_ms(density, "sph_density"))
+    rec_d["bound_ms"], rec_d["bound_by"] = density_bound(rows, p_c, L,
+                                                         cfg.dim)
+    rec_f = dict(
+        max_abs_err=err_f, ms=cuda_ms(force),
+        plain_ms=cuda_ms(lambda: sb.force_plain(planes, dens_in, counts,
+                                                addr, pv, cfg),
+                         reps=plain_reps),
+        device_ms=device_ms(force, "sph_force"))
+    rec_f["bound_ms"], rec_f["bound_by"] = force_bound(rows, p_c, p_h, L,
+                                                       cfg.dim)
+    group = sb._force_group(addr.shape[0],
+                            sb._sm_count(planes.device.index or 0))
+    extra_f = f" threads a row {group}"
+    if group > 1:
+        def one():
+            return sb._force_kernel(planes, dens_in, counts, addr, pv, cfg, 1)
+        err_1 = compare_planes(f"{label} sph_force one thread a row", one(),
+                               out_p, occ)
+        rec_f["max_abs_err"] = max(err_f, err_1)
+        rec_f["one_thread_ms"] = cuda_ms(one)
+        rec_f["one_thread_device_ms"] = device_ms(one, "sph_force")
+        extra_f += (f" (one thread a row: max_abs_err={err_1:.3e} kernel_ms="
+                    f"{rec_f['one_thread_ms']:.4f} device_ms="
+                    f"{fmt(rec_f['one_thread_device_ms'])})")
+    for name, key, rec in (("sph_density", "sph_density", rec_d),
+                           ("sph_force", force_key, rec_f)):
+        extra = extra_f if name == "sph_force" else ""
+        log(f"[kernels] {label}: {name} max_abs_err={rec['max_abs_err']:.3e}"
+            f" kernel_ms={rec['ms']:.4f} device_ms={fmt(rec['device_ms'])} "
+            f"plain_ms={rec['plain_ms']:.4f} bound_ms={rec['bound_ms']:.3e} "
+            f"({rec['bound_by']}) library_ms=none{extra} (rows {rows}, "
+            f"candidates {p_c}, pairs within h {p_h}, planes "
+            f"{tuple(planes.shape)})")
+        record.setdefault(key, {})[label] = rec
+
+
+def fmt(x) -> str:
+    return "not measured" if x is None else f"{x:.4f}"
+
+
 def kernels_vs_plain(label, cfg, params, state, record) -> None:
     """K1 against density_plain and K2 against force_plain (on the same
     dens) at the shapes the main path gives them."""
     from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
     planes, counts, flat, pv, cfg = kernel_inputs(cfg, params, state)
-    occ = flat[flat < sb._cap_pad(cfg.cell_capacity) * sb._geometry(cfg).L]
-    occ = occ.long()
-
     dens_k = sb.run_density(planes, counts, flat, pv, cfg)
     dens_p = sb.density_plain(planes, counts, flat, pv, cfg)
-    torch.cuda.synchronize()
-    err_d = compare_planes(f"{label} sph_density", dens_k, dens_p, occ)
-    out_k = sb.run_force(planes, dens_p, counts, flat, pv, cfg)
-    out_p = sb.force_plain(planes, dens_p, counts, flat, pv, cfg)
-    torch.cuda.synchronize()
-    err_f = compare_planes(f"{label} sph_force", out_k, out_p, occ)
-
-    t = {
-        "sph_density": (
-            cuda_ms(lambda: sb.run_density(planes, counts, flat, pv, cfg)),
-            cuda_ms(lambda: sb.density_plain(planes, counts, flat, pv, cfg))),
-        "sph_force": (
-            cuda_ms(lambda: sb.run_force(planes, dens_p, counts, flat, pv,
-                                         cfg)),
-            cuda_ms(lambda: sb.force_plain(planes, dens_p, counts, flat, pv,
-                                           cfg))),
-    }
-    for name, err in (("sph_density", err_d), ("sph_force", err_f)):
-        ms, plain_ms = t[name]
-        log(f"[kernels] {label}: {name} max_abs_err={err:.3e} "
-            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"(n={cfg.n}, planes {tuple(planes.shape)})")
-        rec = record.setdefault(name, {"max_abs_err": 0.0})
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        if label.startswith("reference-cube"):
-            rec["ms"], rec["plain_ms"] = ms, plain_ms   # last one wins
+    hold_and_time(label, record, planes, counts, flat, pv, cfg,
+                  float(params.smoothing_radius), dens_k, dens_p)
 
 
 def by_id(state, field):
@@ -221,16 +348,18 @@ def phase_golden() -> None:
         f"(ke {0.5 * (vel ** 2).sum():.2f}, mean_rho {rho.mean():.4f})")
 
 
-def phase_main_path(scene: str, steps: int, warmup: int) -> dict:
+def phase_main_path(scene: str, steps: int, warmup: int):
     """Simulation.from_scene(scene).run(steps) on the card; returns the
-    launch counts of the run."""
+    launch counts of the run and its steps."""
     import water_sandbox_tpu_torch as wst
+    from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
     from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
     sim = wst.Simulation.from_scene(scene, device="cuda")
     sb.reset_launches()
+    bs.reset_launches()
     sim.run(warmup)
     sim.run(steps - warmup)
-    launches = dict(sb.LAUNCHES)
+    launches = {**sb.LAUNCHES, **bs.LAUNCHES}
     st = sim.stats()
     s = sim.state
     pos = s.pos
@@ -243,14 +372,14 @@ def phase_main_path(scene: str, steps: int, warmup: int) -> dict:
     ids = torch.sort(s.ids.long()).values
     check(bool((ids == torch.arange(s.n, device=ids.device)).all()),
           f"{scene}: ids are not a permutation")
-    for k, v in launches.items():
-        check(v == steps, f"{scene}: {k} launched {v} times in {steps} "
-              "steps")
+    for k in sb.LAUNCHES:
+        check(launches[k] == steps, f"{scene}: {k} launched {launches[k]} "
+              f"times in {steps} steps")
     log(f"[main] {scene}: {steps} steps, n={s.n}, "
         f"ms/step {st['ms_per_step']:.3f} (timed over {st['steps_timed']} "
         f"steps after {warmup} warm-up), ke {st['kinetic_energy']:.2f}, "
         f"mean_rho {st['mean_density']:.3f}, launches {launches}")
-    return launches
+    return launches, steps
 
 
 def sharded_by_id(states, active) -> np.ndarray:
@@ -346,41 +475,19 @@ def domain_kernels_vs_plain(sim, shard: int, record) -> None:
             float(c[0, g.PAD + gx_loc * g.S_pad:
                     g.PAD + (gx_loc + 1) * g.S_pad].sum()))
     check(min(halo) > 0, f"shard {shard}: a halo slab is empty {halo}")
-    occ = a[a < sb._cap_pad(cfg.cell_capacity) * g.L].long()
-    dens_p = sb.density_plain(f, c, a, pv, cfg_loc)
-    torch.cuda.synchronize()
-    label = f"{sim.name} shard {shard} (halo-filled)"
-    err_d = compare_planes(f"{label} sph_density", dn, dens_p, occ)
-    out_k = sb.run_force(f, dn, c, a, pv, cfg_loc)
-    out_p = sb.force_plain(f, dn, c, a, pv, cfg_loc)
-    torch.cuda.synchronize()
-    err_f = compare_planes(f"{label} sph_force", out_k, out_p, occ)
-    t = {
-        "sph_density": (
-            cuda_ms(lambda: sb.run_density(f, c, a, pv, cfg_loc)),
-            cuda_ms(lambda: sb.density_plain(f, c, a, pv, cfg_loc), reps=5)),
-        "sph_force": (
-            cuda_ms(lambda: sb.run_force(f, dn, c, a, pv, cfg_loc)),
-            cuda_ms(lambda: sb.force_plain(f, dn, c, a, pv, cfg_loc),
-                    reps=5)),
-    }
-    for name, err in (("sph_density", err_d), ("sph_force", err_f)):
-        ms, plain_ms = t[name]
-        log(f"[kernels] {label}: {name} max_abs_err={err:.3e} "
-            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} (rows "
-            f"{occ.numel()}, halo particles {halo}, planes "
-            f"{tuple(f.shape)})")
-        rec = record[name]
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        rec["domain_ms"], rec["domain_plain_ms"] = ms, plain_ms
+    hold_and_time(f"{sim.name} shard {shard} (halo-filled)", record, f, c,
+                  a, pv, cfg_loc, float(sim.params.smoothing_radius), dn, dn,
+                  plain_reps=5, force_key="sph_force_halo")
+    log(f"[kernels] {sim.name} shard {shard}: halo particles {halo}")
 
 
-def phase_domain_full(record, scene="sharded-1m", dev="cuda") -> dict:
+def phase_domain_full(record, scene="sharded-1m", dev="cuda"):
     """DistributedSimulation on ``scene``, 4 shards on the card: 10 steps
     held by id against the single-device step from the same state, the
     kernels against their plain versions on halo-filled planes, then 20
-    timed steps. Returns the kernel launches of the 30 steps."""
+    timed steps. Returns the kernel launches of the 30 steps and 30."""
     import water_sandbox_tpu_torch as wst
+    from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
     from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
     from water_sandbox_tpu_torch.runtime.distributed import (
         DistributedSimulation)
@@ -394,8 +501,9 @@ def phase_domain_full(record, scene="sharded-1m", dev="cuda") -> dict:
     sim = DistributedSimulation.from_scene(scene, n_shards=nsh, device=dev)
 
     sb.reset_launches()
+    bs.reset_launches()
     sim.run(warm)
-    launches = dict(sb.LAUNCHES)
+    launches = {**sb.LAUNCHES, **bs.LAUNCHES}
     err = float(np.abs(sharded_by_id(sim.states, sim.active) - want)
                 .sum(axis=1).max())
     log(f"[domain] {scene}: n={sim.cfg.n}, {warm} steps on {nsh} shards "
@@ -405,10 +513,11 @@ def phase_domain_full(record, scene="sharded-1m", dev="cuda") -> dict:
     domain_kernels_vs_plain(sim, 1, record)
 
     sb.reset_launches()
+    bs.reset_launches()
     t0 = time.perf_counter()
     sim.run(timed)
     ms = 1000.0 * (time.perf_counter() - t0) / timed
-    for k, v in sb.LAUNCHES.items():
+    for k, v in {**sb.LAUNCHES, **bs.LAUNCHES}.items():
         launches[k] += v
     st = sim.stats()
     dense = sim.to_dense_state().to(dev)
@@ -421,47 +530,83 @@ def phase_domain_full(record, scene="sharded-1m", dev="cuda") -> dict:
           f"{scene}: particles outside the box")
     check(st["lost_particles"] == 0.0, f"{scene}: lost_total > 0")
     check(st["overflow_total"] == 0.0, f"{scene}: overflow_total > 0")
-    for k, v in launches.items():
-        check(v == nsh * (warm + timed),
-              f"{scene}: {k} launched {v} times in {warm + timed} steps "
-              f"on {nsh} shards")
+    for k in sb.LAUNCHES:
+        check(launches[k] == nsh * (warm + timed),
+              f"{scene}: {k} launched {launches[k]} times in "
+              f"{warm + timed} steps on {nsh} shards")
     log(f"[main] {scene} on {nsh} shards: ms/step {ms:.3f} (host clock "
         f"over {timed} synced steps after {warm} warm-up), lost_total "
         f"{st['lost_particles']}, overflow_total {st['overflow_total']}, "
         f"per-shard counts {st['per_shard_counts']}, ke "
         f"{st['kinetic_energy']:.2f}, launches {launches}")
-    return launches
+    return launches, warm + timed
+
+
+def sort_case(rng, n: int, kind: str):
+    """int32 (keys, values) on the card: random keys with many ties,
+    descending, all equal, or with real INT32_MAX keys (they tie with the
+    padding)."""
+    if kind == "random":
+        keys = rng.integers(-2000, 2000, n)
+    elif kind == "descending":
+        keys = np.arange(n)[::-1] // 3
+    elif kind == "all_equal":
+        keys = np.full(n, -4)
+    else:
+        keys = rng.integers(-50, 50, n)
+        keys[rng.random(n) < 0.3] = np.iinfo(np.int32).max
+    return (torch.from_numpy(np.ascontiguousarray(keys, np.int32)).cuda(),
+            torch.from_numpy(rng.permutation(n).astype(np.int32)).cuda())
 
 
 def phase_sort(record, dev="cuda") -> int:
-    """K4 against its plain version (bit-identical keys and values) at
-    n = 1,000, 50,000 (padded) and 65,536, with torch.sort's time beside;
-    then its path: argsort_keys on reference-cube's 65,536 cell keys, the
+    """K4 against its plain version (bit-identical keys and values, one
+    launch a call) at every padded size class, with four key patterns;
+    event and device times beside torch.sort's at four sizes; then its
+    path: argsort_keys on reference-cube's 65,536 cell keys, the
     reference's use. Returns that path's launches."""
     import water_sandbox_tpu_torch as wst
     from water_sandbox_tpu_torch.ops import hashing
     from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
     rng = np.random.default_rng(0)
-    for n in (1000, 50000, 65536):
-        keys = torch.from_numpy(
-            rng.integers(-2000, 2000, n).astype(np.int32)).to(dev)
-        vals = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(dev)
-        gk, gv = bs.sort_pairs(keys, vals)
-        wk, wv = bs.sort_pairs_plain(keys, vals)
-        torch.cuda.synchronize()
-        check(bool(torch.equal(gk, wk) and torch.equal(gv, wv)),
-              f"sort n={n}: kernel and plain differ")
-        check(bool(torch.equal(gk, torch.sort(keys).values)),
-              f"sort n={n}: keys not sorted")
-        ms = cuda_ms(lambda: bs.sort_pairs(keys, vals))
-        plain_ms = cuda_ms(lambda: bs.sort_pairs_plain(keys, vals))
-        torch_ms = cuda_ms(lambda: torch.sort(keys, stable=True))
-        log(f"[sort] n={n}: bit-identical, kernel_ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} torch.sort_ms={torch_ms:.4f}")
-        if n == 65536:
-            record["bitonic_sort"] = {"max_abs_err": 0.0, "ms": ms,
-                                      "plain_ms": plain_ms,
-                                      "torch_sort_ms": torch_ms}
+    for n in (1, 2, 1000, 1024, 8192, 8193, 50000, 65536):
+        for kind in ("random", "descending", "all_equal", "int32_max"):
+            keys, vals = sort_case(rng, n, kind)
+            bs.reset_launches()
+            gk, gv = bs.sort_pairs(keys, vals)
+            check(bs.LAUNCHES["bitonic_sort"] == 1,
+                  f"sort n={n} {kind}: {bs.LAUNCHES} launches")
+            wk, wv = bs.sort_pairs_plain(keys, vals)
+            torch.cuda.synchronize()
+            check(bool(torch.equal(gk, wk) and torch.equal(gv, wv)),
+                  f"sort n={n} {kind}: kernel and plain differ")
+            check(bool(torch.equal(gk, torch.sort(keys).values)),
+                  f"sort n={n} {kind}: keys not sorted")
+        log(f"[sort] n={n}: bit-identical to the plain version for random, "
+            "descending, all-equal and INT32_MAX keys, 1 launch a call")
+    for n in (1000, 8192, 50000, 65536):
+        keys, vals = sort_case(rng, n, "random")
+        n_pad = max(1024, 1 << (n - 1).bit_length())
+        lg = n_pad.bit_length() - 1
+        # every stage compare-exchanges n_pad / 2 pairs; n pairs are read
+        # and written once (the padding is made on the chip)
+        b_ms, b_by = bound(lg * (lg + 1) // 2 * n_pad // 2, 16 * n)
+        rec = dict(
+            max_abs_err=0.0, ms=cuda_ms(lambda: bs.sort_pairs(keys, vals)),
+            device_ms=device_ms(lambda: bs.sort_pairs(keys, vals),
+                                "bitonic"),
+            plain_ms=cuda_ms(lambda: bs.sort_pairs_plain(keys, vals),
+                             reps=5),
+            library_ms=cuda_ms(lambda: torch.sort(keys, stable=True)),
+            library_device_ms=device_ms(
+                lambda: torch.sort(keys, stable=True), ""),
+            bound_ms=b_ms, bound_by=b_by)
+        log(f"[sort] n={n}: kernel_ms={rec['ms']:.4f} device_ms="
+            f"{fmt(rec['device_ms'])} plain_ms={rec['plain_ms']:.4f} "
+            f"bound_ms={b_ms:.3e} ({b_by}) library_ms (torch.sort, stable)="
+            f"{rec['library_ms']:.4f} its device_ms="
+            f"{fmt(rec['library_device_ms'])}")
+        record.setdefault("bitonic_sort", {})[f"sort n={n}"] = rec
     try:
         big = torch.zeros(65537, dtype=torch.int32, device=dev)
         bs.sort_pairs(big, big)
@@ -530,6 +675,12 @@ def main() -> int:
     state2 = wst.rollout(state2, params2, cfg2, 100)
     kernels_vs_plain("dam-break-2d-4k step 100", cfg2, params2, state2,
                      record)
+    # the flagship's gz = 58 window
+    cfg3, params3, state3 = wst.scenes.build("moving-container-256k",
+                                             device="cuda")
+    kernels_vs_plain("moving-container-256k step 10", cfg3, params3,
+                     wst.rollout(state3, params3, cfg3, 10), record)
+    del state3
 
     # 4. exact rescue on the card
     phase_rescue(state100)
@@ -547,23 +698,31 @@ def main() -> int:
     phase_domain_parity("cuda:0")
     paths["sharded-1m"] = phase_domain_full(record)
 
-    # 8. the bitonic sort and its own path
-    paths["argsort_keys"] = {"bitonic_sort": phase_sort(record)}
+    # 8. the bitonic sort and its own path (launches per call, not step)
+    paths["argsort_keys"] = ({"bitonic_sort": phase_sort(record)}, 1)
 
-    main_path = {"sph_density": "sharded-1m", "sph_force": "sharded-1m",
-                 "bitonic_sort": "argsort_keys"}
     kernels = []
     for name, meta in KERNELS.items():
-        rec = record[name]
+        rec = record[name][meta["at"]]
+        launches, _ = paths[meta["path"]]
+        per_step = {p: paths[p][0][meta["counter"]] / paths[p][1]
+                    for p in meta["paths"]}
         kernels.append({
-            "name": name, "route": "cuda", **meta,
-            "launches": paths[main_path[name]][name],
-            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-            "plain_ms": rec["plain_ms"],
-            **{k: v for k, v in rec.items()
-               if k not in ("max_abs_err", "ms", "plain_ms")},
-            "launches_by_path": {p: c[name] for p, c in paths.items()
-                                 if name in c}})
+            "name": name, "route": "cuda", "source": meta["source"],
+            "replaces": meta["replaces"],
+            "launches": launches[meta["counter"]],
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in record[name].values()),
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec.get("library_ms"),
+            "device_ms": rec["device_ms"], "at": meta["at"],
+            "launches_per_step": per_step})
+        log(f"[kernels] {name}: launches_per_step {per_step}, at "
+            f"{meta['at']}: kernel_ms {rec['ms']:.4f}, device_ms "
+            f"{fmt(rec['device_ms'])}, bound_ms {rec['bound_ms']:.3e} "
+            f"({rec['bound_by']}), library_ms "
+            f"{fmt(rec.get('library_ms')) if name == 'bitonic_sort' else 'none'}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -134,3 +134,13 @@ def test_derived_planes_and_gather_match_jax():
                               jnp.asarray(dropped), jparams)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("n, sms, group", [
+    (65536, 132, 2), (266112, 132, 1), (4000, 132, 4), (253980, 132, 1),
+    (101376, 132, 1), (101375, 132, 2), (0, 132, 4)])
+def test_force_group_by_row_count(n, sms, group):
+    """Threads a row of the force kernel: more while n rows leave the card's
+    warp slots empty (reference-cube's 65,536 rows on an H100's 132 SMs),
+    one once they fill (the flagship, a sharded-1m shard)."""
+    assert sb._force_group(n, sms) == group

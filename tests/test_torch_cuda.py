@@ -58,8 +58,68 @@ def test_kernels_match_plain(cuda_device, dim):
     np.testing.assert_allclose(_at(out, occ), _at(out_p, occ), **TOL)
 
 
+@pytest.mark.parametrize("dim", [2, 3])
+def test_force_kernel_matches_plain_with_overflow(cuda_device, dim):
+    """Cell capacity 4 on a dense random cloud: overflow sentinel rows in
+    addr, full lanes everywhere; the kernel against force_plain."""
+    rng = np.random.default_rng(9)
+    pred = ((rng.random((3000, dim)) - 0.5) * 2.0).astype(np.float32)
+    vel = rng.standard_normal((3000, dim)).astype(np.float32)
+    params = wt.SimParams.create(dim=dim, device=cuda_device)
+    coeffs = KernelCoeffs.from_radius(params.smoothing_radius, dim)
+    cfg = SimConfig(n=pred.shape[0], dim=dim, grid_dims=(14,) * dim,
+                    cell_capacity=4)
+    planes, counts, addr, overflow = sb._build_slab_buckets(
+        torch.from_numpy(pred).to(cuda_device),
+        torch.from_numpy(vel).to(cuda_device), params, cfg)
+    assert int(overflow) > 0
+    pv = sb._param_vector(params, coeffs)
+    occ = addr[addr < sb._cap_pad(cfg.cell_capacity)
+               * sb._geometry(cfg).L].long()
+    dens = sb.density_plain(planes, counts, addr, pv, cfg)
+    want = _at(sb.force_plain(planes, dens, counts, addr, pv, cfg), occ)
+    got = sb.run_force(planes, dens, counts, addr, pv, cfg)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_at(got, occ), want, **TOL)
+
+
+@pytest.mark.parametrize("large", [False, True])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_force_kernel_dense_block(cuda_device, dim, large):
+    """A dense block near cell capacity, at a row count that takes several
+    threads a row and at one that takes one (sph_bucket._force_group on
+    this card); against force_plain."""
+    h = 0.25
+    cells = ((24 if large else 4), 72) if dim == 2 else (
+        (8 if large else 4), 30, 30)
+    cap, per_cell = (32, 60) if dim == 2 else (16, 16)
+    rng = np.random.default_rng(4)
+    n = per_cell * int(np.prod(cells))
+    pred = (rng.random((n, dim)) * np.asarray(cells) * h).astype(np.float32)
+    vel = rng.standard_normal((n, dim)).astype(np.float32)
+    params = wt.SimParams.create(dim=dim, device=cuda_device)
+    coeffs = KernelCoeffs.from_radius(params.smoothing_radius, dim)
+    cfg = SimConfig(n=n, dim=dim, grid_dims=tuple(c + 2 for c in cells),
+                    cell_capacity=cap)
+    planes, counts, addr, _ = sb._build_slab_buckets(
+        torch.from_numpy(pred).to(cuda_device),
+        torch.from_numpy(vel).to(cuda_device), params, cfg)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert (sb._force_group(n, sms) == 1) == large
+    g = sb._geometry(cfg)
+    pv = sb._param_vector(params, coeffs)
+    occ = addr[addr < sb._cap_pad(cap) * g.L].long()
+    dens = sb.density_plain(planes, counts, addr, pv, cfg)
+    want = _at(sb.force_plain(planes, dens, counts, addr, pv, cfg), occ)
+    got = sb.run_force(planes, dens, counts, addr, pv, cfg)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_at(got, occ), want, rtol=2e-4,
+                               atol=2e-4 * max(1.0, np.abs(want).max()))
+
+
 def test_step_matches_cpu(cuda_device):
-    cfg, params, state = wt.scenes.build("mini-3d", sorted_state=True,
+    cfg, params, state = wt.scenes.build("mini-3d", device="cpu",
+                                         sorted_state=True,
                                          rescue_capacity=64)
     state = wt.rollout(state, params, cfg, 20)
     sb.reset_launches()
@@ -74,12 +134,28 @@ def test_step_matches_cpu(cuda_device):
                                    err_msg=f)
 
 
-@pytest.mark.parametrize("n", [1000, 50000, 65536])
-def test_bitonic_sort_matches_plain(cuda_device, n):
-    """Keys and values bit-identical, ties included."""
+def _sort_case(n, kind):
     rng = np.random.default_rng(n)
-    keys = torch.from_numpy(rng.integers(-500, 500, n).astype(np.int32))
-    vals = torch.from_numpy(rng.permutation(n).astype(np.int32))
+    if kind == "random":
+        keys = rng.integers(-500, 500, n)
+    elif kind == "descending":
+        keys = np.arange(n)[::-1] // 3
+    elif kind == "all_equal":
+        keys = np.full(n, -4)
+    else:  # real INT32_MAX keys tie with the padding
+        keys = rng.integers(-50, 50, n)
+        keys[rng.random(n) < 0.3] = np.iinfo(np.int32).max
+    return (torch.from_numpy(np.ascontiguousarray(keys, dtype=np.int32)),
+            torch.from_numpy(rng.permutation(n).astype(np.int32)))
+
+
+@pytest.mark.parametrize("kind", ["random", "descending", "all_equal",
+                                  "int32_max"])
+@pytest.mark.parametrize("n", [1, 2, 1000, 1024, 8192, 8193, 50000, 65536])
+def test_bitonic_sort_matches_plain(cuda_device, n, kind):
+    """Keys and values bit-identical, ties included, in one launch: one
+    block up to 8,192 pairs, a cluster of up to 8 blocks above."""
+    keys, vals = _sort_case(n, kind)
     bs.reset_launches()
     gk, gv = bs.sort_pairs(keys.to(cuda_device), vals.to(cuda_device))
     torch.cuda.synchronize()

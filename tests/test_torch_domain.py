@@ -164,6 +164,31 @@ def test_domain_step_matches_jax_with_migration(case):
     assert float(states[0].overflow_total) == 0.0
 
 
+def test_force_queries_on_halo_filled_planes_are_the_local_rows():
+    """On a shard's halo-filled planes the force kernel's queries, the rows
+    of addr, are exactly the occupied slots of the shard's own slabs; the
+    halo slabs just outside hold candidates only."""
+    _, _, _, params, state, cfg = _setup(rightward=True)
+    mesh = mesh_mod.make_mesh(8, "cpu")
+    states, active = domain.shard_state(state, mesh, cfg, params, slack=8.0)
+    feats, counts, addr, _ = domain.halo_planes(
+        [s.predicted for s in states], [s.vel for s in states], active,
+        [params] * 8, cfg, 3, mesh)
+    cfg_loc = domain._local_cfg(cfg, 3)
+    g = sb._geometry(cfg_loc)
+    lo, hi = g.PAD, g.PAD + g.gx * g.S_pad
+    sentinel = sb._cap_pad(cfg.cell_capacity) * g.L
+    halo = 0.0
+    for d in range(8):
+        rows = addr[d][addr[d] < sentinel]
+        lanes = rows % g.L
+        assert bool(((lanes >= lo) & (lanes < hi)).all())
+        assert float(counts[d][0, lo:hi].sum()) == rows.numel()
+        assert rows.unique().numel() == rows.numel()
+        halo += float(counts[d].sum()) - rows.numel()
+    assert halo > 0, "no shard had a filled halo"
+
+
 def _port_single(state, params, cfg, steps):
     s = state
     for _ in range(steps):
@@ -298,3 +323,16 @@ def test_distributed_run_zero_steps_and_lost_accumulation():
     st = sim.stats()
     assert st["step"] == 4 and st["lost_particles"] == 0.0
     assert st["active_particles"] == sim.cfg.n
+
+
+def test_mesh_and_distributed_sim_need_cuda_unless_asked_for_the_cpu(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, _, _, params, state, cfg = _setup()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh_mod.make_mesh(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DistributedSimulation(cfg, params, state, n_shards=8, slack=8.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DistributedSimulation.from_scene("mini-3d", n_shards=2)
+    assert mesh_mod.make_mesh(2, "cpu").devices == [torch.device("cpu")] * 2

@@ -12,7 +12,8 @@ from test_golden import GOLDEN
 @pytest.mark.parametrize("sorted_state", [False, True])
 def test_mini_3d_pallas_golden(sorted_state):
     g = GOLDEN[("mini-3d", "pallas", 60)]
-    cfg, params, state = wt.scenes.build("mini-3d", neighbor_mode="pallas",
+    cfg, params, state = wt.scenes.build("mini-3d", device="cpu",
+                                         neighbor_mode="pallas",
                                          sorted_state=sorted_state,
                                          **g["kw"])
     s = wt.rollout(state, params, cfg, 60)

@@ -33,7 +33,7 @@ def test_kernel_coeffs_match_jax(dim, h):
 @pytest.mark.parametrize("name", wj.scenes.names())
 def test_scene_matches_jax(name):
     jcfg, jparams, jstate = wj.scenes.build(name)
-    cfg, params, state = wt.scenes.build(name)
+    cfg, params, state = wt.scenes.build(name, device="cpu")
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     jleaves = [np.asarray(x) for x in jax.tree.leaves(jparams)]
     tleaves = convert.params_to_numpy(params)

@@ -49,7 +49,8 @@ def test_jax_checkpoint_loads_in_port(tmp_path):
 
 
 def test_port_checkpoint_loads_in_jax(tmp_path):
-    cfg, params, state = wt.scenes.build("mini-3d", sorted_state=True,
+    cfg, params, state = wt.scenes.build("mini-3d", device="cpu",
+                                         sorted_state=True,
                                          grid_dims=(20, 16, 16))
     params = params.replace(viscosity_strength=0.3)
     state = wt.rollout(state, params, cfg, 3)
@@ -74,7 +75,7 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
 
 
 def _mini():
-    return wt.Simulation.from_scene("mini-3d")
+    return wt.Simulation.from_scene("mini-3d", device="cpu")
 
 
 def test_run_pause_resume_reset():
@@ -114,9 +115,10 @@ def test_tune_and_gravity():
 
 
 def test_sorted_state_observation_is_in_id_order():
-    sim = wt.Simulation.from_scene("reference-cube")
+    sim = wt.Simulation.from_scene("reference-cube", device="cpu")
     assert sim.cfg.sorted_state
-    sim2 = wt.Simulation(*wt.scenes.build("mini-3d", sorted_state=True))
+    sim2 = wt.Simulation(*wt.scenes.build("mini-3d", device="cpu",
+                                            sorted_state=True))
     sim2.run(3)
     ids = sim2.state.ids.numpy()
     assert not (ids == np.arange(ids.size)).all(), "rows were re-permuted"
@@ -137,3 +139,15 @@ def test_stats_and_warmup_window():
     assert st["step"] == 6 and st["steps_timed"] == 3
     assert st["particle_steps_per_s"] > 0 and st["kinetic_energy"] > 0
     assert st["mean_density"] > 0
+
+
+def test_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch):
+    """The entry points default to the card and raise without one; they
+    never fall back to the CPU on their own."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wt.Simulation.from_scene("mini-3d")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wt.scenes.build("mini-3d")
+    assert wt.Simulation.from_scene("mini-3d", device="cpu").device == \
+        torch.device("cpu")

@@ -38,6 +38,28 @@ def test_sort_pairs_bit_identical_to_jax(n):
     np.testing.assert_array_equal(gk.numpy(), np.sort(keys))
 
 
+@pytest.mark.parametrize("n", [1000, 3000])
+@pytest.mark.parametrize("kind", ["int32_max", "all_equal"])
+def test_sort_pairs_plain_padding_ties_match_jax(n, kind):
+    """Real INT32_MAX keys tie with the (INT32_MAX, 0) padding, and
+    all-equal keys tie everywhere: the network alone decides where each
+    pair lands, so the padding must be the same pairs as the JAX
+    package's."""
+    rng = np.random.default_rng(n)
+    if kind == "all_equal":
+        keys = np.full(n, 7, np.int32)
+    else:
+        keys = rng.integers(-50, 50, n).astype(np.int32)
+        keys[rng.random(n) < 0.3] = np.iinfo(np.int32).max
+    vals = rng.permutation(n).astype(np.int32)
+    wk, wv = jbitonic.sort_pairs(jnp.asarray(keys), jnp.asarray(vals),
+                                 interpret=True)
+    gk, gv = bs.sort_pairs_plain(torch.from_numpy(keys),
+                                 torch.from_numpy(vals))
+    np.testing.assert_array_equal(gk.numpy(), np.asarray(wk))
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+
+
 def test_argsort_keys_ties_match_jax():
     """tests/test_pallas_sort.py:26's tie-heavy case: the order (which of
     the equal keys comes first) is JAX's, not just some valid order."""

@@ -81,7 +81,8 @@ def test_particle_order_step_matches_jax_xla():
 
 
 def test_rollout_counts_steps_and_keeps_ids():
-    cfg, params, state = wt.scenes.build("mini-3d", sorted_state=True)
+    cfg, params, state = wt.scenes.build("mini-3d", device="cpu",
+                                         sorted_state=True)
     s = wt.rollout(state, params, cfg, 3)
     assert int(s.step_count) == 3
     assert float(s.time) == pytest.approx(3 / 60, rel=1e-6)

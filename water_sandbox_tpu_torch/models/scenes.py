@@ -1,7 +1,8 @@
 """Scene definitions and the scene registry — the counterpart of
 ``water_sandbox_tpu/models/scenes.py``: the same 7 scenes with the same
 configurations, built with numpy on the host. ``build(name, device=...)``
-returns (SimConfig, SimParams, FluidState) with tensors on ``device``.
+returns (SimConfig, SimParams, FluidState) with tensors on ``device``
+(default CUDA).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..core import device as device_mod
 from ..core.params import (DEFAULT_PARTICLE_RADIUS, DEFAULT_SMOOTHING_RADIUS,
                            Container, InteractionField, KernelCoeffs,
                            SimConfig, SimParams)
@@ -68,9 +70,10 @@ def _grid_dims_for(container_size, h=DEFAULT_SMOOTHING_RADIUS):
     return hashing.default_grid_dims(container_size, h)
 
 
-def build(name: str, device="cpu", **overrides):
-    """Build a scene on ``device``; overrides replace SimConfig fields."""
-    cfg, params, state = get(name).build(device)
+def build(name: str, device=device_mod.DEFAULT, **overrides):
+    """Build a scene on ``device`` (CUDA unless the caller names the CPU;
+    raises without a CUDA device); overrides replace SimConfig fields."""
+    cfg, params, state = get(name).build(device_mod.resolve(device))
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     return cfg, params, state

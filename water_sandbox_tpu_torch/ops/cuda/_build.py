@@ -36,8 +36,9 @@ _ENTRY_POINTS = {
     "sph_density": ("wst_sph_density",
                     [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "sph_force": ("wst_sph_force",
-                  [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "bitonic_sort": ("wst_bitonic_sort", [_P, _P, _I, _I, _P]),
+                  [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                   _P]),
+    "bitonic_sort": ("wst_bitonic_sort", [_P, _P, _P, _P, _I, _I, _I, _P]),
 }
 
 

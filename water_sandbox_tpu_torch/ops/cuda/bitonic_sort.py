@@ -6,8 +6,10 @@ the same compare-exchange network as the TPU kernel, so keys and values
 (ties included) equal the JAX package's bit for bit. Non-power-of-two n
 pads with INT32_MAX keys to ``max(1024, 2^ceil(log2 n))``; more than 65,536
 padded pairs raise, as in the JAX package. On a CUDA tensor it launches
-``csrc/bitonic_sort.cu`` and counts the call in ``LAUNCHES``; on a CPU
-tensor it runs ``sort_pairs_plain``, the same network in torch ops.
+``csrc/bitonic_sort.cu`` once (the kernel makes the padding itself and
+writes the n sorted pairs into two fresh tensors) and counts the call in
+``LAUNCHES``; on a CPU tensor it runs ``sort_pairs_plain``, the same network
+in torch ops.
 """
 
 from __future__ import annotations
@@ -26,8 +28,9 @@ def reset_launches() -> None:
     LAUNCHES["bitonic_sort"] = 0
 
 
-def _padded(keys: torch.Tensor, values: torch.Tensor):
-    """(keys, values) as int32, padded with (INT32_MAX, 0) to n_pad."""
+def _n_pad(keys: torch.Tensor, values: torch.Tensor) -> int:
+    """The padded length max(1024, 2^ceil(log2 n)); raises on what the
+    kernel does not take."""
     if keys.dim() != 1 or values.shape != keys.shape:
         raise ValueError(f"keys and values must be 1-D of one length; got "
                          f"{tuple(keys.shape)} and {tuple(values.shape)}")
@@ -38,6 +41,13 @@ def _padded(keys: torch.Tensor, values: torch.Tensor):
     if n_pad > MAX_PAIRS:
         raise ValueError(f"n={n} too large for the bitonic sort (max "
                          f"{MAX_PAIRS})")
+    return n_pad
+
+
+def _padded(keys: torch.Tensor, values: torch.Tensor):
+    """(keys, values) as int32, padded with (INT32_MAX, 0) to n_pad."""
+    n = keys.shape[0]
+    n_pad = _n_pad(keys, values)
     keys_p = torch.full((n_pad,), _KEY_MAX, dtype=torch.int32,
                         device=keys.device)
     keys_p[:n] = keys
@@ -80,18 +90,22 @@ def sort_pairs(keys: torch.Tensor, values: torch.Tensor):
         return sort_pairs_plain(keys, values)
     if keys.device.type != "cuda":
         raise ValueError(f"unsupported device {keys.device}")
-    n = keys.shape[0]
-    keys_p, vals_p = _padded(keys, values)
+    n_pad = _n_pad(keys, values)
+    # no-ops for contiguous int32 input, the kernel's own type
+    keys = keys.to(torch.int32).contiguous()
+    values = values.to(torch.int32).contiguous()
+    out_k = torch.empty_like(keys)
+    out_v = torch.empty_like(values)
     from . import _build
     err = _build.entry("wst_bitonic_sort")(
-        keys_p.data_ptr(), vals_p.data_ptr(), keys_p.shape[0],
-        keys_p.device.index or 0,
-        torch.cuda.current_stream(keys_p.device).cuda_stream)
+        keys.data_ptr(), values.data_ptr(), out_k.data_ptr(),
+        out_v.data_ptr(), keys.shape[0], n_pad, keys.device.index or 0,
+        torch.cuda.current_stream(keys.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"bitonic_sort kernel launch failed: CUDA error "
                            f"{err}")
     LAUNCHES["bitonic_sort"] += 1
-    return keys_p[:n], vals_p[:n]
+    return out_k, out_v
 
 
 def argsort_keys(keys: torch.Tensor):

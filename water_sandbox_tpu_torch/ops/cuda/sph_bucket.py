@@ -19,6 +19,7 @@
 
 from __future__ import annotations
 
+import functools
 import itertools
 from typing import NamedTuple
 
@@ -45,6 +46,11 @@ _P_VISCOSITY = 9
 # Kernel launches by the wrappers (a launch made for any purpose counts;
 # callers that need the main path's count reset it first).
 LAUNCHES = {"sph_density": 0, "sph_force": 0}
+
+# Threads an SM the force kernel's row groups aim for (_force_group): on the
+# H100 two threads a row beat one at 65,536 rows (496 threads an SM) and lose
+# at 266,112 (2,016).
+_FORCE_THREADS_PER_SM = 768
 
 # Candidate elements (rows x 3^dim x cap_p) per chunk of the plain versions:
 # bounds their temporaries to tens of MB at any particle count.
@@ -333,20 +339,46 @@ def run_density(planes, counts, addr, params_vec, cfg: SimConfig):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(
+        device_index).multi_processor_count
+
+
+def _force_group(n: int, sms: int) -> int:
+    """Threads a row of the force kernel (csrc/sph_force.cu) for ``n`` rows
+    on a card of ``sms`` SMs: the least of 1, 2, 4 that gives it at least
+    ``_FORCE_THREADS_PER_SM`` threads an SM, else 4."""
+    group = 1
+    while group < 4 and n * group < sms * _FORCE_THREADS_PER_SM:
+        group *= 2
+    return group
+
+
 def run_force(planes, dens, counts, addr, params_vec, cfg: SimConfig):
     """Force pass: (2 + dim, cap_p, L) f32 — den/nden passthrough, then the
-    acceleration planes (see csrc/sph_force.cu). Plain version on the CPU,
-    kernel on CUDA."""
-    g, cap_p = _check_inputs(cfg, planes, counts, addr, params_vec,
-                             dens=dens)
+    acceleration planes at every address in ``addr`` (see
+    csrc/sph_force.cu). Plain version on the CPU, kernel on CUDA."""
+    _check_inputs(cfg, planes, counts, addr, params_vec, dens=dens)
     if planes.device.type == "cpu":
         return force_plain(planes, dens, counts, addr, params_vec, cfg)
+    return _force_kernel(planes, dens, counts, addr, params_vec, cfg,
+                         _force_group(addr.shape[0],
+                                      _sm_count(planes.device.index or 0)))
+
+
+def _force_kernel(planes, dens, counts, addr, params_vec, cfg: SimConfig,
+                  group: int):
+    """Launch csrc/sph_force.cu with ``group`` threads a row on checked
+    CUDA inputs (run_force picks the group)."""
+    g = _geometry(cfg)
+    cap_p = _cap_pad(cfg.cell_capacity)
     out = torch.empty((2 + cfg.dim, cap_p, g.L), dtype=torch.float32,
                       device=planes.device)
     _launch("sph_force", planes.data_ptr(), dens.data_ptr(),
             counts.data_ptr(), addr.data_ptr(), addr.shape[0],
             params_vec.data_ptr(), out.data_ptr(), cfg.dim, cap_p, g.L,
-            g.S_pad, g.gz, planes.device.index or 0,
+            g.S_pad, g.gz, group, planes.device.index or 0,
             torch.cuda.current_stream(planes.device).cuda_stream)
     return out
 

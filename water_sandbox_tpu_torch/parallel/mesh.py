@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core import device as device_mod
+
 
 class Mesh:
     """``n_shards`` shards along x; shard ``d`` computes on ``devices[d]``."""
@@ -51,16 +53,14 @@ class Mesh:
         return self._place([top] * self.size)
 
 
-def make_mesh(n_shards: int, devices=None) -> Mesh:
+def make_mesh(n_shards: int, devices=device_mod.DEFAULT) -> Mesh:
     """A mesh of ``n_shards`` shards. ``devices``: one device for all shards
-    (default ``cuda:0`` where CUDA is present, else ``cpu``) or a list of
-    ``n_shards`` devices."""
+    (default ``cuda:0``; raises without a CUDA device, pass ``"cpu"`` for
+    the CPU) or a list of ``n_shards`` devices."""
     if n_shards < 1:
         raise ValueError(f"n_shards must be >= 1, got {n_shards}")
-    if devices is None:
-        devices = "cuda:0" if torch.cuda.is_available() else "cpu"
     if isinstance(devices, (str, torch.device)):
         devices = [devices] * n_shards
     if len(devices) != n_shards:
         raise ValueError(f"{len(devices)} devices for {n_shards} shards")
-    return Mesh(list(devices))
+    return Mesh([device_mod.resolve(d) for d in devices])

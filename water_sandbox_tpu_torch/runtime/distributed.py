@@ -15,6 +15,7 @@ import time as _time
 
 import torch
 
+from ..core import device as device_mod
 from ..core.params import SimConfig, SimParams
 from ..core.state import FluidState
 from ..models import scenes as scene_registry
@@ -25,13 +26,14 @@ from . import metrics as metrics_mod
 class DistributedSimulation:
     """Fixed-capacity per-shard particle slots, halo exchange and migration
     between the shards of ``mesh`` (default: ``n_shards`` shards on
-    ``device``). The first ``run`` is recorded as warm-up, as in
+    ``device``, CUDA unless the caller names the CPU; raises without a CUDA
+    device). The first ``run`` is recorded as warm-up, as in
     ``Simulation``."""
 
     def __init__(self, cfg: SimConfig, params: SimParams, state: FluidState,
                  mesh: mesh_mod.Mesh | None = None, n_shards: int = 1,
                  slack: float = 2.0, mig_cap: int = 1024,
-                 name: str = "custom", device=None):
+                 name: str = "custom", device=device_mod.DEFAULT):
         self.mesh = mesh or mesh_mod.make_mesh(n_shards, device)
         self.cfg = cfg.resolved()
         self.params = params.to(self.mesh.devices[0])
@@ -47,10 +49,11 @@ class DistributedSimulation:
 
     @classmethod
     def from_scene(cls, name: str, n_shards: int = 1, slack: float = 2.0,
-                   device=None, **cfg_overrides):
-        cfg, params, state = scene_registry.build(name, **cfg_overrides)
-        return cls(cfg, params, state, n_shards=n_shards, slack=slack,
-                   name=name, device=device)
+                   device=device_mod.DEFAULT, **cfg_overrides):
+        mesh = mesh_mod.make_mesh(n_shards, device)
+        cfg, params, state = scene_registry.build(
+            name, device=mesh.devices[0], **cfg_overrides)
+        return cls(cfg, params, state, mesh=mesh, slack=slack, name=name)
 
     def _sync(self):
         for dev in set(self.mesh.devices):

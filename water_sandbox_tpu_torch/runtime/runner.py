@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..core import convert
+from ..core import device as device_mod
 from ..core.params import Container, InteractionField, SimConfig, SimParams
 from ..core.state import FluidState
 from ..models import scenes as scene_registry
@@ -46,8 +47,10 @@ class Simulation:
         self._warm = False
 
     @classmethod
-    def from_scene(cls, name: str, device="cpu",
+    def from_scene(cls, name: str, device=device_mod.DEFAULT,
                    **cfg_overrides) -> "Simulation":
+        """Scene ``name`` on ``device``: CUDA unless the caller names the
+        CPU; raises without a CUDA device."""
         cfg, params, state = scene_registry.build(name, device=device,
                                                   **cfg_overrides)
         return cls(cfg, params, state, name=name, device=device)
