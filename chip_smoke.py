@@ -5,12 +5,15 @@
 
 Builds the port's CUDA kernels from ``water_sandbox_tpu_torch/csrc``, holds
 each against its plain PyTorch version at the main path's shapes, checks
-the exact overflow rescue and the ``mini-3d`` golden pins, then drives the
-single-device path through ``Simulation.from_scene(...).run(n)`` on
+the exact overflow rescue and the ``mini-3d`` golden pins, holds the
+kernel pipeline against the dense oracle and ``hash_grid`` against the
+weighted oracle on ``mini-3d``, runs ``reference-cube`` in ``bucket_grid``
+mode against the kernel pipeline, then drives the single-device path through ``Simulation.from_scene(...).run(n)`` on
 ``reference-cube`` (65,536 particles) and ``moving-container-256k``
 (266,112 particles). The domain-decomposed step runs next: 8 shards of a
 128-particle flow against the single-device step (migration and the
-cross-shard rescue included), then ``DistributedSimulation`` on
+cross-shard rescue included; once on the kernels, once on the plain
+pair-block passes), then ``DistributedSimulation`` on
 ``sharded-1m`` (1,015,920 particles, 4 shards on the one card), with the
 kernels held against their plain versions on one shard's halo-filled
 planes. Last, the bitonic sort against its plain version at every padded
@@ -159,10 +162,12 @@ def pair_counts(planes, counts, addr, cfg, h):
     return rows, p_c, p_h
 
 
-def density_bound(rows, p_c, L, dim):
-    """Reads positions and addr, writes 6 planes a row, reads counts; per
-    candidate 3*dim - 1 flops of distance and 9 of the two kernels."""
-    return bound(p_c * (3 * dim - 1 + 9), rows * (4 * dim + 4 + 24) + 4 * L)
+def density_bound(rows, p_c, p_h, L, dim):
+    """Reads positions and addr, writes 6 planes a row, reads counts;
+    3*dim - 1 flops of distance a candidate, 9 of the two kernels a pair
+    within h (the self pair of every row among them)."""
+    return bound(p_c * (3 * dim - 1) + (p_h + rows) * 9,
+                 rows * (4 * dim + 4 + 24) + 4 * L)
 
 
 def force_bound(rows, p_c, p_h, L, dim):
@@ -205,11 +210,16 @@ def hold_and_time(label, record, planes, counts, addr, pv, cfg, h, dens_k,
     """K1's output ``dens_k`` against density_plain, and the force kernel
     on ``dens_in`` against force_plain; their event and device times, the
     plain versions' event times, and the bounds from this input's pair
-    counts. Where run_force puts several threads on a row, the force
-    kernel with one thread a row too, checked and timed beside it."""
+    counts. Where the wrappers put several threads on a row, each kernel
+    with one thread a row too, checked and timed beside it."""
     from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
-    occ = addr[addr < sb._cap_pad(cfg.cell_capacity)
-               * sb._geometry(cfg).L].long()
+    cap_p = sb._cap_pad(cfg.cell_capacity)
+    occ = addr[addr < cap_p * sb._geometry(cfg).L].long()
+    # K1 reads the empty slots of a run's lanes unpredicated: every position
+    # slot at or above its lane's count must hold the build's far fill
+    empty = torch.arange(cap_p, device=counts.device)[:, None] >= counts
+    check(bool((planes[:cfg.dim][:, empty] == sb._FAR).all()),
+          f"{label}: an empty position slot does not hold the far fill")
     dens_p = sb.density_plain(planes, counts, addr, pv, cfg)
     torch.cuda.synchronize()
     err_d = compare_planes(f"{label} sph_density", dens_k, dens_p, occ)
@@ -230,7 +240,7 @@ def hold_and_time(label, record, planes, counts, addr, pv, cfg, h, dens_k,
         plain_ms=cuda_ms(lambda: sb.density_plain(planes, counts, addr, pv,
                                                   cfg), reps=plain_reps),
         device_ms=device_ms(density, "sph_density"))
-    rec_d["bound_ms"], rec_d["bound_by"] = density_bound(rows, p_c, L,
+    rec_d["bound_ms"], rec_d["bound_by"] = density_bound(rows, p_c, p_h, L,
                                                          cfg.dim)
     rec_f = dict(
         max_abs_err=err_f, ms=cuda_ms(force),
@@ -240,45 +250,81 @@ def hold_and_time(label, record, planes, counts, addr, pv, cfg, h, dens_k,
         device_ms=device_ms(force, "sph_force"))
     rec_f["bound_ms"], rec_f["bound_by"] = force_bound(rows, p_c, p_h, L,
                                                        cfg.dim)
-    group = sb._force_group(addr.shape[0],
-                            sb._sm_count(planes.device.index or 0))
-    extra_f = f" threads a row {group}"
-    if group > 1:
-        def one():
-            return sb._force_kernel(planes, dens_in, counts, addr, pv, cfg, 1)
-        err_1 = compare_planes(f"{label} sph_force one thread a row", one(),
-                               out_p, occ)
-        rec_f["max_abs_err"] = max(err_f, err_1)
-        rec_f["one_thread_ms"] = cuda_ms(one)
-        rec_f["one_thread_device_ms"] = device_ms(one, "sph_force")
-        extra_f += (f" (one thread a row: max_abs_err={err_1:.3e} kernel_ms="
-                    f"{rec_f['one_thread_ms']:.4f} device_ms="
-                    f"{fmt(rec_f['one_thread_device_ms'])})")
+    # both kernels take the wrappers' one picker
+    group = sb._row_group(addr.shape[0],
+                          sb._sm_count(planes.device.index or 0))
+    ones = (("sph_density", rec_d, dens_p, lambda: sb._density_kernel(
+                planes, counts, addr, pv, cfg, 1)),
+            ("sph_force", rec_f, out_p, lambda: sb._force_kernel(
+                planes, dens_in, counts, addr, pv, cfg, 1)))
+    for name, rec, want, one in ones:
+        rec["extra"] = f" threads a row {group}"
+        if group > 1:
+            err_1 = compare_planes(f"{label} {name} one thread a row", one(),
+                                   want, occ)
+            rec["max_abs_err"] = max(rec["max_abs_err"], err_1)
+            rec["one_thread_ms"] = cuda_ms(one)
+            rec["one_thread_device_ms"] = device_ms(one, name)
+            rec["extra"] += (
+                f" (one thread a row: max_abs_err={err_1:.3e} kernel_ms="
+                f"{rec['one_thread_ms']:.4f} device_ms="
+                f"{fmt(rec['one_thread_device_ms'])})")
     for name, key, rec in (("sph_density", "sph_density", rec_d),
                            ("sph_force", force_key, rec_f)):
-        extra = extra_f if name == "sph_force" else ""
         log(f"[kernels] {label}: {name} max_abs_err={rec['max_abs_err']:.3e}"
             f" kernel_ms={rec['ms']:.4f} device_ms={fmt(rec['device_ms'])} "
             f"plain_ms={rec['plain_ms']:.4f} bound_ms={rec['bound_ms']:.3e} "
-            f"({rec['bound_by']}) library_ms=none{extra} (rows {rows}, "
-            f"candidates {p_c}, pairs within h {p_h}, planes "
+            f"({rec['bound_by']}) library_ms=none{rec.pop('extra')} (rows "
+            f"{rows}, candidates {p_c}, pairs within h {p_h}, planes "
             f"{tuple(planes.shape)})")
         record.setdefault(key, {})[label] = rec
+
+
+def row_group_crossing(label, planes, counts, addr, pv, cfg, dens) -> None:
+    """Device time of both row kernels with one and with two threads a row
+    on the first m rows of ``addr``, for m around the row count at which
+    ``_row_group`` goes from 2 to 1 on this card: the measurement its
+    threshold rests on."""
+    from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
+    sms = sb._sm_count(planes.device.index or 0)
+    at = sms * sb._ROW_THREADS_PER_SM
+    for m in sorted({at * k // 8 for k in (5, 6, 7, 9, 10, 12)}
+                    | {at - 1, at, addr.shape[0]}):
+        if m > addr.shape[0]:
+            continue
+        sub = addr[:m].contiguous()
+        t = {(name, g): device_ms(fn(g), name)
+             for name, fn in (
+                 ("sph_density", lambda g: lambda: sb._density_kernel(
+                     planes, counts, sub, pv, cfg, g)),
+                 ("sph_force", lambda g: lambda: sb._force_kernel(
+                     planes, dens, counts, sub, pv, cfg, g)))
+             for g in (1, 2)}
+        log(f"[kernels] {label}, first {m} rows (the picker gives "
+            f"{sb._row_group(m, sms)} threads a row; 2 below {at} rows on "
+            f"{sms} SMs): device_ms sph_density one thread a row "
+            f"{fmt(t['sph_density', 1])}, two {fmt(t['sph_density', 2])}; "
+            f"sph_force one {fmt(t['sph_force', 1])}, two "
+            f"{fmt(t['sph_force', 2])}")
 
 
 def fmt(x) -> str:
     return "not measured" if x is None else f"{x:.4f}"
 
 
-def kernels_vs_plain(label, cfg, params, state, record) -> None:
+def kernels_vs_plain(label, cfg, params, state, record,
+                     crossing=False) -> None:
     """K1 against density_plain and K2 against force_plain (on the same
-    dens) at the shapes the main path gives them."""
+    dens) at the shapes the main path gives them; with ``crossing`` the
+    row-subset timings of row_group_crossing too."""
     from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
     planes, counts, flat, pv, cfg = kernel_inputs(cfg, params, state)
     dens_k = sb.run_density(planes, counts, flat, pv, cfg)
     dens_p = sb.density_plain(planes, counts, flat, pv, cfg)
     hold_and_time(label, record, planes, counts, flat, pv, cfg,
                   float(params.smoothing_radius), dens_k, dens_p)
+    if crossing:
+        row_group_crossing(label, planes, counts, flat, pv, cfg, dens_p)
 
 
 def by_id(state, field):
@@ -314,18 +360,14 @@ def phase_rescue(state100) -> None:
         f"{ovf} (plain path {ovf_p})")
     check(raw > 0, "rescue phase must overflow")
     check(ovf == 0 and ovf_p == 0, "rescue left particles unrescued")
-    worst = 0.0
-    for f in ("density", "near_density", "acc", "vel", "pos"):
-        got, want = by_id(s_k, f), by_id(s_p, f)
-        err = np.abs(got - want)
-        bar = RTOL * np.abs(want) + RTOL * max(1.0, float(np.abs(want).max()))
-        check(bool((err <= bar).all()),
-              f"rescue step {f}: max err {float(err.max()):.3e} past the bar")
-        worst = max(worst, float(err.max()))
+    worst = max(hold(f"rescue step {f}", by_id(s_k, f), by_id(s_p, f))
+                for f in ("density", "near_density", "acc", "vel", "pos"))
     log(f"[rescue] kernel path vs plain path: max_abs_err={worst:.3e}")
 
 
-def phase_golden() -> None:
+def phase_golden():
+    """The JAX package's ("mini-3d", "pallas", 60) pin on the kernels;
+    returns the scene's config, parameters and its state at step 60."""
     import water_sandbox_tpu_torch as wst
     cfg, params, state = wst.scenes.build("mini-3d", device="cuda",
                                           grid_dims=(20, 16, 16))
@@ -346,6 +388,96 @@ def phase_golden() -> None:
                                rtol=2e-3)
     log(f"[golden] mini-3d 60 steps on the kernels: pins met "
         f"(ke {0.5 * (vel ** 2).sum():.2f}, mean_rho {rho.mean():.4f})")
+    return cfg, params, s
+
+
+def hold(name, got, want, rtol=RTOL) -> float:
+    """|got - want| <= rtol·|want| + rtol·max(1, max|want|) elementwise on
+    two numpy arrays; returns the max error, raises past the bar."""
+    err = np.abs(got - want)
+    bar = rtol * np.abs(want) + rtol * max(1.0, float(np.abs(want).max()))
+    check(bool(np.isfinite(got).all()), f"{name}: non-finite")
+    check(bool((err <= bar).all()),
+          f"{name}: max err {float(err.max()):.3e} past the bar")
+    return float(err.max())
+
+
+def phase_oracle(cfg, params, state) -> None:
+    """mini-3d on the card, from its compressed state at step 60: one step
+    of the dense oracle against one step of the kernel pipeline (density,
+    near density and acceleration by particle id, the 2e-4 bar of the JAX
+    package's test_pallas_matches_xla_bucket), and hash_grid, on a table
+    small enough to collide, against the oracle weighted by
+    reference_pair_weights (tests/test_grid.py's parity)."""
+    import dataclasses
+    import water_sandbox_tpu_torch as wst
+    from water_sandbox_tpu_torch.core.params import KernelCoeffs
+    from water_sandbox_tpu_torch.ops import dense, grid, hashing
+    s_k = wst.step(state, params, cfg)
+    s_d = wst.step(state, params,
+                   dataclasses.replace(cfg, neighbor_mode="dense"))
+    check(int(s_k.overflow) == 0, "oracle phase: the kernel step overflowed")
+    worst = max(hold(f"kernel pipeline vs dense oracle, {f}", by_id(s_k, f),
+                     by_id(s_d, f))
+                for f in ("density", "near_density", "acc"))
+    check(float(s_d.acc.abs().max()) > 1.0, "oracle phase: no pair forces")
+    log(f"[oracle] mini-3d step 61: kernel pipeline vs dense oracle by id, "
+        f"max_abs_err={worst:.3e} (max |acc| "
+        f"{float(s_d.acc.abs().max()):.1f})")
+
+    coeffs = KernelCoeffs.from_radius(params.smoothing_radius, cfg.dim)
+    cfg_h = dataclasses.replace(cfg, neighbor_mode="hash_grid",
+                                hash_table_size=61)
+    pred, vel = state.predicted, state.vel
+    w = hashing.reference_pair_weights(pred, params.smoothing_radius,
+                                       cfg_h.table_size)
+    got = grid.hash_sph(pred, vel, params, coeffs, cfg_h)
+    want = dense.density_pass(pred, params, coeffs, pair_weight=w)
+    want += (dense.force_pass(pred, vel, *want, params, coeffs,
+                              pair_weight=w),)
+    check(int(got[5]) == 0, "oracle phase: a hash run was truncated")
+    check(int(w.max()) > 1, "oracle phase: no hash collision to multi-count")
+    worst = max(hold(f"hash_grid vs weighted oracle, {name}",
+                     g.cpu().numpy(), x.cpu().numpy())
+                for name, g, x in zip(("den", "nden", "prs", "nprs", "acc"),
+                                      got, want))
+    log(f"[oracle] mini-3d step 60: hash_grid vs dense oracle with "
+        f"reference_pair_weights (table {cfg_h.table_size}, max weight "
+        f"{int(w.max())}), max_abs_err={worst:.3e}")
+
+
+def phase_bucket_grid(state100, steps: int = 10) -> None:
+    """reference-cube at full width with neighbor_mode="bucket_grid"
+    (particle-order rows, the plain pair-block passes of ops/grid.py) from
+    the step-100 state: ``steps`` steps against the kernel pipeline's from
+    the same state, by particle id; every particle exact."""
+    import dataclasses
+    import water_sandbox_tpu_torch as wst
+    cfg_k, params, _ = wst.scenes.build("reference-cube", device="cuda")
+    cfg_b = dataclasses.replace(cfg_k, neighbor_mode="bucket_grid",
+                                sorted_state=False)
+    base = float(state100.overflow_total)
+    s_k = wst.rollout(state100, params, cfg_k, steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    s_b = wst.step(state100, params, cfg_b)          # warm-up, not timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_b = wst.rollout(s_b, params, cfg_b, steps - 1)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / (steps - 1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(float(s_b.overflow_total) == base
+          and float(s_k.overflow_total) == base,
+          "bucket_grid phase: overflow_total grew")
+    err = float(np.abs(by_id(s_b, "pos") - by_id(s_k, "pos"))
+                .sum(axis=1).max())
+    log(f"[bucket_grid] reference-cube from step 100: {steps} steps, "
+        f"n={s_b.n}, ms/step {ms:.3f} (host clock over {steps - 1} synced "
+        f"steps after 1 warm-up), peak memory {peak:.2f} GiB, "
+        f"overflow_total {float(s_b.overflow_total) - base}, max |dpos| by "
+        f"id vs the kernel pipeline {err:.3e}")
+    check(err <= DOMAIN_TOL, f"bucket_grid phase: parity {err:.3e}")
 
 
 def phase_main_path(scene: str, steps: int, warmup: int):
@@ -394,10 +526,13 @@ def sharded_by_id(states, active) -> np.ndarray:
     return out
 
 
-def phase_domain_parity(dev) -> None:
+def phase_domain_parity(dev, use_pallas=None) -> None:
     """__graft_entry__.py::dryrun_multichip on the port: 8 shards of a
     128-particle cube in rightward flow (real migration), then forced
-    overflow, each against the single-device step from the same state."""
+    overflow, each against the single-device step from the same state.
+    ``use_pallas=False`` runs the shards' plain pair-block passes
+    (ops/grid.py) in place of the kernels, at the same bars."""
+    from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
     import dataclasses
     import water_sandbox_tpu_torch as wst
     from water_sandbox_tpu_torch.core.params import Container
@@ -425,20 +560,25 @@ def phase_domain_parity(dev) -> None:
         raw = sum(int(o) for o in domain.halo_planes(
             [s.predicted for s in states], [s.vel for s in states], active,
             [params] * nsh, c, gx // nsh, mesh)[3])
-        step = domain.make_domain_step(mesh, c)
+        step = domain.make_domain_step(mesh, c, use_pallas=use_pallas)
         before = [int(a.sum()) for a in active]
         lost = ovf = 0.0
+        sb.reset_launches()
         for _ in range(steps):
             states, active, lost_step = step(states, active, params)
             lost += float(lost_step)
             ovf += float(states[0].overflow)
         after = [int(a.sum()) for a in active]
+        want = 0 if use_pallas is False else nsh * steps
+        check(all(v == want for v in sb.LAUNCHES.values()),
+              f"domain {label}: launches {sb.LAUNCHES}, expected {want}")
         single = wst.rollout(state0, params, c, steps)
         err = float(np.abs(sharded_by_id(states, active)
                            - by_id(single, "pos")).sum(axis=1).max())
-        log(f"[domain] parity {label}: {steps} steps, per-shard counts "
-            f"{before} -> {after}, overflowing at step 0 {raw}, lost {lost}, "
-            f"unrescued {ovf}, max |dpos| by id {err:.3e}")
+        path = "plain passes" if use_pallas is False else "kernels"
+        log(f"[domain] parity {label} ({path}): {steps} steps, per-shard "
+            f"counts {before} -> {after}, overflowing at step 0 {raw}, lost "
+            f"{lost}, unrescued {ovf}, max |dpos| by id {err:.3e}")
         check(lost == 0.0, f"domain {label}: lost {lost} particles")
         check(ovf == 0.0, f"domain {label}: {ovf} unrescued")
         check(float(single.overflow_total) == 0.0,
@@ -679,14 +819,16 @@ def main() -> int:
     cfg3, params3, state3 = wst.scenes.build("moving-container-256k",
                                              device="cuda")
     kernels_vs_plain("moving-container-256k step 10", cfg3, params3,
-                     wst.rollout(state3, params3, cfg3, 10), record)
+                     wst.rollout(state3, params3, cfg3, 10), record,
+                     crossing=True)
     del state3
 
     # 4. exact rescue on the card
     phase_rescue(state100)
 
-    # 5. golden pins
-    phase_golden()
+    # 5. golden pins, the oracle and the plain neighbour modes
+    phase_oracle(*phase_golden())
+    phase_bucket_grid(state100)
 
     # 6. single-device path
     paths = {"reference-cube": phase_main_path("reference-cube", 200,
@@ -696,6 +838,7 @@ def main() -> int:
 
     # 7. domain-decomposed path
     phase_domain_parity("cuda:0")
+    phase_domain_parity("cuda:0", use_pallas=False)
     paths["sharded-1m"] = phase_domain_full(record)
 
     # 8. the bitonic sort and its own path (launches per call, not step)

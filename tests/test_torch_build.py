@@ -31,7 +31,8 @@ def _case(frame="world", n=500, cap=4, seed=11):
                       grid_dims=(10, 10, 10), cell_capacity=cap,
                       grid_frame=frame)
     params = convert.params_from_numpy(
-        [np.asarray(x) for x in jax.tree.leaves(jparams)])
+        [np.asarray(x) for x in jax.tree.leaves(jparams)],
+        device="cpu")
     cfg = SimConfig(**dataclasses.asdict(jcfg))
     return pred, vel, jparams, jcfg, params, cfg
 
@@ -140,7 +141,27 @@ def test_derived_planes_and_gather_match_jax():
     (65536, 132, 2), (266112, 132, 1), (4000, 132, 4), (253980, 132, 1),
     (101376, 132, 1), (101375, 132, 2), (0, 132, 4)])
 def test_force_group_by_row_count(n, sms, group):
-    """Threads a row of the force kernel: more while n rows leave the card's
-    warp slots empty (reference-cube's 65,536 rows on an H100's 132 SMs),
-    one once they fill (the flagship, a sharded-1m shard)."""
-    assert sb._force_group(n, sms) == group
+    """Threads a row of the density and the force kernel, one picker for
+    both: more while n rows leave the card's warp slots empty
+    (reference-cube's 65,536 rows on an H100's 132 SMs), one once they fill
+    (the flagship, a sharded-1m shard)."""
+    assert sb._row_group(n, sms) == group
+
+
+def test_kernel_entry_points_declare_every_argument():
+    """ctypes cuts a pointer to 32 bits where an argtype is missing, so each
+    entry point's argtypes must count what its C signature takes: pointers
+    for the buffers and the stream, ints for the rest — both SPH kernels
+    with the `group` argument before `device`."""
+    import ctypes
+    import re
+    from water_sandbox_tpu_torch.ops.cuda import _build
+    for name, (entry, argtypes) in _build._ENTRY_POINTS.items():
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        sig = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", src)
+        params = [p.strip() for p in sig.group(1).split(",")]
+        want = [ctypes.c_void_p if "*" in p else ctypes.c_int
+                for p in params]
+        assert argtypes == want, name
+        if name.startswith("sph_"):
+            assert params[-3:] == ["int group", "int device", "void* stream"]

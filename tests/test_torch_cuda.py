@@ -83,11 +83,92 @@ def test_force_kernel_matches_plain_with_overflow(cuda_device, dim):
     np.testing.assert_allclose(_at(got, occ), want, **TOL)
 
 
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_density_kernel_groups_match_plain(cuda_device, dim, group):
+    """K1 with 1, 2 and 4 threads a row against density_plain on a dense
+    random cloud at cell capacity 4 (overflow sentinel rows in addr, full
+    lanes everywhere); two launches with the same group give the same bits
+    (no atomics, a fixed order of summation)."""
+    rng = np.random.default_rng(9)
+    pred = ((rng.random((3000, dim)) - 0.5) * 2.0).astype(np.float32)
+    vel = rng.standard_normal((3000, dim)).astype(np.float32)
+    params = wt.SimParams.create(dim=dim, device=cuda_device)
+    coeffs = KernelCoeffs.from_radius(params.smoothing_radius, dim)
+    cfg = SimConfig(n=pred.shape[0], dim=dim, grid_dims=(14,) * dim,
+                    cell_capacity=4)
+    planes, counts, addr, overflow = sb._build_slab_buckets(
+        torch.from_numpy(pred).to(cuda_device),
+        torch.from_numpy(vel).to(cuda_device), params, cfg)
+    assert int(overflow) > 0
+    pv = sb._param_vector(params, coeffs)
+    occ = addr[addr < sb._cap_pad(cfg.cell_capacity)
+               * sb._geometry(cfg).L].long()
+    want = _at(sb.density_plain(planes, counts, addr, pv, cfg), occ)
+    sb.reset_launches()
+    got = sb._density_kernel(planes, counts, addr, pv, cfg, group)
+    again = sb._density_kernel(planes, counts, addr, pv, cfg, group)
+    torch.cuda.synchronize()
+    assert sb.LAUNCHES["sph_density"] == 2
+    np.testing.assert_allclose(_at(got, occ), want, rtol=2e-4,
+                               atol=2e-4 * max(1.0, np.abs(want).max()))
+    np.testing.assert_array_equal(_at(got, occ), _at(again, occ))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        sb._density_kernel(planes, counts, addr, pv, cfg, 3)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_density_kernel_and_the_empty_slots_fill(cuda_device, dim, group):
+    """What K1 asks of the slots at or above a lane's count. It walks a run
+    of three lanes to the run's largest count and loads every slot below it
+    unpredicated, so it needs a position there that is farther than h from
+    every query: the build's _FAR, or any other far, infinite or NaN value,
+    gives density_plain's sums (which mask by the counts); a position next
+    to a query in such a slot is counted, and the kernel then leaves
+    density_plain. Velocity planes are not read at all."""
+    rng = np.random.default_rng(11)
+    n = 400 if dim == 2 else 1500
+    pred = ((rng.random((n, dim)) - 0.5) * 2.0).astype(np.float32)
+    vel = rng.standard_normal((n, dim)).astype(np.float32)
+    params = wt.SimParams.create(dim=dim, device=cuda_device)
+    coeffs = KernelCoeffs.from_radius(params.smoothing_radius, dim)
+    cfg = SimConfig(n=pred.shape[0], dim=dim, grid_dims=(14,) * dim,
+                    cell_capacity=32)
+    planes, counts, addr, overflow = sb._build_slab_buckets(
+        torch.from_numpy(pred).to(cuda_device),
+        torch.from_numpy(vel).to(cuda_device), params, cfg)
+    assert int(overflow) == 0
+    pv = sb._param_vector(params, coeffs)
+    occ = addr.long()
+    want = _at(sb.density_plain(planes, counts, addr, pv, cfg), occ)
+    bar = dict(rtol=2e-4, atol=2e-4 * max(1.0, np.abs(want).max()))
+    empty = (torch.arange(planes.shape[1], device=cuda_device)[:, None]
+             >= counts)
+    assert bool((planes[:dim][:, empty] == sb._FAR).all())
+
+    for fill in (3.0e7, float("inf"), float("nan")):
+        other = planes.clone()
+        other[:dim][:, empty] = fill
+        other[dim:] = float("nan")
+        got = sb._density_kernel(other, counts, addr, pv, cfg, group)
+        np.testing.assert_allclose(_at(got, occ), want, **bar)
+
+    # every empty slot takes the position of slot 0 of the lane one cell
+    # up the run's axis: within h of many queries there
+    near = planes.clone()
+    up = torch.roll(planes[:dim, 0], 1, dims=-1)[:, None, :].expand(
+        dim, planes.shape[1], -1)
+    near[:dim][:, empty] = up[:, empty]
+    got = _at(sb._density_kernel(near, counts, addr, pv, cfg, group), occ)
+    assert (got[0] > want[0] * 1.01).any()
+
+
 @pytest.mark.parametrize("large", [False, True])
 @pytest.mark.parametrize("dim", [2, 3])
 def test_force_kernel_dense_block(cuda_device, dim, large):
     """A dense block near cell capacity, at a row count that takes several
-    threads a row and at one that takes one (sph_bucket._force_group on
+    threads a row and at one that takes one (sph_bucket._row_group on
     this card); against force_plain."""
     h = 0.25
     cells = ((24 if large else 4), 72) if dim == 2 else (
@@ -105,7 +186,7 @@ def test_force_kernel_dense_block(cuda_device, dim, large):
         torch.from_numpy(pred).to(cuda_device),
         torch.from_numpy(vel).to(cuda_device), params, cfg)
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    assert (sb._force_group(n, sms) == 1) == large
+    assert (sb._row_group(n, sms) == 1) == large
     g = sb._geometry(cfg)
     pv = sb._param_vector(params, coeffs)
     occ = addr[addr < sb._cap_pad(cap) * g.L].long()
@@ -186,8 +267,9 @@ def test_domain_kernels_on_halo_filled_planes(cuda_device):
         params = wt.SimParams.create(dim=3, device=dev, container=(
             Container.create((0.0, 0.0, 0.0), (5.0, 1.8, 1.8), device=dev)))
         mesh = mesh_mod.make_mesh(8, dev)
-        states, active = domain.shard_state(wt.init_state(pts, vel), mesh,
-                                            cfg, params, slack=8.0)
+        states, active = domain.shard_state(
+            wt.init_state(pts, vel, device="cpu"), mesh, cfg, params,
+            slack=8.0)
         return params, mesh, states, active
 
     params, mesh, states, active = setup(cuda_device)

@@ -17,10 +17,13 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import _one_torch_thread  # noqa: F401 (autouse)
+
 from water_sandbox_tpu.core.params import Container as JContainer
 from water_sandbox_tpu.core.params import SimConfig as JSimConfig
 from water_sandbox_tpu.core.params import SimParams as JSimParams
 from water_sandbox_tpu.core.state import init_state as jinit_state
+from water_sandbox_tpu.ops import step as wj_step
 from water_sandbox_tpu.ops.pallas import sph_bucket as jsb
 from water_sandbox_tpu.parallel import domain as jdomain
 from water_sandbox_tpu.parallel import mesh as jmesh
@@ -50,11 +53,12 @@ def _setup(rightward=False, shift=0.0, **cfg_kw):
                          "grid_dims": (24, 16, 16), "cell_capacity": 16,
                          **cfg_kw})
     params = convert.params_from_numpy(
-        [np.asarray(x) for x in jax.tree.leaves(jparams)])
+        [np.asarray(x) for x in jax.tree.leaves(jparams)],
+        device="cpu")
     cfg = wt.SimConfig(**{**dataclasses.asdict(jcfg),
                           "neighbor_mode": "pallas"})
     return (jparams, jinit_state(jnp.asarray(pts), jnp.asarray(vel)), jcfg,
-            params, wt.init_state(pts, vel), cfg)
+            params, wt.init_state(pts, vel, device="cpu"), cfg)
 
 
 def _cat(states, field):
@@ -189,6 +193,100 @@ def test_force_queries_on_halo_filled_planes_are_the_local_rows():
     assert halo > 0, "no shard had a filled halo"
 
 
+@pytest.mark.parametrize("cap", [16, 1])
+def test_halo_filled_planes_keep_the_far_fill_in_empty_slots(cap):
+    """The density kernel reads the empty slots of its neighbour lanes
+    without asking the counts, so after the halo exchange every position
+    slot at or above its lane's count must still hold _FAR: in the local
+    slabs, in the halo slabs the neighbours filled and in the edge shards'
+    outer pads; at cell capacity 1 with overflowing cells too."""
+    _, _, _, params, state, cfg = _setup(rightward=True, cell_capacity=cap,
+                                         rescue_capacity=512)
+    mesh = mesh_mod.make_mesh(8, "cpu")
+    states, active = domain.shard_state(state, mesh, cfg, params, slack=8.0)
+    feats, counts, _, overflow = domain.halo_planes(
+        [s.predicted for s in states], [s.vel for s in states], active,
+        [params] * 8, cfg, 3, mesh)
+    assert (sum(int(o) for o in overflow) > 0) == (cap == 1)
+    slots = torch.arange(sb._cap_pad(cap))[:, None]
+    filled = 0
+    for f, c in zip(feats, counts):
+        empty = slots >= c
+        assert bool((f[:3][:, empty] == sb._FAR).all())
+        assert bool((f[:3][:, ~empty].abs() < 10.0).all())
+        filled += int((~empty).sum())
+    assert filled > cfg.n, "no halo slab was filled"
+
+
+@pytest.mark.parametrize("case", ["flow", "rescue"])
+def test_plain_domain_step_matches_jax(case):
+    """``use_pallas=False`` on both sides (the JAX package's XLA per-device
+    passes against the port's plain pair-block passes), 8 shards: the
+    rightward flow with migration (tests/test_domain.py:45) and forced
+    overflow with the cross-shard rescue (:90; at cell capacity 1, so that
+    the lattice overflows from the first step on). The flow runs at cell
+    capacity 4, which it never fills, to keep the pair blocks small."""
+    kw = dict(cell_capacity=1, rescue_capacity=512) if case == "rescue" \
+        else dict(cell_capacity=4)
+    steps = 6 if case == "rescue" else 8
+    jparams, jstate, jcfg, params, state, cfg = _setup(
+        rightward=case == "flow", **kw)
+    jsh, jact = jdomain.shard_state(jstate, jmesh.make_mesh(8), jcfg,
+                                    jparams, slack=8.0)
+    jstep = jdomain.make_domain_step(jmesh.make_mesh(8), jcfg,
+                                     use_pallas=False)
+    mesh = mesh_mod.make_mesh(8, "cpu")
+    states, active = domain.shard_state(state, mesh, cfg, params, slack=8.0)
+    step = domain.make_domain_step(mesh, cfg, use_pallas=False)
+    raw = sum(int(domain._local_buckets(
+        states[d].predicted, states[d].vel, active[d],
+        domain._grid_origin_static(params, cfg), params, cfg, 3, d)[4])
+        for d in range(8))
+    assert (raw > 0) == (case == "rescue")
+    before = [int(a.sum()) for a in active]
+    for _ in range(steps):
+        jsh, jact, jlost = jstep(jsh, jact, jparams)
+        states, active, lost = step(states, active, params)
+        assert float(jlost) == 0.0 and float(lost) == 0.0
+        assert int(states[0].overflow) == int(jsh.overflow) == 0
+        np.testing.assert_array_equal(torch.cat(active).numpy(),
+                                      np.asarray(jact))
+    if case == "flow":
+        assert [int(a.sum()) for a in active] != before, "no shard crossing"
+    got = _pos_by_id(_cat(states, "pos"), _cat(states, "ids"),
+                     torch.cat(active))
+    want = _pos_by_id(jsh.pos, jsh.ids, jact)
+    assert not np.isnan(want).any()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("my_dev", [0, 3, 7])
+def test_local_buckets_bit_identical(my_dev):
+    """The dense-layout shard build against JAX's: stragglers clamp,
+    inactive slots drop, cell capacity 4 so overflow sentinels appear."""
+    jparams, _, jcfg, params, _, cfg = _setup(cell_capacity=4)
+    rng = np.random.default_rng(my_dev)
+    n, gx_loc = 1500, 3
+    pred = ((rng.random((n, 3)) - 0.5) * [4.4, 3.2, 3.2]).astype(np.float32)
+    vel = rng.standard_normal((n, 3)).astype(np.float32)
+    active = (rng.random(n) < 0.8).astype(np.float32)
+    pred[active == 0] = 1.0e15
+    want = jdomain._local_buckets(
+        jnp.asarray(pred), jnp.asarray(vel), jnp.asarray(active),
+        jdomain._grid_origin_static(jparams, jcfg), jparams, jcfg, gx_loc,
+        my_dev)
+    got = domain._local_buckets(
+        torch.from_numpy(pred), torch.from_numpy(vel),
+        torch.from_numpy(active), domain._grid_origin_static(params, cfg),
+        params, cfg, gx_loc, my_dev)
+    for name, a, b in zip(("cell_pos", "cell_vel", "cell_mask", "addr",
+                           "overflow"), got, want):
+        a, b = a.numpy(), np.asarray(b)
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    assert got[5] == want[5] == 256 and int(got[4]) > 0
+
+
 def _port_single(state, params, cfg, steps):
     s = state
     for _ in range(steps):
@@ -196,12 +294,15 @@ def _port_single(state, params, cfg, steps):
     return s
 
 
+@pytest.mark.parametrize("use_pallas", [None, False])
 @pytest.mark.parametrize("case,n_shards", [
     ("flow", 8), ("rest", 8), ("rescue", 8), ("rescue", 2)])
-def test_domain_matches_single_device(case, n_shards):
+def test_domain_matches_single_device(case, n_shards, use_pallas):
     """The port's domain step against its single-device step, by id: the
     rightward flow (migration every step), the cube at rest, and forced
-    overflow at cell capacity 1 (tests/test_domain.py:45,71,90). On 2
+    overflow at cell capacity 1 (tests/test_domain.py:45,71,90), through the
+    kernels' plain versions (``use_pallas=None``) and through the plain
+    pair-block passes (``False``). On 2
     shards the fluid sits on edge shards, whose outer halo lanes must keep
     their own empty-slot fill: zeros there would put phantom particles at
     the world origin, inside the fluid, for the rescue's halo sweep (the
@@ -212,7 +313,7 @@ def test_domain_matches_single_device(case, n_shards):
         rightward=case == "flow", shift=0.05 if n_shards == 2 else 0.0, **kw)
     mesh = mesh_mod.make_mesh(n_shards, "cpu")
     states, active = domain.shard_state(state, mesh, cfg, params, slack=8.0)
-    step = domain.make_domain_step(mesh, cfg)
+    step = domain.make_domain_step(mesh, cfg, use_pallas=use_pallas)
     before = [int(a.sum()) for a in active]
     for _ in range(8):
         states, active, lost = step(states, active, params)
@@ -223,6 +324,44 @@ def test_domain_matches_single_device(case, n_shards):
         assert after != before, "no shard crossing"
     assert float(states[0].overflow_total) == 0.0
     single = _port_single(state, params, cfg, 8)
+    got = _pos_by_id(_cat(states, "pos"), _cat(states, "ids"),
+                     torch.cat(active))
+    np.testing.assert_allclose(got, single.pos.numpy(), rtol=0, atol=ATOL)
+
+
+def test_edge_shards_outer_halo_holds_the_empty_fill_unlike_jax():
+    """A difference from the JAX package, kept: its plain per-device passes
+    (``_sph_local``) give the edge devices zero-filled outer halo slabs, so
+    the rescue's halo sweep finds C·S phantom particles at the world origin
+    there. On 2 shards both are edge shards; with the lattice shifted so
+    that dropped particles lie within h of the origin, the JAX domain step
+    leaves its own single-device step by far more than the bar, while the
+    port's (_FAR in those slots) stays within it
+    (test_domain_matches_single_device[False-rescue-2])."""
+    jparams, jstate, jcfg, params, state, cfg = _setup(
+        shift=0.05, cell_capacity=1, rescue_capacity=512)
+    jmesh2 = jmesh.make_mesh(2)
+    jsh, jact = jdomain.shard_state(jstate, jmesh2, jcfg, jparams, slack=8.0)
+    jstep = jdomain.make_domain_step(jmesh2, jcfg, use_pallas=False)
+    jsingle = jstate
+    for _ in range(2):
+        jsh, jact, _ = jstep(jsh, jact, jparams)
+        jsingle = wj_step.step(jsingle, jparams, jcfg)
+    jerr = np.abs(_pos_by_id(jsh.pos, jsh.ids, jact)
+                  - np.asarray(jsingle.pos)).max()
+    assert jerr > 100 * ATOL
+
+    mesh = mesh_mod.make_mesh(2, "cpu")
+    states, active = domain.shard_state(state, mesh, cfg, params, slack=8.0)
+    ext = domain._exchange_halo_slabs(domain._pad_slabs(
+        [torch.ones((4, 1, 3 * 5)) for _ in range(2)], 5,
+        [sb._FAR] * 3 + [0.0]), 3, 5, 5, mesh)
+    assert ext[0][:3, :, :5].eq(sb._FAR).all() and ext[0][3, :, :5].eq(0).all()
+    assert ext[1][:3, :, -5:].eq(sb._FAR).all() and ext[0][:, :, -5:].eq(1).all()
+    step = domain.make_domain_step(mesh, cfg, use_pallas=False)
+    for _ in range(2):
+        states, active, _ = step(states, active, params)
+    single = _port_single(state, params, cfg, 2)
     got = _pos_by_id(_cat(states, "pos"), _cat(states, "ids"),
                      torch.cat(active))
     np.testing.assert_allclose(got, single.pos.numpy(), rtol=0, atol=ATOL)
@@ -265,8 +404,7 @@ def test_refusals_and_mesh_collectives():
             mesh, dataclasses.replace(cfg, grid_frame="container"))
     with pytest.raises(ValueError, match="divisible"):
         domain.make_domain_step(mesh_mod.make_mesh(5, "cpu"), cfg)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        domain.make_domain_step(mesh, cfg, use_pallas=False)
+    assert callable(domain.make_domain_step(mesh, cfg, use_pallas=False))
     xs = [torch.tensor(float(d)) for d in range(8)]
     assert [float(x) for x in mesh.shift_right(xs)] == [7, 0, 1, 2, 3, 4, 5,
                                                          6]

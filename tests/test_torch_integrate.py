@@ -29,7 +29,8 @@ def _params(dim, max_speed=3.0):
                                       angular_velocity=0.3, angle=0.25),
         field=wj.InteractionField.create((0.5, 0.0, -0.5)[:dim], 25.0, 2.0))
     tp = convert.params_from_numpy(
-        [np.asarray(x) for x in jax.tree.leaves(jp)])
+        [np.asarray(x) for x in jax.tree.leaves(jp)],
+        device="cpu")
     return jp, tp
 
 
@@ -107,8 +108,8 @@ def test_key_coords_and_cells_match_jax(frame):
 def test_static_box_clamps_and_damps():
     """A static box reduces to the reference's per-axis clamp with the
     velocity flipped and damped."""
-    tp = wt.SimParams.create(dim=2, container=wt.Container.create(
-        (0.0, 0.0), (2.0, 2.0)))
+    tp = wt.SimParams.create(dim=2, device="cpu", container=(
+        wt.Container.create((0.0, 0.0), (2.0, 2.0), device="cpu")))
     pos = torch.tensor([[1.5, 0.0], [0.0, -3.0], [0.2, 0.3]])
     vel = torch.tensor([[1.0, 0.0], [0.0, -2.0], [0.5, 0.5]])
     p, v = tintegrate.collide_container(pos, vel, tp.container,

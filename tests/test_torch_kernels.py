@@ -51,7 +51,8 @@ def case():
     jdens = jsb._run_density(jplanes, own, m0, jpv, jcfg, interpret=True)
 
     params = convert.params_from_numpy(
-        [np.asarray(x) for x in jax.tree.leaves(jparams)])
+        [np.asarray(x) for x in jax.tree.leaves(jparams)],
+        device="cpu")
     coeffs = KernelCoeffs.from_radius(params.smoothing_radius, dim)
     cfg = SimConfig(**dataclasses.asdict(jcfg))
     planes, counts, addr, _ = sb._build_slab_buckets(
@@ -90,6 +91,28 @@ def test_force_plain_matches_pallas(case, gate):
                          case["pv"], case["cfg"])
     np.testing.assert_allclose(_at(got, case["occ"]),
                                _at(jout, case["occ"]), **TOL)
+
+
+@pytest.mark.parametrize("dim,cap", [(2, 32), (2, 2), (3, 32), (3, 2)])
+def test_build_fills_empty_position_slots_with_far(dim, cap):
+    """The density kernel reads the empty slots of its neighbour lanes
+    without asking the counts (csrc/sph_density.cu), so the build must leave
+    _FAR in every position slot at or above its lane's count: full lanes,
+    overflowing ones (capacity 2) and the pad lanes included."""
+    pred, vel = _inputs(dim, n=400, seed=3)
+    params = convert.params_from_numpy(
+        [np.asarray(x) for x in jax.tree.leaves(JSimParams.create(dim=dim))],
+        device="cpu")
+    cfg = SimConfig(n=pred.shape[0], dim=dim, neighbor_mode="pallas",
+                    grid_dims=(8,) * dim, cell_capacity=cap)
+    planes, counts, addr, overflow = sb._build_slab_buckets(
+        torch.from_numpy(pred), torch.from_numpy(vel), params, cfg)
+    assert (int(overflow) > 0) == (cap == 2)
+    cap_p = sb._cap_pad(cap)
+    empty = torch.arange(cap_p)[:, None] >= counts
+    assert empty.any() and (~empty).any()
+    assert bool((planes[:dim][:, empty] == sb._FAR).all())
+    assert bool((planes[:dim][:, ~empty].abs() < 10.0).all())
 
 
 def test_wrappers_take_plain_path_on_cpu(case):

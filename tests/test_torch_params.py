@@ -76,8 +76,21 @@ def test_config_modes_and_probe_fields():
     assert wt.SimConfig(**base).resolved().neighbor_mode == "pallas"
     assert (wt.SimConfig(**base, sorted_state=True).resolved().sorted_state)
     for mode in ("dense", "bucket_grid", "hash_grid"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            wt.SimConfig(**base, neighbor_mode=mode)
+        cfg = wt.SimConfig(**base, neighbor_mode=mode)
+        assert cfg.resolved() is cfg and cfg.table_size == 64
+    # only the modes with a bounded grid need its dims, as in the JAX package
+    assert wt.SimConfig(n=64, neighbor_mode="dense").grid_dims == ()
+    assert wt.SimConfig(n=64, neighbor_mode="hash_grid",
+                        hash_table_size=31).table_size == 31
+    with pytest.raises(ValueError, match="grid_dims"):
+        wt.SimConfig(n=64, neighbor_mode="bucket_grid")
+    # the JAX package ignores the container frame in these two modes; the
+    # port refuses it
+    for mode in ("dense", "hash_grid"):
+        with pytest.raises(ValueError, match="container"):
+            wt.SimConfig(**base, neighbor_mode=mode, grid_frame="container")
+    assert wt.SimConfig(**base, neighbor_mode="bucket_grid",
+                        grid_frame="container").grid_frame == "container"
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         wt.SimConfig(**base, incremental_rebuild=4)
     for field, value in (("build_scatter", "cellmajor"),
@@ -106,7 +119,8 @@ def test_params_carry_across_and_replace():
                                       angular_velocity=0.05, angle=0.2),
         field=wj.InteractionField.create((1.0, 0.0, -1.0), 12.0, 2.5))
     tp = convert.params_from_numpy(
-        [np.asarray(x) for x in jax.tree.leaves(jp)])
+        [np.asarray(x) for x in jax.tree.leaves(jp)],
+        device="cpu")
     assert float(tp.container.angular_velocity) == np.float32(0.05)
     assert float(tp.field.radius) == 2.5 and tp.dim == 3
     for a, b in zip(convert.params_to_numpy(tp), jax.tree.leaves(jp)):
@@ -115,15 +129,75 @@ def test_params_carry_across_and_replace():
     assert float(tp2.pressure_scalar) == 50.0
     assert float(tp.pressure_scalar) == 22.0
     with pytest.raises(ValueError, match="more SimParams leaves"):
-        convert.params_from_numpy(convert.params_to_numpy(tp) + [1.0])
+        convert.params_from_numpy(convert.params_to_numpy(tp) + [1.0],
+                                  device="cpu")
 
     js = wj.init_state(jnp.asarray(np.random.default_rng(0).random(
         (10, 3), dtype=np.float32)))
     ts = convert.state_from_numpy(
         {f.name: np.asarray(getattr(js, f.name))
-         for f in dataclasses.fields(js)})
+         for f in dataclasses.fields(js)}, device="cpu")
     assert ts.ids.dtype == torch.int32 and ts.step_count.dtype == torch.int32
     assert ts.overflow.dtype == torch.int32
     assert ts.overflow_total.dtype == torch.float32
     np.testing.assert_array_equal(ts.predicted.numpy(),
                                   np.asarray(js.predicted))
+
+
+def _saved_checkpoint(tmp_path):
+    from water_sandbox_tpu_torch.runtime import checkpoint
+    cfg, params, state = wt.scenes.build("mini-3d", device="cpu")
+    path = str(tmp_path / "ck.npz")
+    checkpoint.save(path, state, params, cfg)
+    return checkpoint, path
+
+
+_PTS = np.zeros((4, 3), np.float32)
+# name -> (call taking device kwargs, the tensor whose device is checked)
+_CONSTRUCTORS = {
+    "init_state": (lambda tmp, **kw: wt.init_state(_PTS, **kw),
+                   lambda r: r.pos),
+    "SimParams.create": (lambda tmp, **kw: wt.SimParams.create(dim=3, **kw),
+                         lambda r: r.container.center),
+    "Container.create": (lambda tmp, **kw: wt.Container.create(**kw),
+                         lambda r: r.half_size),
+    "InteractionField.inactive": (
+        lambda tmp, **kw: wt.InteractionField.inactive(3, **kw),
+        lambda r: r.position),
+    "InteractionField.create": (
+        lambda tmp, **kw: wt.InteractionField.create((0.0, 0.0, 0.0), 1.0,
+                                                     2.0, **kw),
+        lambda r: r.radius),
+    "checkpoint.load": (
+        lambda tmp, **kw: (lambda ck, path: ck.load(path, **kw))(
+            *_saved_checkpoint(tmp)),
+        lambda r: r[0].pos),
+    "convert.params_from_numpy": (
+        lambda tmp, **kw: convert.params_from_numpy(
+            convert.params_to_numpy(wt.SimParams.create(dim=3, device="cpu")),
+            **kw),
+        lambda r: r.field.strength),
+    "convert.state_from_numpy": (
+        lambda tmp, **kw: convert.state_from_numpy(
+            convert.state_to_numpy(wt.init_state(_PTS, device="cpu")), **kw),
+        lambda r: r.ids),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_CONSTRUCTORS))
+def test_constructors_need_cuda_unless_asked_for_the_cpu(name, tmp_path,
+                                                        monkeypatch):
+    """Every constructor and loader of the port puts its tensors on the
+    card by default: without a CUDA device the default raises and names
+    device='cpu', and with device="cpu" it works."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call, tensor = _CONSTRUCTORS[name]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call(tmp_path)
+    assert tensor(call(tmp_path, device="cpu")).device.type == "cpu"
+
+
+def test_simparams_create_moves_container_and_field_to_its_device():
+    box = wt.Container.create((0.0, 0.0, 0.0), (2.0, 2.0, 2.0), device="cpu")
+    p = wt.SimParams.create(dim=3, container=box, device="cpu")
+    assert p.container.half_size.device == p.dt.device == torch.device("cpu")

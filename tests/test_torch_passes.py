@@ -33,7 +33,8 @@ def _case(dim, n=300, seed=0, spread=2.0, container=None, **cfg_kw):
     jparams = JSimParams.create(dim=dim, container=container)
     jcfg = JSimConfig(n=n, dim=dim, neighbor_mode="pallas", **cfg_kw)
     params = convert.params_from_numpy(
-        [np.asarray(x) for x in jax.tree.leaves(jparams)])
+        [np.asarray(x) for x in jax.tree.leaves(jparams)],
+        device="cpu")
     cfg = SimConfig(**dataclasses.asdict(jcfg))
     return pred, vel, jparams, jcfg, params, cfg
 

@@ -34,7 +34,7 @@ def test_jax_checkpoint_loads_in_port(tmp_path):
     jcfg, jparams, jstate = _jax_state_after(3)
     path = str(tmp_path / "jax.npz")
     jcheckpoint.save(path, jstate, jparams, jcfg)
-    state, params, cfg = tcheckpoint.load(path)
+    state, params, cfg = tcheckpoint.load(path, device="cpu")
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     assert float(params.pressure_scalar) == 30.0
     assert int(state.step_count) == 3 and state.ids.dtype == torch.int32
@@ -67,7 +67,7 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
     np.testing.assert_allclose(_by_id(got.pos.numpy(), got.ids),
                                _by_id(want.pos, want.ids), **TOL)
     # and back into the port unchanged
-    s2, p2, c2 = tcheckpoint.load(path)
+    s2, p2, c2 = tcheckpoint.load(path, device="cpu")
     assert c2 == cfg
     for f in dataclasses.fields(s2):
         np.testing.assert_array_equal(getattr(s2, f.name).numpy(),

@@ -1,8 +1,9 @@
 """One step of the port against one step of the JAX package from a common
 state, compared particle by particle through ``ids``: the sorted-state
 step against the JAX sorted-state Pallas step (interpret mode), and the
-particle-order step against the JAX XLA bucket step. Bar: rtol = atol =
-2e-4."""
+particle-order step against the JAX XLA bucket step; then ``mini-3d``
+rollouts in the three plain neighbour modes against the JAX package's, and
+``trajectory``. Bar: rtol = atol = 2e-4."""
 
 import dataclasses
 
@@ -11,6 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from _torch_fixtures import _one_torch_thread  # noqa: F401 (autouse)
 
 import water_sandbox_tpu as wj
 import water_sandbox_tpu_torch as wt
@@ -30,8 +33,9 @@ def _common(n=96, seed=0, **cfg_kw):
     jcfg = wj.SimConfig(n=n, dim=3, grid_dims=(8, 8, 8), cell_capacity=8,
                         **cfg_kw)
     params = convert.params_from_numpy(
-        [np.asarray(x) for x in jax.tree.leaves(jparams)])
-    state = wt.init_state(pts, vel)
+        [np.asarray(x) for x in jax.tree.leaves(jparams)],
+        device="cpu")
+    state = wt.init_state(pts, vel, device="cpu")
     cfg = wt.SimConfig(**dataclasses.asdict(jcfg))
     return jparams, jstate, jcfg, params, state, cfg
 
@@ -89,3 +93,38 @@ def test_rollout_counts_steps_and_keeps_ids():
     assert sorted(s.ids.tolist()) == list(range(cfg.n))
     assert s.ids.dtype == torch.int32 and s.step_count.dtype == torch.int32
     assert float(s.overflow_total) == 0.0
+
+
+@pytest.mark.parametrize("mode", ["dense", "bucket_grid", "hash_grid"])
+def test_mini_3d_rollout_matches_jax(mode):
+    """4 steps of mini-3d (512 particles) in each plain neighbour mode, the
+    same mode on both sides; hash_grid with the reference's table size n;
+    a (20, 16, 16) grid at cell capacity 8 keeps bucket_grid's pair blocks
+    small (the scene's own grid spans the whole default container)."""
+    kw = dict(neighbor_mode=mode, grid_dims=(20, 16, 16), cell_capacity=8)
+    jcfg, jparams, jstate = wj.scenes.build("mini-3d", **kw)
+    cfg, params, state = wt.scenes.build("mini-3d", device="cpu", **kw)
+    assert cfg.resolved().neighbor_mode == mode
+    want = wj.rollout(jstate, jparams, jcfg, 4)
+    got = wt.rollout(state, params, cfg, 4)
+    assert float(np.abs(np.asarray(want.acc)).max()) > 1.0
+    _compare(got, want, same_rows=True)
+
+
+def test_trajectory_stacks_positions_and_rejects_a_remainder():
+    cfg, params, state = wt.scenes.build("mini-3d", device="cpu",
+                                         neighbor_mode="dense")
+    jcfg, jparams, jstate = wj.scenes.build("mini-3d", neighbor_mode="dense")
+    final, frames = wt.trajectory(state, params, cfg, 4, 2)
+    jfinal, jframes = wj.trajectory(jstate, jparams, jcfg, 4, 2)
+    assert frames.shape == (2, cfg.n, 3) == tuple(jframes.shape)
+    np.testing.assert_allclose(frames.numpy(), np.asarray(jframes), **TOL)
+    np.testing.assert_array_equal(frames[-1].numpy(), final.pos.numpy())
+    assert int(final.step_count) == 4
+    with pytest.raises(ValueError, match="divisible"):
+        wt.trajectory(state, params, cfg, 7, 2)
+    # the kernel pipeline records too ("auto" means it in the port)
+    cfg_k, params_k, state_k = wt.scenes.build("mini-3d", device="cpu")
+    _, frames_k = wt.trajectory(state_k, params_k, cfg_k, 2)
+    _, frames_d = wt.trajectory(state, params, cfg, 2)
+    np.testing.assert_allclose(frames_k.numpy(), frames_d.numpy(), **TOL)

@@ -19,13 +19,13 @@ from .core.params import (Container, InteractionField, KernelCoeffs,
 from .core.state import FluidState, init_state
 from .models import scenes
 from .models.scenes import cube_fluid
-from .ops.step import rollout, step
+from .ops.step import rollout, step, trajectory
 from .runtime.runner import Simulation
 
 __version__ = "0.1.0"
 
 __all__ = [
     "Container", "InteractionField", "KernelCoeffs", "SimConfig", "SimParams",
-    "FluidState", "init_state", "scenes", "cube_fluid", "step", "rollout",
+    "FluidState", "init_state", "scenes", "cube_fluid", "step", "rollout", "trajectory",
     "Simulation", "__version__",
 ]

@@ -4,7 +4,8 @@ tensors.
 ``params_from_numpy`` takes the ``SimParams`` leaves in the order the JAX
 package's ``jax.tree.flatten`` yields them (and its checkpoints store
 them): the dataclass field order, with ``container`` and ``field`` nested
-in place. ``state_from_numpy`` takes a dict of the ``FluidState`` fields.
+in place. ``state_from_numpy`` takes a dict of the ``FluidState`` fields. Both put the
+tensors on the card unless ``device`` says otherwise (``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import device as device_mod
 from .params import Container, InteractionField, SimParams
 from .state import FluidState
 
@@ -35,7 +37,8 @@ def params_to_numpy(params: SimParams) -> list[np.ndarray]:
     return [t.detach().cpu().numpy() for t in _nested(params)]
 
 
-def params_from_numpy(leaves, device="cpu") -> SimParams:
+def params_from_numpy(leaves, device=device_mod.DEFAULT) -> SimParams:
+    device = device_mod.resolve(device)
     it = iter(leaves)
 
     def take(cls):
@@ -61,7 +64,9 @@ def state_to_numpy(state: FluidState) -> dict[str, np.ndarray]:
             for f in dataclasses.fields(state)}
 
 
-def state_from_numpy(fields: dict, device="cpu") -> FluidState:
+def state_from_numpy(fields: dict,
+                     device=device_mod.DEFAULT) -> FluidState:
+    device = device_mod.resolve(device)
     kw = {}
     for f in dataclasses.fields(FluidState):
         if f.name == "ids" and "ids" not in fields:

@@ -1,8 +1,11 @@
 """The device an entry point of the port runs on.
 
 The port is written for the GPU: ``Simulation.from_scene``,
-``scenes.build``, ``DistributedSimulation`` and ``make_mesh`` run on CUDA
-unless the caller names the CPU (``device="cpu"``). Asking for CUDA where
+``scenes.build``, ``DistributedSimulation``, ``make_mesh``, the constructors
+(``init_state``, ``SimParams.create``, ``Container.create``,
+``InteractionField.inactive``/``.create``), ``checkpoint.load`` and
+``convert.params_from_numpy``/``state_from_numpy`` run on CUDA unless the
+caller names the CPU (``device="cpu"``). Asking for CUDA where
 none is present raises; nothing falls back to the CPU on its own.
 """
 

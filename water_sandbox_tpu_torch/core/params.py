@@ -15,6 +15,8 @@ import math
 
 import torch
 
+from . import device as device_mod
+
 # Defaults mirror the reference solver constants (same values as the JAX
 # package).
 DEFAULT_PARTICLE_RADIUS = 0.1
@@ -58,7 +60,11 @@ class Container:
     @staticmethod
     def create(center=(0.0, 0.0, 0.0), size=DEFAULT_CONTAINER_SIZE,
                velocity=None, angular_velocity=0.0, angle=0.0,
-               device="cpu") -> "Container":
+               device=device_mod.DEFAULT) -> "Container":
+        """On the card unless ``device`` says otherwise (``device="cpu"``
+        for the CPU); raises without a CUDA device, as every constructor of
+        the port does."""
+        device = device_mod.resolve(device)
         center = _t(center, device)
         size = _t(size, device)
         velocity = (torch.zeros_like(center) if velocity is None
@@ -83,14 +89,17 @@ class InteractionField:
     radius: torch.Tensor    # ()
 
     @staticmethod
-    def inactive(dim: int, device="cpu") -> "InteractionField":
+    def inactive(dim: int,
+                 device=device_mod.DEFAULT) -> "InteractionField":
+        device = device_mod.resolve(device)
         return InteractionField(position=torch.zeros(dim, device=device),
                                 strength=_t(0.0, device),
                                 radius=_t(1.0, device))
 
     @staticmethod
     def create(position, strength, radius,
-               device="cpu") -> "InteractionField":
+               device=device_mod.DEFAULT) -> "InteractionField":
+        device = device_mod.resolve(device)
         return InteractionField(position=_t(position, device),
                                 strength=_t(strength, device),
                                 radius=_t(radius, device))
@@ -129,7 +138,11 @@ class SimParams:
                max_speed: float = 0.0, gravity=None,
                container: Container | None = None,
                field: InteractionField | None = None,
-               device="cpu") -> "SimParams":
+               device=device_mod.DEFAULT) -> "SimParams":
+        """Parameters on the card unless ``device`` says otherwise
+        (``device="cpu"`` for the CPU). A ``container`` or ``field`` passed
+        in is moved to ``device``."""
+        device = device_mod.resolve(device)
         if gravity is None:
             gravity = [0.0] * dim
             gravity[1] = DEFAULT_GRAVITY_Y
@@ -149,7 +162,8 @@ class SimParams:
             lookahead=_t(lookahead, device),
             particle_radius=_t(particle_radius, device),
             gravity=_t(gravity, device), max_speed=_t(max_speed, device),
-            container=container, field=field)
+            container=_map_tensors(container, lambda t: t.to(device)),
+            field=_map_tensors(field, lambda t: t.to(device)))
 
     @property
     def dim(self) -> int:
@@ -235,9 +249,13 @@ class SimConfig:
     unlike the JAX package, which maps ``"auto"`` to its XLA ``bucket_grid``
     pipeline off-TPU. On a CUDA device the pipeline launches the hand
     kernels; on the CPU it runs their plain PyTorch versions.
-    ``"dense"``, ``"bucket_grid"`` and ``"hash_grid"`` are not ported yet
-    (ROADMAP Queue 1 item 7) and raise ``NotImplementedError``, as does
-    ``incremental_rebuild > 0`` (Queue 1 item 11).
+    ``"dense"`` (the all-pairs oracle, ``ops/dense.py``), ``"bucket_grid"``
+    and ``"hash_grid"`` (``ops/grid.py``) are plain PyTorch on the state's
+    device. ``grid_frame="container"`` is honoured by the kernel pipeline
+    and ``"bucket_grid"``; ``"dense"`` and ``"hash_grid"`` have no frame to
+    pose (the JAX package ignores the field there) and refuse it.
+    ``incremental_rebuild > 0`` is not ported yet (ROADMAP Queue 1 item 11)
+    and raises ``NotImplementedError``.
 
     ``build_scatter``, ``density_gate``, ``force_gate``, ``dma_prefetch``
     and ``flush_gated`` are the JAX package's TPU probe knobs: accepted at
@@ -288,10 +306,12 @@ class SimConfig:
         if self.sorted_state and self.incremental_rebuild > 0:
             raise ValueError(
                 "sorted_state is incompatible with incremental_rebuild")
-        if self.neighbor_mode in ("dense", "bucket_grid", "hash_grid"):
-            raise NotImplementedError(
-                f"neighbor_mode={self.neighbor_mode!r} is not ported yet "
-                "(ROADMAP Queue 1 item 7); use 'auto' or 'pallas'")
+        if (self.grid_frame == "container"
+                and self.neighbor_mode in ("dense", "hash_grid")):
+            raise ValueError(
+                f"grid_frame='container' has no meaning for neighbor_mode="
+                f"{self.neighbor_mode!r} (no bounded grid to pose); use "
+                "'world'")
         if self.incremental_rebuild > 0:
             raise NotImplementedError(
                 "incremental_rebuild > 0 is not ported yet (ROADMAP Queue 1 "
@@ -303,15 +323,16 @@ class SimConfig:
                     f"the port accepts only its default {default!r}")
         if self.dtype != "float32":
             raise ValueError("the port runs float32 only")
-        if len(self.grid_dims) != self.dim:
-            raise ValueError(
-                f"neighbor_mode={self.neighbor_mode!r} needs grid_dims of "
-                f"length dim={self.dim} (got {self.grid_dims!r}); derive "
-                "them with hashing.default_grid_dims(container_size, "
-                "smoothing_radius)")
-        if any(d < 3 for d in self.grid_dims):
-            raise ValueError(
-                f"grid_dims must each be >= 3, got {self.grid_dims!r}")
+        if self.neighbor_mode in ("auto", "bucket_grid", "pallas"):
+            if len(self.grid_dims) != self.dim:
+                raise ValueError(
+                    f"neighbor_mode={self.neighbor_mode!r} needs grid_dims "
+                    f"of length dim={self.dim} (got {self.grid_dims!r}); "
+                    "derive them with hashing.default_grid_dims("
+                    "container_size, smoothing_radius)")
+            if any(d < 3 for d in self.grid_dims):
+                raise ValueError(
+                    f"grid_dims must each be >= 3, got {self.grid_dims!r}")
 
     def resolved(self) -> "SimConfig":
         """``"auto"`` names the fused-kernel pipeline (``"pallas"``) on every
@@ -319,3 +340,8 @@ class SimConfig:
         if self.neighbor_mode != "auto":
             return self
         return dataclasses.replace(self, neighbor_mode="pallas")
+
+    @property
+    def table_size(self) -> int:
+        """Hash-table size of ``hash_grid`` mode (0 = n, as the reference)."""
+        return self.hash_table_size or self.n

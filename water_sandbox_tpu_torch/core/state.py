@@ -7,6 +7,8 @@ import dataclasses
 
 import torch
 
+from . import device as device_mod
+
 
 @dataclasses.dataclass(frozen=True)
 class FluidState:
@@ -51,9 +53,12 @@ class FluidState:
                              for f in dataclasses.fields(self)})
 
 
-def init_state(positions, velocities=None, device="cpu") -> FluidState:
+def init_state(positions, velocities=None,
+               device=device_mod.DEFAULT) -> FluidState:
     """Fresh state from initial positions: predicted = position, everything
-    else zero, ids the identity map."""
+    else zero, ids the identity map. On the card unless ``device`` says
+    otherwise (``device="cpu"`` for the CPU)."""
+    device = device_mod.resolve(device)
     pos = torch.as_tensor(positions, dtype=torch.float32, device=device)
     n, dim = pos.shape
     vel = (torch.zeros((n, dim), device=device) if velocities is None

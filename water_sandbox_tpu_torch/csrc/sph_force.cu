@@ -29,7 +29,7 @@
 // shared across blocks. With G = 1 the thread walks the occupied slots of all
 // 3^DIM neighbour cells; with G > 1 thread t takes cells t, t + G, ... and
 // the group sums its partial accelerations with __shfl_xor_sync. The launcher
-// picks G from the row count (sph_bucket.py::_force_group): with few rows one
+// picks G from the row count (sph_bucket.py::_row_group): with few rows one
 // thread a row leaves most of the SMs' warp slots empty, and each thread's
 // chain of dependent loads (counts, then a candidate's position, then its 7
 // other floats) is long; a group splits the chain and fills the slots. With

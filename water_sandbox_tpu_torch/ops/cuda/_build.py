@@ -34,7 +34,8 @@ _I = ctypes.c_int
 # source (csrc/<name>.cu) -> its C entry point and argtypes
 _ENTRY_POINTS = {
     "sph_density": ("wst_sph_density",
-                    [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+                    [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                     _P]),
     "sph_force": ("wst_sph_force",
                   [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                    _P]),

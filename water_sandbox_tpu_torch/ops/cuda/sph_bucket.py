@@ -47,10 +47,15 @@ _P_VISCOSITY = 9
 # callers that need the main path's count reset it first).
 LAUNCHES = {"sph_density": 0, "sph_force": 0}
 
-# Threads an SM the force kernel's row groups aim for (_force_group): on the
-# H100 two threads a row beat one at 65,536 rows (496 threads an SM) and lose
-# at 266,112 (2,016).
-_FORCE_THREADS_PER_SM = 768
+# Threads an SM the kernels' row groups aim for (_row_group). On the H100
+# (132 SMs) two threads a row beat one at 65,536 rows (496 threads an SM)
+# and lose at 266,112 (2,016), for both kernels. On the first m rows of the
+# 266,112-row state (chip_smoke.py's row-group crossing lines) the density
+# kernel's two threads a row are ahead up to m = 101,376, this threshold
+# (0.0163 against 0.0185 ms device), and behind from 114,048 (0.0213 against
+# 0.0195); the force kernel's are ahead at 76,032 (0.0298 against 0.0360)
+# and already behind at 88,704 (0.0368 against 0.0353).
+_ROW_THREADS_PER_SM = 768
 
 # Candidate elements (rows x 3^dim x cap_p) per chunk of the plain versions:
 # bounds their temporaries to tens of MB at any particle count.
@@ -323,36 +328,48 @@ def _launch(name: str, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def run_density(planes, counts, addr, params_vec, cfg: SimConfig):
-    """Density pass: (6, cap_p, L) f32 planes at every address in ``addr``
-    (see csrc/sph_density.cu). Plain version on the CPU, kernel on CUDA."""
-    g, cap_p = _check_inputs(cfg, planes, counts, addr, params_vec)
-    if planes.device.type == "cpu":
-        return density_plain(planes, counts, addr, params_vec, cfg)
-    out = torch.empty((6, cap_p, g.L), dtype=torch.float32,
-                      device=planes.device)
-    _launch("sph_density", planes.data_ptr(), counts.data_ptr(),
-            addr.data_ptr(), addr.shape[0], params_vec.data_ptr(),
-            out.data_ptr(), cfg.dim, cap_p, g.L, g.S_pad, g.gz,
-            planes.device.index or 0,
-            torch.cuda.current_stream(planes.device).cuda_stream)
-    return out
-
-
 @functools.lru_cache(maxsize=None)
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(
         device_index).multi_processor_count
 
 
-def _force_group(n: int, sms: int) -> int:
-    """Threads a row of the force kernel (csrc/sph_force.cu) for ``n`` rows
-    on a card of ``sms`` SMs: the least of 1, 2, 4 that gives it at least
-    ``_FORCE_THREADS_PER_SM`` threads an SM, else 4."""
+def _row_group(n: int, sms: int) -> int:
+    """Threads a row of the density and force kernels (csrc/sph_density.cu,
+    csrc/sph_force.cu) for ``n`` rows on a card of ``sms`` SMs: the least of
+    1, 2, 4 that gives the launch at least ``_ROW_THREADS_PER_SM`` threads
+    an SM, else 4."""
     group = 1
-    while group < 4 and n * group < sms * _FORCE_THREADS_PER_SM:
+    while group < 4 and n * group < sms * _ROW_THREADS_PER_SM:
         group *= 2
     return group
+
+
+def run_density(planes, counts, addr, params_vec, cfg: SimConfig):
+    """Density pass: (6, cap_p, L) f32 planes at every address in ``addr``
+    (see csrc/sph_density.cu). Plain version on the CPU, kernel on CUDA."""
+    _check_inputs(cfg, planes, counts, addr, params_vec)
+    if planes.device.type == "cpu":
+        return density_plain(planes, counts, addr, params_vec, cfg)
+    return _density_kernel(planes, counts, addr, params_vec, cfg,
+                           _row_group(addr.shape[0],
+                                      _sm_count(planes.device.index or 0)))
+
+
+def _density_kernel(planes, counts, addr, params_vec, cfg: SimConfig,
+                    group: int):
+    """Launch csrc/sph_density.cu with ``group`` threads a row on checked
+    CUDA inputs (run_density picks the group)."""
+    g = _geometry(cfg)
+    cap_p = _cap_pad(cfg.cell_capacity)
+    out = torch.empty((6, cap_p, g.L), dtype=torch.float32,
+                      device=planes.device)
+    _launch("sph_density", planes.data_ptr(), counts.data_ptr(),
+            addr.data_ptr(), addr.shape[0], params_vec.data_ptr(),
+            out.data_ptr(), cfg.dim, cap_p, g.L, g.S_pad, g.gz, group,
+            planes.device.index or 0,
+            torch.cuda.current_stream(planes.device).cuda_stream)
+    return out
 
 
 def run_force(planes, dens, counts, addr, params_vec, cfg: SimConfig):
@@ -363,8 +380,8 @@ def run_force(planes, dens, counts, addr, params_vec, cfg: SimConfig):
     if planes.device.type == "cpu":
         return force_plain(planes, dens, counts, addr, params_vec, cfg)
     return _force_kernel(planes, dens, counts, addr, params_vec, cfg,
-                         _force_group(addr.shape[0],
-                                      _sm_count(planes.device.index or 0)))
+                         _row_group(addr.shape[0],
+                                    _sm_count(planes.device.index or 0)))
 
 
 def _force_kernel(planes, dens, counts, addr, params_vec, cfg: SimConfig,

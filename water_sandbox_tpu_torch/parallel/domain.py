@@ -1,6 +1,7 @@
 """Explicit spatial domain decomposition — the counterpart of
-``water_sandbox_tpu/parallel/domain.py`` (its fused-kernel path,
-``_sph_local_pallas``).
+``water_sandbox_tpu/parallel/domain.py``: its fused-kernel path
+(``_sph_local_pallas``, the default) and its plain per-shard passes
+(``_sph_local``, ``use_pallas=False``, over ``ops/grid.py``).
 
 Scheme (1-D mesh of shards over the container's x axis, ``parallel/mesh.py``):
 
@@ -36,7 +37,7 @@ import torch
 
 from ..core.params import DENSITY_PADDING, KernelCoeffs, SimConfig, SimParams
 from ..core.state import FluidState
-from ..ops import integrate as integrate_mod, kernels
+from ..ops import grid as grid_mod, integrate as integrate_mod, kernels
 from ..ops.cuda import sph_bucket as sb
 from ..ops.rescue import _chunks
 from .mesh import Mesh
@@ -236,6 +237,170 @@ def _sph_local_pallas(pred, vel, active, params, coeffs, cfg: SimConfig,
                 "pos": halo_pos[d], "vel": hvel[d],
                 "den": torch.where(occ, hdens[d][0], 1.0),
                 "nden": torch.where(occ, hdens[d][1], 1.0)})
+        acc = _rescue_force_common(acc, pred, vel, active, dropped, den,
+                                   nden, odata, rescued, halo_rows, params,
+                                   coeffs, mesh, cfg.chunk)
+
+    prs = [p.pressure_scalar * (x - p.target_density)
+           for p, x in zip(params, den)]
+    nprs = [p.near_pressure_scalar * x for p, x in zip(params, nden)]
+    return den, nden, prs, nprs, acc, unres
+
+
+def _local_buckets(pred, vel, active, origin, params, cfg: SimConfig,
+                   gx_loc: int, my_dev: int):
+    """Bucket a shard's local particles into its slab range of the dense
+    cell layout of ``ops/grid.py`` (gx_loc·S cells, S = cells a slab).
+    Particles outside the local slab (stragglers between migrations) clamp
+    into the boundary slab with their positions untouched, so every pair
+    the walk visits uses exact geometry; inactive slots sort last and are
+    dropped.
+
+    Returns (cell_pos, cell_vel (dim, C, nc_loc), cell_mask (C, nc_loc),
+    addr (n,) i32 — C·nc_loc for inactive and capacity-overflow rows —,
+    overflow () i32, S)."""
+    h = params.smoothing_radius
+    dims = cfg.grid_dims
+    S = 1
+    for d in dims[1:]:
+        S *= d
+    nc_loc = gx_loc * S
+    dev = pred.device
+
+    cell = torch.floor((pred - origin) / h).to(torch.int32)
+    hi = torch.tensor(dims, dtype=torch.int32, device=dev) - 1
+    cell = torch.minimum(torch.clamp_min(cell, 0), hi)
+    cx_local = torch.clamp(cell[:, 0] - my_dev * gx_loc, 0, gx_loc - 1)
+    rest = cell[:, 1]
+    for a in range(2, len(dims)):
+        rest = rest * dims[a] + cell[:, a]
+    cid = cx_local * S + rest
+    cell_pos, cell_vel, cell_mask, addr, kept = grid_mod._scatter_buckets(
+        cid, active, pred, vel, cfg.cell_capacity, nc_loc)
+    overflow = (active.sum() - kept).to(torch.int32)
+    return cell_pos, cell_vel, cell_mask, addr, overflow, S
+
+
+def _pad_slabs(planes: list[torch.Tensor], S: int,
+               fill: list[float]) -> list[torch.Tensor]:
+    """Each shard's (F, C, gx_loc·S) planes with one slab of ``fill`` (a
+    value per feature: the plane's empty-slot fill, _FAR for positions) in
+    front and behind, (F, C, (gx_loc+2)·S): the halo lanes that
+    ``_exchange_halo_slabs`` (S_pad = PAD = S) fills from the neighbours.
+    The outer slabs of the edge shards keep the fill, so the rescue's halo
+    sweep finds no phantom particle at the world origin there."""
+    out = []
+    for p in planes:
+        slab = torch.tensor(fill, dtype=p.dtype, device=p.device)[
+            :, None, None].expand(p.shape[0], p.shape[1], S)
+        out.append(torch.cat([slab, p, slab], dim=-1))
+    return out
+
+
+def _sph_local(pred, vel, active, params, coeffs, cfg: SimConfig,
+               gx_loc: int, mesh: Mesh, rescue_cap: int = 256):
+    """Density + force for every shard's local rows with halo-exact
+    neighbour data, through the plain pair-block passes of ``ops/grid.py``
+    (the JAX package's ``_sph_local``). Only the middle slabs' densities
+    are right after the first pass (the halo slabs lack their own outer
+    neighbours), so the computed density planes are exchanged again before
+    the force pass. The rescue is ``_sph_local_pallas``'s.
+
+    All arguments but cfg, gx_loc, mesh and rescue_cap are per-shard lists.
+    Returns lists (den, nden, prs, nprs, acc, overflow)."""
+    nsh = mesh.size
+    dim = cfg.dim
+    cap = cfg.cell_capacity
+    Pn = pred[0].shape[0]
+    ext_cfg = _local_cfg(cfg, gx_loc + 2)
+
+    cell_vel, addr, overflow, pm = [], [], [], []
+    for d in range(nsh):
+        cp, cv, cm, a, o, S = _local_buckets(
+            pred[d], vel[d], active[d], _grid_origin_static(params[d], cfg),
+            params[d], cfg, gx_loc, d)
+        pm.append(torch.cat([cp, cm[None]], dim=0))
+        cell_vel.append(cv)
+        addr.append(a)
+        overflow.append(o)
+    nc_loc = gx_loc * S
+    local = slice(S, S + nc_loc)
+
+    def with_halo(planes, fill):
+        return _exchange_halo_slabs(_pad_slabs(planes, S, fill), gx_loc, S,
+                                    S, mesh)
+
+    pm_ext = with_halo(pm, [_FAR] * dim + [0.0])
+    den_c, nden_c = [], []
+    for d in range(nsh):
+        grid_ext = grid_mod.BucketGrid(
+            cell_pos=pm_ext[d][:dim], cell_vel=None, cell_mask=pm_ext[d][dim],
+            addr=None, origin=None, overflow=overflow[d])
+        den_e, nden_e, _, _ = grid_mod.bucket_density_pass(
+            grid_ext, params[d], coeffs[d], ext_cfg)
+        den_c.append(den_e[:, local])
+        nden_c.append(nden_e[:, local])
+
+    dropped = [(addr[d] == cap * nc_loc) & (active[d] > 0)
+               for d in range(nsh)]
+    R = min(rescue_cap, cfg.rescue_capacity or 1, Pn)
+    rescue = (cfg.rescue_capacity > 0
+              and int(mesh.pmax(overflow)[0]) > 0)
+    unres = overflow
+
+    def halo(planes):
+        return [torch.cat([p[..., :S], p[..., -S:]], dim=-1).reshape(
+            p.shape[0], -1) for p in planes]
+
+    if rescue:
+        halo_pos = [hp.T for hp in halo([p[:dim] for p in pm_ext])]
+        den_p = [grid_mod._from_cells(den_c[d], addr[d],
+                                      params[d].target_density)
+                 for d in range(nsh)]
+        nden_p = [grid_mod._from_cells(nden_c[d], addr[d], DENSITY_PADDING)
+                  for d in range(nsh)]
+        den_p, nden_p, odata, rescued, unres = _rescue_density_common(
+            pred, vel, active, dropped, den_p, nden_p, halo_pos, params,
+            coeffs, R, mesh, cfg.chunk)
+        # corrected resident rows into the planes before the exchange, so
+        # the neighbours' force passes see them too
+        den_c = [grid_mod._to_cells(den_c[d], addr[d], den_p[d])
+                 for d in range(nsh)]
+        nden_c = [grid_mod._to_cells(nden_c[d], addr[d], nden_p[d])
+                  for d in range(nsh)]
+
+    dfields = [torch.stack([
+        den_c[d], nden_c[d],
+        params[d].pressure_scalar * (den_c[d] - params[d].target_density),
+        params[d].near_pressure_scalar * nden_c[d]]) for d in range(nsh)]
+    # halo densities are the neighbours' exact local results; the edge
+    # shards' outer slabs hold 0, which the force pass guards
+    dfields_e = with_halo(dfields, [0.0] * 4)
+    v_ext = with_halo(cell_vel, [0.0] * dim)
+
+    den, nden, acc = [], [], []
+    for d in range(nsh):
+        grid_f = grid_mod.BucketGrid(
+            cell_pos=pm_ext[d][:dim], cell_vel=v_ext[d],
+            cell_mask=pm_ext[d][dim], addr=None, origin=None,
+            overflow=overflow[d])
+        acc_e = grid_mod.bucket_force_pass(grid_f, *dfields_e[d], params[d],
+                                           coeffs[d], ext_cfg)
+        den.append(grid_mod._from_cells(den_c[d], addr[d],
+                                        params[d].target_density))
+        nden.append(grid_mod._from_cells(nden_c[d], addr[d],
+                                         DENSITY_PADDING))
+        acc.append(grid_mod._from_cells(acc_e[:, :, local], addr[d], 0.0))
+
+    if rescue:
+        den = [torch.where(r, a, b) for r, a, b in zip(rescued, den_p, den)]
+        nden = [torch.where(r, a, b)
+                for r, a, b in zip(rescued, nden_p, nden)]
+        hvel = [hv.T for hv in halo(v_ext)]
+        hdens = halo([x[:2] for x in dfields_e])
+        halo_rows = [{"pos": halo_pos[d], "vel": hvel[d],
+                      "den": hdens[d][0], "nden": hdens[d][1]}
+                     for d in range(nsh)]
         acc = _rescue_force_common(acc, pred, vel, active, dropped, den,
                                    nden, odata, rescued, halo_rows, params,
                                    coeffs, mesh, cfg.chunk)
@@ -592,9 +757,9 @@ def make_domain_step(mesh: Mesh, cfg: SimConfig, mig_cap: int = 256,
     shards (() f32 on shard 0's device).
 
     ``use_pallas`` None or True: the density and force kernels on every
-    device (their plain versions on CPU tensors). False — the JAX package's
-    XLA per-device passes — needs the XLA neighbour modes (ROADMAP Queue 1
-    item 7) and raises NotImplementedError until they are ported."""
+    device (their plain versions on CPU tensors). False: the plain
+    pair-block passes of ``ops/grid.py`` on every shard (``_sph_local``,
+    the JAX package's XLA per-device passes)."""
     ndev = mesh.size
     gx = cfg.grid_dims[0]
     if cfg.grid_frame != "world":
@@ -604,17 +769,14 @@ def make_domain_step(mesh: Mesh, cfg: SimConfig, mig_cap: int = 256,
             "single-device layout optimization — drop it for multi-shard")
     if gx % ndev:
         raise ValueError(f"grid_dims[0]={gx} not divisible by {ndev}")
-    if use_pallas is False:
-        raise NotImplementedError(
-            "use_pallas=False (the XLA per-shard passes) needs ops/grid.py, "
-            "not ported yet (ROADMAP Queue 1 item 7)")
     gx_loc = gx // ndev
+    sph_local = _sph_local if use_pallas is False else _sph_local_pallas
 
     def domain_step(states, active, params: SimParams):
         ps = _per_shard(params, mesh)
         coeffs = [KernelCoeffs.from_radius(p.smoothing_radius, cfg.dim)
                   for p in ps]
-        den, nden, prs, nprs, acc, overflow = _sph_local_pallas(
+        den, nden, prs, nprs, acc, overflow = sph_local(
             [s.predicted for s in states], [s.vel for s in states], active,
             ps, coeffs, cfg, gx_loc, mesh, rescue_cap=rescue_cap)
         ovf = mesh.psum(overflow)

@@ -10,7 +10,7 @@ import json
 
 import numpy as np
 
-from ..core import convert
+from ..core import convert, device as device_mod
 from ..core.params import SimConfig, SimParams
 from ..core.state import FluidState
 
@@ -30,8 +30,10 @@ def save(path: str, state: FluidState, params: SimParams,
     np.savez_compressed(path, **payload)
 
 
-def load(path: str, device="cpu"):
-    """Returns (state, params, cfg) with tensors on ``device``."""
+def load(path: str, device=device_mod.DEFAULT):
+    """Returns (state, params, cfg) with tensors on ``device``: the card
+    unless the caller names another (``device="cpu"`` for the CPU)."""
+    device = device_mod.resolve(device)
     with np.load(path, allow_pickle=False) as data:
         cfg = SimConfig(**{
             k: (tuple(v) if isinstance(v, list) else v)
