@@ -16,8 +16,16 @@ cross-shard rescue included; once on the kernels, once on the plain
 pair-block passes), then ``DistributedSimulation`` on
 ``sharded-1m`` (1,015,920 particles, 4 shards on the one card), with the
 kernels held against their plain versions on one shard's halo-filled
-planes. Last, the bitonic sort against its plain version at every padded
-size class (bit-identical, one launch a call), beside ``torch.sort``. Each
+planes. Then the bitonic sort against its plain version at every padded
+size class (bit-identical, one launch a call), beside ``torch.sort``. Last,
+the front end: ``python -m water_sandbox_tpu_torch.cli`` as subprocesses
+(``scenes``; ``run`` at its default 2-D scene and at ``reference-cube``,
+each with a trajectory and a checkpoint; ``resume`` held by id against the
+same steps in this process; ``bench``), ``runtime/profiling.py``'s trace of
+``Simulation.run`` (both kernels once a step), ``viz/live.py`` on a stub
+terminal, ``viz/server.py`` over HTTP (a density raster at the flagship,
+points at ``dam-break-2d-4k``), and ``python -m
+water_sandbox_tpu_torch.bench`` at its defaults. Each
 path's kernel launches are counted from 0 over its run and checked. Each
 kernel's time is given as CUDA-event time of one call and as device time
 from ``torch.profiler``, beside its bound: the larger of the bytes it must
@@ -31,10 +39,13 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -60,6 +71,13 @@ DOMAIN_TOL = 1e-3
 PEAK_OPS = 67e12
 PEAK_BYTES = 3.35e12
 
+# The front end's paths (chip_smoke's phases 9): each one's launches are
+# counted from 0 over its own run.
+FRONT_PATHS = ("cli run dam-break-2d-4k", "cli run reference-cube",
+               "cli resume", "cli bench", "profile", "live",
+               "viewer moving-container-256k", "viewer dam-break-2d-4k",
+               "bench")
+
 # The TPU kernels (K1-K4) and, for each, the wrapper's launch counter, the
 # path whose launches and the call site whose time the summary reports, and
 # the step paths it runs on (launches a step are read from each of their
@@ -67,7 +85,8 @@ PEAK_BYTES = 3.35e12
 KERNELS = {
     "sph_density": dict(
         counter="sph_density", path="reference-cube",
-        paths=("reference-cube", "moving-container-256k", "sharded-1m"),
+        paths=("reference-cube", "moving-container-256k", "sharded-1m")
+        + FRONT_PATHS,
         at="reference-cube step 100",
         source="water_sandbox_tpu_torch/csrc/sph_density.cu",
         replaces="water_sandbox_tpu/ops/pallas/sph_bucket.py:571"),
@@ -75,7 +94,7 @@ KERNELS = {
     # with the query-side contract
     "sph_force": dict(
         counter="sph_force", path="reference-cube",
-        paths=("reference-cube", "moving-container-256k"),
+        paths=("reference-cube", "moving-container-256k") + FRONT_PATHS,
         at="reference-cube step 100",
         source="water_sandbox_tpu_torch/csrc/sph_force.cu",
         replaces="water_sandbox_tpu/ops/pallas/sph_bucket.py:1128"),
@@ -90,7 +109,8 @@ KERNELS = {
     # from every step path's run all the same
     "bitonic_sort": dict(
         counter="bitonic_sort", path="argsort_keys",
-        paths=("reference-cube", "moving-container-256k", "sharded-1m"),
+        paths=("reference-cube", "moving-container-256k", "sharded-1m")
+        + FRONT_PATHS,
         at="sort n=65536",
         source="water_sandbox_tpu_torch/csrc/bitonic_sort.cu",
         replaces="water_sandbox_tpu/ops/pallas/bitonic_sort.py:55"),
@@ -775,6 +795,341 @@ def phase_sort(record, dev="cuda") -> int:
     return launches
 
 
+# A front-end entry point (``python -m <module> <argv>``) in a subprocess on
+# the card, with the kernel launch counts set to 0 before it and printed
+# as its last line after it.
+_COUNTED = """
+import json, runpy, sys
+from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
+from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
+sb.reset_launches()
+bs.reset_launches()
+sys.argv = sys.argv[1:]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+print("[launches] " + json.dumps({**sb.LAUNCHES, **bs.LAUNCHES}))
+"""
+
+ROOT = Path(__file__).resolve().parent
+FRONT_OUT = ROOT / "build" / "chip_smoke"
+
+
+def _front_env() -> dict:
+    return {k: v for k, v in os.environ.items() if k != "WST_FORCE_CPU"}
+
+
+def run_front(module: str, *argv: str, timeout: float = 600.0):
+    """``python -m module argv`` on the card; returns its stdout lines (the
+    counts' line taken off) and its kernel launches. Raises on a non-zero
+    exit (the child is killed at ``timeout``)."""
+    out = subprocess.run([sys.executable, "-c", _COUNTED, module, *argv],
+                         capture_output=True, text=True, cwd=ROOT,
+                         env=_front_env(), timeout=timeout)
+    if out.returncode != 0:
+        log(out.stdout[-3000:])
+        log(out.stderr[-3000:])
+        raise AssertionError(f"{module} {' '.join(argv)}: exit "
+                             f"{out.returncode}")
+    lines = out.stdout.splitlines()
+    check(lines[-1].startswith("[launches] "), f"{module}: no launch counts")
+    return lines[:-1], json.loads(lines[-1][len("[launches] "):])
+
+
+def check_launches(path: str, launches: dict, steps: int) -> None:
+    """The two main-path kernels once a step, the sort never."""
+    for k in ("sph_density", "sph_force"):
+        check(launches[k] == steps,
+              f"{path}: {k} launched {launches[k]} times in {steps} steps")
+    check(launches["bitonic_sort"] == 0, f"{path}: the sort ran")
+
+
+def check_final(label: str, state, params, n: int) -> None:
+    """A state a front end left: every particle there, finite, inside the
+    box, none dropped."""
+    check(state.n == n, f"{label}: {state.n} particles, not {n}")
+    check(bool(torch.isfinite(state.pos).all()), f"{label}: non-finite")
+    check(bool((box_local(params, state).abs()
+                <= params.container.half_size + 1e-4).all()),
+          f"{label}: particles outside the box")
+    check(float(state.overflow_total) == 0.0, f"{label}: overflow_total > 0")
+
+
+def phase_cli(paths: dict) -> None:
+    """Every stepping subcommand of ``python -m water_sandbox_tpu_torch.cli``
+    as a subprocess on the card: ``scenes``; ``run`` at its default scene
+    (``dam-break-2d-4k``, 2-D) and at ``reference-cube``, each with a
+    trajectory and a checkpoint; ``resume`` from the latter, held by id
+    against the same continuation in this process; ``bench``."""
+    import water_sandbox_tpu_torch as wst
+    from water_sandbox_tpu_torch.io.export import load_trajectory
+    from water_sandbox_tpu_torch.runtime import checkpoint
+    cli = "water_sandbox_tpu_torch.cli"
+    shutil.rmtree(FRONT_OUT, ignore_errors=True)
+    FRONT_OUT.mkdir(parents=True)
+
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", cli, "scenes"],
+                         capture_output=True, text=True, cwd=ROOT,
+                         env=_front_env(), timeout=120)
+    check(out.returncode == 0, f"cli scenes: exit {out.returncode}")
+    listed = sorted(ln.split()[0] for ln in out.stdout.splitlines())
+    check(listed == wst.scenes.names(), f"cli scenes listed {listed}")
+    log(f"[cli] scenes: {len(listed)} scenes ({time.perf_counter() - t0:.1f}"
+        " s)")
+
+    for scene, steps, every in (("dam-break-2d-4k", 300, 100),
+                                ("reference-cube", 100, 50)):
+        t0 = time.perf_counter()
+        traj = FRONT_OUT / f"{scene}-traj.npz"
+        ck = FRONT_OUT / f"{scene}-end.npz"
+        argv = ["run", "--steps", str(steps), "--record-every", str(every),
+                "--export", str(traj), "--checkpoint", str(ck)]
+        if scene == "dam-break-2d-4k":
+            argv.append("--preview")        # and the CLI's default scene
+        else:
+            argv += ["--scene", scene]
+        lines, launches = run_front(cli, *argv)
+        stats = json.loads(next(ln for ln in lines if ln.startswith("{")))
+        check(stats["step"] == steps, f"cli run {scene}: step {stats['step']}")
+        if scene == "dam-break-2d-4k":
+            check(sum(ln.startswith("--- step") for ln in lines)
+                  == steps // every, "cli run: preview frames")
+        state, params, cfg = checkpoint.load(str(ck))
+        check(int(state.step_count) == steps, f"cli run {scene}: checkpoint")
+        check_final(f"cli run {scene}", state, params, cfg.n)
+        pos, times, meta = load_trajectory(str(traj))
+        check(pos.shape == (steps // every + 1, cfg.n, cfg.dim)
+              and meta == {"scene": scene} and np.isfinite(pos).all(),
+              f"cli run {scene}: trajectory {pos.shape}")
+        check_launches(f"cli run {scene}", launches, steps)
+        paths[f"cli run {scene}"] = (launches, steps)
+        log(f"[cli] run {scene}: {steps} steps, n={cfg.n}, dim {cfg.dim}, "
+            f"overflow_total 0, {pos.shape[0]} trajectory frames, ms/step "
+            f"{stats['ms_per_step']:.3f} (its own stats), ke "
+            f"{stats['kinetic_energy']:.2f}, launches {launches} "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    ck = FRONT_OUT / "reference-cube-end.npz"
+    resumed = FRONT_OUT / "reference-cube-resumed.npz"
+    lines, launches = run_front(cli, "resume", "--checkpoint", str(ck),
+                                "--steps", "20", "--out", str(resumed))
+    stats = json.loads(next(ln for ln in lines if ln.startswith("{")))
+    check(stats["step"] == 120, f"cli resume: step {stats['step']}")
+    got, params, cfg = checkpoint.load(str(resumed))
+    check_final("cli resume", got, params, cfg.n)
+    state, params, cfg = checkpoint.load(str(ck))
+    sim = wst.Simulation(cfg, params, state)
+    sim.run(20)
+    err = hold("cli resume vs in-process", by_id(got, "pos"),
+               by_id(sim.state, "pos"))
+    check_launches("cli resume", launches, 20)
+    paths["cli resume"] = (launches, 20)
+    log(f"[cli] resume reference-cube from step 100: step 120, max |dpos| "
+        f"by id vs the same 20 steps in this process {err:.3e} (exactly 0: "
+        f"{err == 0.0}), launches {launches} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    lines, launches = run_front(cli, "bench", "--scene", "reference-cube",
+                                "--steps", "20")
+    res = json.loads(lines[-1])
+    check(res["n"] == 65536 and res["particle_steps_per_s"] > 0,
+          f"cli bench: {res}")
+    check_launches("cli bench", launches, 21)
+    paths["cli bench"] = (launches, 21)
+    log(f"[cli] bench: {json.dumps(res)} ({time.perf_counter() - t0:.1f} s)")
+
+
+def phase_profile(paths: dict) -> None:
+    """runtime/profiling.py's device_trace around 5 steps of
+    Simulation.from_scene("reference-cube").run after 5 of warm-up: the
+    trace must hold both hand kernels 5 times each."""
+    import water_sandbox_tpu_torch as wst
+    from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
+    from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
+    from water_sandbox_tpu_torch.runtime import profiling
+    sim = wst.Simulation.from_scene("reference-cube")
+    sim.run(5)
+    logdir = FRONT_OUT / "profile"
+    sb.reset_launches()
+    bs.reset_launches()
+    with profiling.device_trace(str(logdir)):
+        sim.run(5)
+    launches = {**sb.LAUNCHES, **bs.LAUNCHES}
+    check_launches("profile", launches, 5)
+    paths["profile"] = (launches, 5)
+    with open(logdir / "trace.json") as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "kernel"]
+    # the names may be mangled C++ names: match the kernel's name inside
+    found = {k: [e for e in events if k in e["name"]]
+             for k in ("sph_density_kernel", "sph_force_kernel")}
+    for k, evs in found.items():
+        check(len(evs) == 5, f"profile: {k} {len(evs)} times in the trace "
+              f"of {len(events)} kernels (first names: "
+              f"{sorted({e['name'][:60] for e in events})[:8]})")
+    total_us = sum(e.get("dur", 0.0) for e in events)
+    log(f"[profile] reference-cube steps 6-10 under device_trace: "
+        f"{len(events)} kernels in the trace, sph_density_kernel "
+        f"{len(found['sph_density_kernel'])} times ("
+        f"{sum(e['dur'] for e in found['sph_density_kernel']) / 5e3:.4f} ms "
+        f"a step), sph_force_kernel {len(found['sph_force_kernel'])} times "
+        f"({sum(e['dur'] for e in found['sph_force_kernel']) / 5e3:.4f} ms a "
+        f"step), all kernels {total_us / 5e3:.4f} ms a step, launches "
+        f"{launches}")
+
+
+def phase_live(paths: dict) -> None:
+    """viz/live.py::run_live on reference-cube for 3 frames of 4 steps, on
+    a stub terminal that types w, then Space."""
+    import io
+    import water_sandbox_tpu_torch as wst
+    from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
+    from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
+    from water_sandbox_tpu_torch.viz import live
+    keys = iter([["w"], [" "], []])
+
+    class StubTerminal:
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def read_keys(self):
+            return next(keys, [])
+
+    sim = wst.Simulation.from_scene("reference-cube")
+    k0 = float(sim.params.pressure_scalar)
+    out = io.StringIO()
+    saved, live._RawTerminal = live._RawTerminal, StubTerminal
+    sb.reset_launches()
+    bs.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        live.run_live(sim, steps_per_frame=4, max_frames=3, out=out)
+    finally:
+        live._RawTerminal = saved
+    sec = time.perf_counter() - t0
+    launches = {**sb.LAUNCHES, **bs.LAUNCHES}
+    check(abs(float(sim.params.pressure_scalar) - (k0 + 0.1)) < 1e-5,
+          "live: w did not raise the pressure")
+    check(int(sim.state.step_count) == 4, "live: Space did not reset")
+    text = out.getvalue()
+    check("\x1b[48;5;" in text and "pressure_scalar -> " in text
+          and "scene reset" in text, "live: frames")
+    check_launches("live", launches, 12)
+    paths["live"] = (launches, 12)
+    log(f"[live] reference-cube, 3 frames of 4 steps: w raised "
+        f"pressure_scalar to {float(sim.params.pressure_scalar):.2f}, Space "
+        f"reset to step 0, step {int(sim.state.step_count)} at the end, "
+        f"{len(text)} characters written, {sec:.2f} s, launches {launches}")
+
+
+def _get(url: str) -> bytes:
+    import urllib.request
+    return urllib.request.urlopen(url, timeout=10).read()
+
+
+def _next_frame(base: str, want=lambda f: True, wait: float = 30.0) -> dict:
+    deadline = time.perf_counter() + wait
+    while time.perf_counter() < deadline:
+        body = _get(f"{base}/state.json")
+        if body != b"{}":
+            frame = json.loads(body)
+            if want(frame):
+                return frame
+        time.sleep(0.02)
+    raise AssertionError(f"viewer: no such frame within {wait} s")
+
+
+def serve_and_check(scene: str, mode: str, paths: dict) -> None:
+    """A ViewerServer on port 0 stepping ``scene`` in a thread: its first
+    frame, the keymap and the mouse field over HTTP, its frame rate over a
+    few seconds; stopped within 30 s."""
+    import base64
+    import threading
+    import water_sandbox_tpu_torch as wst
+    from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
+    from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
+    from water_sandbox_tpu_torch.viz.server import ViewerServer
+    sim = wst.Simulation.from_scene(scene)
+    sim.run(4)
+    server = ViewerServer(sim, port=0)
+    check(server.render == mode, f"viewer {scene}: render {server.render}")
+    step0 = int(sim.state.step_count)
+    sb.reset_launches()
+    bs.reset_launches()
+    thread = threading.Thread(target=server.serve,
+                              kwargs={"max_seconds": 120.0})
+    thread.start()
+    host, port = server.httpd.server_address[:2]
+    base = f"http://{host}:{port}"
+    try:
+        frame = _next_frame(base)
+        if mode == "raster":
+            den = np.frombuffer(base64.b64decode(frame["den"]), np.uint8)
+            check(den.size == frame["rw"] * frame["rh"] and den.max() > 0,
+                  f"viewer {scene}: empty density raster")
+            what = (f"density raster {frame['rw']}x{frame['rh']}, "
+                    f"{int((den > 0).sum())} lit pixels")
+        else:
+            pos = np.frombuffer(base64.b64decode(frame["pos"]), np.float32)
+            check(pos.size == sim.cfg.n * sim.cfg.dim
+                  and np.isfinite(pos).all(), f"viewer {scene}: points")
+            what = f"{pos.size // sim.cfg.dim} points"
+        k0 = float(sim.params.pressure_scalar)
+        check("pressure_scalar" in _get(f"{base}/key?k=w").decode()
+              and abs(float(sim.params.pressure_scalar) - (k0 + 0.1)) < 1e-5,
+              f"viewer {scene}: /key?k=w")
+        aim = [1.0, -0.5, 0.25][:sim.cfg.dim]
+        q = "&".join(f"{a}={v}" for a, v in zip("xyz", aim))
+        check("field" in _get(f"{base}/field?{q}&s=-20").decode()
+              and float(sim.params.field.strength) == -20.0
+              and np.allclose(sim.params.field.position.cpu().numpy(), aim),
+              f"viewer {scene}: /field did not aim the field")
+        _next_frame(base, lambda f: f.get("field", {}).get("s") == -20.0)
+        check("off" in _get(f"{base}/field?off=1").decode()
+              and float(sim.params.field.strength) == 0.0,
+              f"viewer {scene}: /field?off=1")
+        s1, t1 = int(sim.state.step_count), time.perf_counter()
+        time.sleep(3.0)
+        s2, t2 = int(sim.state.step_count), time.perf_counter()
+        nbytes = len(_get(f"{base}/state.json"))
+    finally:
+        server.stop()
+        thread.join(timeout=30)
+    check(not thread.is_alive(), f"viewer {scene}: did not stop in 30 s")
+    launches = {**sb.LAUNCHES, **bs.LAUNCHES}
+    steps = int(sim.state.step_count) - step0
+    check_launches(f"viewer {scene}", launches, steps)
+    paths[f"viewer {scene}"] = (launches, steps)
+    fps = (s2 - s1) / server.steps_per_frame / (t2 - t1)
+    log(f"[viewer] {scene} ({mode}, n={sim.cfg.n}): first frame {what}; "
+        f"/key?k=w raised pressure_scalar by 0.1, /field aimed and cleared "
+        f"the field; {fps:.1f} frames served a second ({s2 - s1} steps of "
+        f"{server.steps_per_frame} a frame in {t2 - t1:.2f} s), "
+        f"{nbytes} bytes a frame; stopped; launches {launches} in {steps} "
+        "steps")
+
+
+def phase_bench(paths: dict) -> None:
+    """python -m water_sandbox_tpu_torch.bench at its defaults (the flagship
+    and the reference-cube head-to-head, settle 600, best of 3 x 50)."""
+    t0 = time.perf_counter()
+    lines, launches = run_front("water_sandbox_tpu_torch.bench", timeout=900)
+    res = json.loads(lines[-1])
+    log(json.dumps(res))
+    check(res["value"] > 0 and res["config"]["n"] == 266112
+          and res["reference_scene_ps_per_s"] > 0, "bench: result")
+    check_launches("bench", launches, 2 * (600 + 3 * 50))
+    paths["bench"] = (launches, 2 * (600 + 3 * 50))
+    log(f"[bench] flagship {res['ms_per_step']:.4f} ms/step, reference-cube "
+        f"{res['reference_scene_ms_per_step']:.4f} ms/step "
+        f"({res['protocol']}), launches {launches} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -843,6 +1198,18 @@ def main() -> int:
 
     # 8. the bitonic sort and its own path (launches per call, not step)
     paths["argsort_keys"] = ({"bitonic_sort": phase_sort(record)}, 1)
+
+    # 9. the front end: CLI, profiling, terminal and browser viewers, bench
+    for label, phase in (("cli", phase_cli), ("profile", phase_profile),
+                         ("live", phase_live),
+                         ("viewer", lambda p: serve_and_check(
+                             "moving-container-256k", "raster", p)),
+                         ("viewer", lambda p: serve_and_check(
+                             "dam-break-2d-4k", "points", p)),
+                         ("bench", phase_bench)):
+        t0 = time.perf_counter()
+        phase(paths)
+        log(f"[{label}] phase passed in {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, meta in KERNELS.items():

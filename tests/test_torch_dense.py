@@ -15,9 +15,12 @@ import torch
 from _torch_fixtures import _one_torch_thread  # noqa: F401 (autouse)
 
 from water_sandbox_tpu.core.params import KernelCoeffs as JKernelCoeffs
+from water_sandbox_tpu.core.params import SimConfig as JSimConfig
 from water_sandbox_tpu.core.params import SimParams as JSimParams
+from water_sandbox_tpu.core.state import init_state as jinit_state
 from water_sandbox_tpu.ops import dense as jdense
 from water_sandbox_tpu.ops import hashing as jhashing
+from water_sandbox_tpu.ops import step as jstep
 import water_sandbox_tpu_torch as wt
 from water_sandbox_tpu_torch.core import convert
 from water_sandbox_tpu_torch.ops import dense, hashing
@@ -90,6 +93,47 @@ def test_coincident_pair_pushes_along_plus_y():
                            nprs, params, coeffs)
     assert float(acc[:, [0, 2]].abs().max()) == 0.0
     assert float(acc[0, 1]) == float(acc[1, 1]) != 0.0
+
+
+def test_pair_force_antisymmetric_like_jax():
+    """tests/test_dense_oracle.py's pair at d > 0 on both packages: the
+    port's passes within the bar of JAX's, and its two accelerations
+    opposite (equal mass and density: momentum is conserved)."""
+    _, _, jparams, jcoeffs, params, coeffs = _case(3)
+    pred = np.asarray([[0.0, 0.0, 0.0], [0.12, 0.05, -0.03]], np.float32)
+    vel = np.asarray([[0.3, 0.0, 0.1], [-0.2, 0.4, 0.0]], np.float32)
+    want = jdense.density_pass(jnp.asarray(pred), jparams, jcoeffs)
+    want += (jdense.force_pass(jnp.asarray(pred), jnp.asarray(vel), *want,
+                               jparams, jcoeffs),)
+    got = dense.density_pass(torch.from_numpy(pred), params, coeffs)
+    got += (dense.force_pass(torch.from_numpy(pred), torch.from_numpy(vel),
+                             *got, params, coeffs),)
+    for name, g, w in zip(("den", "nden", "prs", "nprs", "acc"), got, want):
+        _close(g, w, name)
+    acc = got[4].numpy()
+    assert float(np.abs(acc).max()) > 1.0
+    np.testing.assert_allclose(acc[0], -acc[1], rtol=1e-5, atol=1e-6)
+
+
+def test_dense_step_conserves_momentum_like_jax():
+    """tests/test_dense_oracle.py's momentum case on both packages: one
+    dense step of a 6^3 cube without gravity, velocities within
+    tests/test_torch_step.py's bar (2e-4) of JAX's, total momentum kept."""
+    pts = wt.cube_fluid(6, 6, 6)
+    jparams = JSimParams.create(dim=3).replace(gravity=jnp.zeros(3))
+    jcfg = JSimConfig(n=pts.shape[0], dim=3, neighbor_mode="dense")
+    want = jax.jit(jstep.step, static_argnums=2)(jinit_state(pts), jparams,
+                                                 jcfg)
+    params = convert.params_from_numpy(
+        [np.asarray(x) for x in jax.tree.leaves(jparams)], device="cpu")
+    cfg = wt.SimConfig(n=pts.shape[0], dim=3, neighbor_mode="dense")
+    state = wt.init_state(pts, device="cpu")
+    got = wt.step(state, params, cfg)
+    np.testing.assert_allclose(got.vel.numpy(), np.asarray(want.vel),
+                               rtol=2e-4, atol=2e-4)
+    assert float(got.vel.abs().max()) > 0.1
+    np.testing.assert_allclose(got.vel.sum(0).numpy(),
+                               state.vel.sum(0).numpy(), atol=5e-3)
 
 
 @pytest.mark.parametrize("dim", [2, 3])

@@ -22,7 +22,10 @@ from water_sandbox_tpu.core.params import Container as JContainer
 from water_sandbox_tpu.core.params import KernelCoeffs as JKernelCoeffs
 from water_sandbox_tpu.core.params import SimConfig as JSimConfig
 from water_sandbox_tpu.core.params import SimParams as JSimParams
+from water_sandbox_tpu.core.state import init_state as jinit_state
+from water_sandbox_tpu.models.scenes import cube_fluid as jcube_fluid
 from water_sandbox_tpu.ops import grid as jgrid
+from water_sandbox_tpu.ops import step as jstep
 import water_sandbox_tpu_torch as wt
 from water_sandbox_tpu_torch.core import convert
 from water_sandbox_tpu_torch.ops import dense, grid, hashing
@@ -209,6 +212,61 @@ def test_overflow_counted_and_wraparound_masked():
     np.testing.assert_allclose(d.numpy(), h * h * float(tc.pow2) + 1e-5,
                                rtol=1e-5)
     np.testing.assert_allclose(acc.numpy(), 0.0, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def crowded():
+    """tests/test_rescue.py's 2-D blob after 5 dense steps of the JAX
+    package: its cells hold far more than capacities 4 and 2."""
+    pts = jcube_fluid(24, 18, None, particle_radius=0.04)
+    jparams = JSimParams.create(dim=2)
+    s = jstep.rollout(jinit_state(pts), jparams,
+                      JSimConfig(n=pts.shape[0], dim=2,
+                                 neighbor_mode="dense"), 5)
+    params = convert.params_from_numpy(
+        [np.asarray(x) for x in jax.tree.leaves(jparams)], device="cpu")
+    return np.array(s.predicted), np.array(s.vel), jparams, params
+
+
+@pytest.mark.parametrize("cap,rescue", [(4, 512), (2, 8)])
+def test_rescue_cases_match_jax(crowded, cap, rescue):
+    """tests/test_rescue.py's bucket_grid cases on both packages, the port
+    within the bar of JAX's. Capacity 4 overflows and a budget of 512
+    rescues every particle: the port within test_rescue.py's bars of its
+    dense oracle. A budget of 8 leaves particles counted and harmless:
+    finite, at the scale of the rescue-disabled run."""
+    pred, vel, jparams, params = crowded
+    jcfg = JSimConfig(n=pred.shape[0], dim=2, neighbor_mode="bucket_grid",
+                      grid_dims=(40, 40), cell_capacity=cap,
+                      rescue_capacity=rescue, chunk=128)
+    cfg = wt.SimConfig(**dataclasses.asdict(jcfg))
+    jc = JKernelCoeffs.from_radius(jparams.smoothing_radius, 2)
+    tc = wt.KernelCoeffs.from_radius(params.smoothing_radius, 2)
+    # jitted: the JAX pipeline op by op takes seconds a call
+    want = jax.jit(jgrid.bucket_sph, static_argnums=4)(
+        jnp.asarray(pred), jnp.asarray(vel), jparams, jc, jcfg)
+    tp, tv = torch.from_numpy(pred), torch.from_numpy(vel)
+    got = grid.bucket_sph(tp, tv, params, tc, cfg)
+    for name, g, w in zip(NAMES, got, want):
+        _close(g, w, name)
+    off = grid.bucket_sph(tp, tv, params, tc,
+                          dataclasses.replace(cfg, rescue_capacity=0))
+    raw = int(off[5])
+    assert raw > 0, "the blob must overflow"
+    assert int(got[5]) == int(want[5]) == max(raw - rescue, 0)
+    dden = dense.density_pass(tp, params, tc)
+    dacc = dense.force_pass(tp, tv, *dden, params, tc)
+    if rescue >= raw:
+        for g, w in zip(got[:2], dden[:2]):
+            np.testing.assert_allclose(g, w, rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(got[4], dacc, rtol=2e-4, atol=2e-3)
+    else:
+        assert bool(torch.isfinite(got[0]).all()
+                    and torch.isfinite(got[4]).all())
+        a_max = float(got[4].norm(dim=1).max())
+        a0_max = float(off[4].norm(dim=1).max())
+        assert a_max < 20 * max(a0_max, 1.0), (a_max, a0_max)
+        assert float(got[0].max()) < 2 * float(dden[0].max()) + 100.0
 
 
 def test_roll_shifts_match_jax():
