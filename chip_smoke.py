@@ -10,7 +10,12 @@ kernel pipeline against the dense oracle and ``hash_grid`` against the
 weighted oracle on ``mini-3d``, runs ``reference-cube`` in ``bucket_grid``
 mode against the kernel pipeline, then drives the single-device path through ``Simulation.from_scene(...).run(n)`` on
 ``reference-cube`` (65,536 particles) and ``moving-container-256k``
-(266,112 particles). The domain-decomposed step runs next: 8 shards of a
+(266,112 particles), then the incremental plane-resident mode on
+``reference-cube`` in particle order (parity with the rebuild path at the
+JAX package's bars, the cache invariants, both kernels on re-inserted
+planes with holes, keep-or-drop windows for k = 0, 4, 8, 16, and
+``Simulation.from_scene(..., incremental_rebuild=8).run``). The
+domain-decomposed step runs next: 8 shards of a
 128-particle flow against the single-device step (migration and the
 cross-shard rescue included; once on the kernels, once on the plain
 pair-block passes), then ``DistributedSimulation`` on
@@ -85,8 +90,8 @@ FRONT_PATHS = ("cli run dam-break-2d-4k", "cli run reference-cube",
 KERNELS = {
     "sph_density": dict(
         counter="sph_density", path="reference-cube",
-        paths=("reference-cube", "moving-container-256k", "sharded-1m")
-        + FRONT_PATHS,
+        paths=("reference-cube", "moving-container-256k", "sharded-1m",
+               "reference-cube incremental") + FRONT_PATHS,
         at="reference-cube step 100",
         source="water_sandbox_tpu_torch/csrc/sph_density.cu",
         replaces="water_sandbox_tpu/ops/pallas/sph_bucket.py:571"),
@@ -94,7 +99,8 @@ KERNELS = {
     # with the query-side contract
     "sph_force": dict(
         counter="sph_force", path="reference-cube",
-        paths=("reference-cube", "moving-container-256k") + FRONT_PATHS,
+        paths=("reference-cube", "moving-container-256k",
+               "reference-cube incremental") + FRONT_PATHS,
         at="reference-cube step 100",
         source="water_sandbox_tpu_torch/csrc/sph_force.cu",
         replaces="water_sandbox_tpu/ops/pallas/sph_bucket.py:1128"),
@@ -109,8 +115,8 @@ KERNELS = {
     # from every step path's run all the same
     "bitonic_sort": dict(
         counter="bitonic_sort", path="argsort_keys",
-        paths=("reference-cube", "moving-container-256k", "sharded-1m")
-        + FRONT_PATHS,
+        paths=("reference-cube", "moving-container-256k", "sharded-1m",
+               "reference-cube incremental") + FRONT_PATHS,
         at="sort n=65536",
         source="water_sandbox_tpu_torch/csrc/bitonic_sort.cu",
         replaces="water_sandbox_tpu/ops/pallas/bitonic_sort.py:55"),
@@ -226,19 +232,22 @@ def kernel_inputs(cfg, params, state):
 
 
 def hold_and_time(label, record, planes, counts, addr, pv, cfg, h, dens_k,
-                  dens_in, plain_reps=20, force_key="sph_force") -> None:
+                  dens_in, plain_reps=20, force_key="sph_force",
+                  far_planes=None) -> None:
     """K1's output ``dens_k`` against density_plain, and the force kernel
     on ``dens_in`` against force_plain; their event and device times, the
     plain versions' event times, and the bounds from this input's pair
     counts. Where the wrappers put several threads on a row, each kernel
-    with one thread a row too, checked and timed beside it."""
+    with one thread a row too, checked and timed beside it. ``far_planes``:
+    the position planes whose empty slots must hold the far fill (default
+    all of them)."""
     from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
     cap_p = sb._cap_pad(cfg.cell_capacity)
     occ = addr[addr < cap_p * sb._geometry(cfg).L].long()
     # K1 reads the empty slots of a run's lanes unpredicated: every position
     # slot at or above its lane's count must hold the build's far fill
     empty = torch.arange(cap_p, device=counts.device)[:, None] >= counts
-    check(bool((planes[:cfg.dim][:, empty] == sb._FAR).all()),
+    check(bool((planes[:far_planes or cfg.dim][:, empty] == sb._FAR).all()),
           f"{label}: an empty position slot does not hold the far fill")
     dens_p = sb.density_plain(planes, counts, addr, pv, cfg)
     torch.cuda.synchronize()
@@ -532,6 +541,263 @@ def phase_main_path(scene: str, steps: int, warmup: int):
         f"steps after {warmup} warm-up), ke {st['kinetic_energy']:.2f}, "
         f"mean_rho {st['mean_density']:.3f}, launches {launches}")
     return launches, steps
+
+
+# The incremental path against the rebuild path at JAX's own bars
+# (tests/test_incremental.py:98): (k, steps, position bar, velocity bar).
+INC_PARITY = ((1, 4, 1e-5, 1e-4), (4, 6, 5e-3, 5e-2))
+
+
+def inc_consistency(label, state, cache, cfg) -> None:
+    """The cache mirrors the particle-order state: live addresses unique,
+    occupied slots equal to the live particles, the planes' rows equal to
+    the state's bit for bit, top >= occupancy in every lane, the state
+    finite."""
+    from water_sandbox_tpu_torch.ops.cuda import incremental as inc
+    from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
+    dim = cfg.dim
+    cap_p = sb._cap_pad(cfg.cell_capacity)
+    live = cache.addr != cap_p * sb._geometry(cfg).L
+    a = cache.addr[live].long()
+    check(torch.unique(a).numel() == a.numel(),
+          f"{label}: a live address repeats")
+    occupied = cache.planes[0] < 0.5 * sb._FAR
+    check(int(occupied.sum()) == a.numel(),
+          f"{label}: occupied slots differ from the live particles")
+    rows = cache.planes.reshape(2 * dim, -1)[:, a].T.contiguous()
+    want = torch.cat([state.predicted, state.vel], dim=1)[live]
+    check(torch.equal(rows.view(torch.int32), want.view(torch.int32)),
+          f"{label}: the planes do not mirror the state")
+    top, _ = inc._top_row(cache.planes, cap_p)
+    check(bool((top[0] >= occupied.sum(dim=0)).all()),
+          f"{label}: top below the occupancy of a lane")
+    check(all(bool(torch.isfinite(getattr(state, f)).all())
+              for f in ("pos", "vel", "predicted", "acc", "density")),
+          f"{label}: non-finite state")
+
+
+def device_profile(fn):
+    """(device ms, kernel launches, the largest device times by event name
+    as a text) of ``fn()`` from torch.profiler: every device event's time,
+    and the kernels among them (copies and fills not counted)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name: dict = {}
+    for e in dev:
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.time_range.end - e.time_range.start)
+    kernels = sum(1 for e in dev
+                  if not e.name.lower().startswith(("memcpy", "memset")))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return (sum(by_name.values()) / 1e3, kernels,
+            "; ".join(f"{name[:70]} {us / 1e3:.4f} ms" for name, us in top))
+
+
+def phase_incremental(record, paths) -> None:
+    """The incremental plane-resident path (ops/cuda/incremental.py) at
+    reference-cube's full width, 65,536 particles, in particle order (the
+    mode refuses the sorted state, and the flagship's container frame).
+    From one state settled 600 steps on the rebuild path: JAX's parity bars
+    against the rebuild path; the cache invariants over 20 materialized
+    steps; K1 and K2 against their plain versions on the next step's
+    re-inserted planes, which have holes (counts = top); keep-or-drop
+    windows of 50 steps for k = 0 (the rebuild path), 4, 8, 16 and the
+    scene's own sorted rebuild step, alternating, three rounds, with what
+    each k did (rescue steps, rebuilds, movers, hole debt) from one untimed
+    window each; device ms and kernel launches a step from torch.profiler
+    for k = 0 and 8. Last, Simulation.from_scene with incremental_rebuild=8
+    with its launches counted."""
+    import dataclasses
+    import water_sandbox_tpu_torch as wst
+    from water_sandbox_tpu_torch.core.params import KernelCoeffs
+    from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
+    from water_sandbox_tpu_torch.ops.cuda import incremental as inc
+    from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
+    t_phase = time.perf_counter()
+    cfg_sorted, params, state = wst.scenes.build("reference-cube",
+                                                 device="cuda")
+    cfg0 = dataclasses.replace(cfg_sorted, sorted_state=False)
+    g = sb._geometry(cfg0)
+    cap_p = sb._cap_pad(cfg0.cell_capacity)
+    h = float(params.smoothing_radius)
+
+    def cfg_k(k):
+        return dataclasses.replace(cfg0, incremental_rebuild=k)
+
+    settled = wst.rollout(state, params, cfg0, 600)
+    torch.cuda.synchronize()
+    log(f"[incremental] reference-cube (n={settled.n}, particle order) "
+        f"settled 600 steps on the rebuild path in "
+        f"{time.perf_counter() - t_phase:.1f} s, overflow_total "
+        f"{float(settled.overflow_total)}")
+
+    for k, steps, tol_p, tol_v in INC_PARITY:
+        ref = wst.rollout(settled, params, cfg0, steps)
+        out = wst.rollout(settled, params, cfg_k(k), steps)
+        errs = []
+        for f, tol in (("pos", tol_p), ("vel", tol_v)):
+            o, r = getattr(out, f), getattr(ref, f)
+            err = (o - r).abs()
+            check(bool((err <= tol + tol * r.abs()).all()),
+                  f"incremental k={k}: {f} max err {float(err.max()):.3e} "
+                  f"past JAX's bar {tol}")
+            errs.append(float(err.max()))
+        check(int(out.step_count) == int(ref.step_count),
+              f"incremental k={k}: step count")
+        log(f"[incremental] parity k={k}, {steps} steps against the rebuild "
+            f"path: max |dpos| {errs[0]:.3e} (bar {tol_p}), max |dvel| "
+            f"{errs[1]:.3e} (bar {tol_v})")
+
+    cfg8 = cfg_k(8)
+    st = settled
+    cache = inc.build_cache(st.predicted, st.vel, params, cfg8)
+    inc_consistency("incremental build", st, cache, cfg8)
+    for i in range(20):
+        st, cache = inc.step_inc(st, cache, params, cfg8, True)
+        inc_consistency(f"incremental step {i + 1}", st, cache, cfg8)
+    log(f"[incremental] k=8: cache invariants held after each of 20 "
+        f"materialized steps (ticks {int(cache.ticks)})")
+
+    # the kernels' inputs of the next step: the re-inserted planes
+    pred_c, vel_c, _ = inc.read_state(st, cache, params, cfg8)
+    planes_r, addr_r, nm, _, _ = inc.reinsert(pred_c, vel_c, cache, params,
+                                              cfg8)
+    top, occ = inc._top_row(planes_r, cap_p)
+    debt = float(top.sum()) - int(occ)
+    check(debt > 0, "incremental: no holes in the re-inserted planes")
+    pv = sb._param_vector(params, KernelCoeffs.from_radius(
+        params.smoothing_radius, cfg8.dim))
+    dens_k = sb.run_density(planes_r, top, addr_r, pv, cfg8)
+    dens_p = sb.density_plain(planes_r, top, addr_r, pv, cfg8)
+    # A clear writes _FAR into plane 0 only, so a slot cleared this step at
+    # the top of its lane keeps its stale y and z: plane 0 alone holds the
+    # far fill at every empty slot, and it alone makes the distance test
+    # fail there.
+    hold_and_time("reference-cube incremental step 621 (holes)", record,
+                  planes_r, top, addr_r, pv, cfg8, h, dens_k, dens_p,
+                  far_planes=1)
+    log(f"[kernels] reference-cube incremental step 621: counts = top, hole "
+        f"debt {debt:.0f} slots, movers re-inserted {int(nm)}, live rows "
+        f"{int((addr_r < cap_p * g.L).sum())}")
+    del planes_r, dens_k, dens_p
+
+    variants = {"k=0": cfg0, "k=4": cfg_k(4), "k=8": cfg8,
+                "k=16": cfg_k(16), "sorted rebuild": cfg_sorted}
+
+    def window(c, steps=50):
+        s = settled.clone()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        wst.rollout(s, params, c, steps)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t) / steps
+
+    for c in variants.values():
+        window(c, 5)
+    times = {name: [] for name in variants}
+    for r in range(3):
+        order = list(variants.items())
+        for name, c in (order if r % 2 == 0 else order[::-1]):
+            times[name].append(window(c))
+
+    def what_it_did(name, c, steps=50):
+        """Untimed: steps that rescued, rebuilds, mean movers a step and the
+        final hole debt over one window from the settled state."""
+        s = settled
+        if not c.incremental_rebuild:
+            over = []
+            for _ in range(steps):
+                over.append(sb._build_core(s.predicted, s.vel, params, c,
+                                           time=s.time)[5])
+                s = wst.step(s, params, c)
+            return dict(rescued=sum(int(o) > 0 for o in over))
+        cache = inc.build_cache(s.predicted, s.vel, params, c)
+        movers, ticks, over = [], [], []
+        for i in range(steps):
+            pred, _, _ = inc.read_state(s, cache, params, c)
+            newcol = inc._new_columns(pred, cache.origin, params, c, g.S_pad)
+            movers.append((newcol != cache.addr % g.L - g.PAD).sum())
+            s, cache = inc.step_inc(s, cache, params, c, i == steps - 1)
+            ticks.append(int(cache.ticks))
+            over.append(s.overflow)
+        top, occ = inc._top_row(cache.planes, cap_p)
+        return dict(
+            rescued=sum(int(o) > 0 for o in over),
+            rebuilds=sum(ticks[i] <= ticks[i - 1] for i in range(1, steps)),
+            movers=float(torch.stack(movers).float().mean()),
+            debt=float(top.sum()) - int(occ))
+
+    for name, c in variants.items():
+        t = times[name]
+        did = what_it_did(name, c)
+        extra = ""
+        if "rebuilds" in did:
+            extra = (f", rebuilds {did['rebuilds']}, mean movers a step "
+                     f"{did['movers']:.1f}, final hole debt "
+                     f"{did['debt']:.0f} slots")
+        log(f"[incremental] {name}: median ms/step {statistics.median(t):.4f}"
+            f" (rounds {', '.join(f'{x:.4f}' for x in t)}; host clock over 50"
+            f" synced steps from the settled state), rescue steps "
+            f"{did['rescued']} of 50{extra}")
+
+    for name in ("k=0", "k=8"):
+        c = variants[name]
+        s = settled
+        if c.incremental_rebuild:
+            cache = inc.build_cache(s.predicted, s.vel, params, c)
+            for _ in range(5):
+                s, cache = inc.step_inc(s, cache, params, c)
+
+            def steps5():
+                nonlocal s, cache
+                for _ in range(5):
+                    s, cache = inc.step_inc(s, cache, params, c)
+        else:
+            s = wst.rollout(s, params, c, 5)
+
+            def steps5():
+                nonlocal s
+                for _ in range(5):
+                    s = wst.step(s, params, c)
+        dev_ms, launches, top = device_profile(steps5)
+        log(f"[incremental] {name}: torch.profiler over steps 6-10 from the "
+            f"settled state: device ms a step {dev_ms / 5:.4f}, kernel "
+            f"launches a step {launches / 5:.1f}; largest over the 5 steps: "
+            f"{top}")
+
+    sim = wst.Simulation.from_scene("reference-cube", device="cuda",
+                                    sorted_state=False, incremental_rebuild=8)
+    sim.run(5)
+    steps = 50
+    sb.reset_launches()
+    bs.reset_launches()
+    sim.run(steps)
+    launches = {**sb.LAUNCHES, **bs.LAUNCHES}
+    check_launches("reference-cube incremental", launches, steps)
+    paths["reference-cube incremental"] = (launches, steps)
+    s = sim.state
+    check(bool(torch.isfinite(s.pos).all()), "incremental: non-finite")
+    check(bool((box_local(sim.params, s).abs()
+                <= sim.params.container.half_size + 1e-4).all()),
+          "incremental: particles outside the box")
+    check(bool(torch.equal(s.ids, torch.arange(s.n, dtype=torch.int32,
+                                               device=s.ids.device))),
+          "incremental: rows left particle order")
+    check(int(s.overflow) <= sim.cfg.rescue_capacity,
+          "incremental: more dropped particles than the rescue takes")
+    st = sim.stats()
+    log(f"[main] reference-cube incremental (Simulation.from_scene, "
+        f"sorted_state=False, incremental_rebuild=8): {steps} steps after 5, "
+        f"ms/step {st['ms_per_step']:.3f}, dropped-particle steps "
+        f"{float(s.overflow_total):.0f}, ke {st['kinetic_energy']:.2f}, "
+        f"launches {launches}")
+    log(f"[incremental] phase passed in {time.perf_counter() - t_phase:.1f} s")
 
 
 def sharded_by_id(states, active) -> np.ndarray:
@@ -1190,6 +1456,9 @@ def main() -> int:
                                                warmup=20),
              "moving-container-256k": phase_main_path(
                  "moving-container-256k", 50, warmup=10)}
+
+    # 6b. the incremental plane-resident path
+    phase_incremental(record, paths)
 
     # 7. domain-decomposed path
     phase_domain_parity("cuda:0")

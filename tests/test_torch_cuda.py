@@ -215,6 +215,28 @@ def test_step_matches_cpu(cuda_device):
                                    err_msg=f)
 
 
+def test_incremental_rollout_matches_cpu(cuda_device):
+    """The incremental plane-resident rollout on the card against the same
+    rollout on the CPU (plain versions), from a particle-order state: the
+    kernels walk each lane to its top slot, across holes."""
+    from water_sandbox_tpu_torch.ops.cuda import incremental as inc
+    cfg, params, state = wt.scenes.build("mini-3d", device="cpu",
+                                         rescue_capacity=64,
+                                         incremental_rebuild=4)
+    state = wt.step(state, params, cfg)
+    sb.reset_launches()
+    got = inc.rollout_inc(state.to(cuda_device), params.to(cuda_device), cfg,
+                          6)
+    torch.cuda.synchronize()
+    assert sb.LAUNCHES == {"sph_density": 6, "sph_force": 6}
+    want = inc.rollout_inc(state, params, cfg, 6)
+    for f in ("pos", "vel", "acc", "density", "near_density"):
+        np.testing.assert_allclose(getattr(got, f).cpu().numpy(),
+                                   getattr(want, f).numpy(), **TOL,
+                                   err_msg=f)
+    assert float(got.overflow_total) == float(want.overflow_total)
+
+
 def _sort_case(n, kind):
     rng = np.random.default_rng(n)
     if kind == "random":

@@ -463,6 +463,30 @@ def test_distributed_run_zero_steps_and_lost_accumulation():
     assert st["active_particles"] == sim.cfg.n
 
 
+def test_distributed_sim_is_exported_and_takes_n_devices():
+    """The JAX package's name and keyword: ``wst.DistributedSimulation`` and
+    ``n_devices`` for the shard count (the port's ``n_shards`` stays)."""
+    import water_sandbox_tpu as wj
+    want = wj.DistributedSimulation.from_scene("mini-3d", n_devices=2)
+    assert wt.DistributedSimulation is DistributedSimulation
+    assert "DistributedSimulation" in wt.__all__
+    sim = wt.DistributedSimulation.from_scene("mini-3d", n_devices=2,
+                                              device="cpu")
+    assert sim.mesh.size == want.mesh.devices.size == 2
+    assert [int(a.sum()) for a in sim.active] == [
+        int(a.sum()) for a in np.asarray(want.active).reshape(2, -1)]
+    _, _, _, params, state, cfg = _setup()
+    sim = DistributedSimulation(cfg, params, state, n_devices=8,
+                                n_shards=8, slack=8.0, device="cpu")
+    assert sim.mesh.size == 8
+    with pytest.raises(ValueError, match="n_devices"):
+        DistributedSimulation(cfg, params, state, n_shards=4, n_devices=8,
+                              device="cpu")
+    with pytest.raises(ValueError, match="n_devices"):
+        wt.DistributedSimulation.from_scene("mini-3d", n_shards=2,
+                                            n_devices=4, device="cpu")
+
+
 def test_mesh_and_distributed_sim_need_cuda_unless_asked_for_the_cpu(
         monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -30,5 +30,6 @@ def test_no_module_of_the_port_imports_jax():
     assert got["loaded"] == []
     for name in ("cli", "bench", "io.export", "runtime.keymap",
                  "runtime.profiling", "viz.raster", "viz.live", "viz.render",
-                 "viz.server", "ops.cuda.sph_bucket", "parallel.domain"):
+                 "viz.server", "ops.cuda.sph_bucket", "ops.cuda.incremental",
+                 "parallel.domain"):
         assert f"water_sandbox_tpu_torch.{name}" in got["modules"], name

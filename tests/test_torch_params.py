@@ -71,6 +71,38 @@ def test_smoothing_kernels_match_jax():
             rtol=1e-6, atol=1e-6, err_msg=name)
 
 
+def test_support_mask_matches_jax():
+    """Inclusive at d == h, as the reference's ``if dst > h { continue; }``."""
+    h = np.float32(0.25)
+    d = np.array([0.0, 0.1, np.nextafter(h, 0), h, np.nextafter(h, 1), 0.3],
+                 np.float32)
+    got = tkernels.support_mask(torch.from_numpy(d), torch.tensor(h))
+    want = np.asarray(jkernels.support_mask(jnp.asarray(d), jnp.float32(h)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert bool(got[3]) and not bool(got[4])
+
+
+@pytest.mark.parametrize("moving", ["still", "translating", "spinning"])
+def test_container_ext_and_is_moving_match_jax(moving):
+    kw = {"still": {}, "translating": dict(velocity=(0.0, 0.0, 0.5)),
+          "spinning": dict(angular_velocity=0.3)}[moving]
+    jbox = wj.Container.create(center=(0.5, -1.0, 0.25), size=(4.0, 3.0, 2.0),
+                               **kw)
+    box = wt.Container.create(center=(0.5, -1.0, 0.25), size=(4.0, 3.0, 2.0),
+                              device="cpu", **kw)
+    assert bool(box.is_moving) == bool(jbox.is_moving) == (moving != "still")
+    for pad in (0.0, 0.1):
+        for got, want in zip(box.ext(pad), jbox.ext(pad)):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_num_neighbor_cells_matches_jax(dim):
+    kw = dict(n=64, dim=dim, neighbor_mode="dense")
+    assert (wt.SimConfig(**kw).num_neighbor_cells
+            == wj.SimConfig(**kw).num_neighbor_cells == 3**dim)
+
+
 def test_config_modes_and_probe_fields():
     base = dict(n=64, dim=3, grid_dims=(8, 8, 8))
     assert wt.SimConfig(**base).resolved().neighbor_mode == "pallas"
@@ -91,8 +123,10 @@ def test_config_modes_and_probe_fields():
             wt.SimConfig(**base, neighbor_mode=mode, grid_frame="container")
     assert wt.SimConfig(**base, neighbor_mode="bucket_grid",
                         grid_frame="container").grid_frame == "container"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        wt.SimConfig(**base, incremental_rebuild=4)
+    # the incremental mode is ported (ops/cuda/incremental.py)
+    assert wt.SimConfig(**base, incremental_rebuild=4).incremental_rebuild == 4
+    with pytest.raises(ValueError, match="container"):
+        wt.SimConfig(**base, incremental_rebuild=4, grid_frame="container")
     for field, value in (("build_scatter", "cellmajor"),
                          ("density_gate", ("slab", 4)),
                          ("force_gate", ("qrow3", 8)),

@@ -20,12 +20,13 @@ from .core.state import FluidState, init_state
 from .models import scenes
 from .models.scenes import cube_fluid
 from .ops.step import rollout, step, trajectory
+from .runtime.distributed import DistributedSimulation
 from .runtime.runner import Simulation
 
 __version__ = "0.1.0"
 
 __all__ = [
     "Container", "InteractionField", "KernelCoeffs", "SimConfig", "SimParams",
-    "FluidState", "init_state", "scenes", "cube_fluid", "step", "rollout", "trajectory",
-    "Simulation", "__version__",
+    "FluidState", "init_state", "scenes", "cube_fluid", "step", "rollout",
+    "trajectory", "Simulation", "DistributedSimulation", "__version__",
 ]

@@ -78,6 +78,18 @@ class Container:
     def dim(self) -> int:
         return self.center.shape[-1]
 
+    def ext(self, padding):
+        """(ext_min, ext_max) shrunk by ``padding``, in the local (unrotated)
+        frame centered on ``center``."""
+        return (self.center - self.half_size + padding,
+                self.center + self.half_size - padding)
+
+    @property
+    def is_moving(self) -> torch.Tensor:
+        """() bool: the box translates or spins."""
+        return (self.velocity * self.velocity).sum() + (
+            self.angular_velocity * self.angular_velocity) > 0
+
 
 @dataclasses.dataclass(frozen=True)
 class InteractionField:
@@ -254,8 +266,9 @@ class SimConfig:
     device. ``grid_frame="container"`` is honoured by the kernel pipeline
     and ``"bucket_grid"``; ``"dense"`` and ``"hash_grid"`` have no frame to
     pose (the JAX package ignores the field there) and refuse it.
-    ``incremental_rebuild > 0`` is not ported yet (ROADMAP Queue 1 item 11)
-    and raises ``NotImplementedError``.
+    ``incremental_rebuild > 0`` makes ``rollout`` in the kernel pipeline
+    keep the particles resident in the bucket planes
+    (``ops/cuda/incremental.py``).
 
     ``build_scatter``, ``density_gate``, ``force_gate``, ``dma_prefetch``
     and ``flush_gated`` are the JAX package's TPU probe knobs: accepted at
@@ -312,10 +325,6 @@ class SimConfig:
                 f"grid_frame='container' has no meaning for neighbor_mode="
                 f"{self.neighbor_mode!r} (no bounded grid to pose); use "
                 "'world'")
-        if self.incremental_rebuild > 0:
-            raise NotImplementedError(
-                "incremental_rebuild > 0 is not ported yet (ROADMAP Queue 1 "
-                "item 11)")
         for name, default in _PROBE_DEFAULTS.items():
             if getattr(self, name) != default:
                 raise ValueError(
@@ -345,3 +354,7 @@ class SimConfig:
     def table_size(self) -> int:
         """Hash-table size of ``hash_grid`` mode (0 = n, as the reference)."""
         return self.hash_table_size or self.n
+
+    @property
+    def num_neighbor_cells(self) -> int:
+        return 3**self.dim

@@ -148,12 +148,14 @@ def _scatter_planes(srows: torch.Tensor, flat: torch.Tensor, dim: int,
 
 
 def _build_core(predicted, vel, params, cfg: SimConfig, carry=None,
-                time=None):
+                origin=None, time=None):
     """The bucket build, scattering directly into the kernels' layout.
 
     ``carry`` appends (n, k) f32 columns that ride the sorted row gather but
-    are not scattered into planes. ``time`` poses the box for
-    container-frame keys.
+    are not scattered into planes. ``origin`` pins the grid anchor instead
+    of deriving it from the data (the incremental step keeps it frozen
+    between rebuilds so cell keys stay comparable). ``time`` poses the box
+    for container-frame keys.
 
     Returns (planes (2·dim, cap_p, L), counts (1, L) f32, flat (n,) i32 each
     SORTED row's plane address — cap_p·L for capacity-overflow rows —,
@@ -166,7 +168,8 @@ def _build_core(predicted, vel, params, cfg: SimConfig, carry=None,
     dev = predicted.device
 
     kpred = hashing.key_coords(predicted, params, cfg, time)
-    origin = hashing.grid_origin(kpred, h)
+    if origin is None:
+        origin = hashing.grid_origin(kpred, h)
     # a true division, not a multiply by 1/h: keys must match JAX's bits
     cell = torch.floor((kpred - origin) / h).to(torch.int32)
     hi = torch.tensor(cfg.grid_dims, dtype=torch.int32, device=dev) - 1
@@ -198,12 +201,13 @@ def _build_core(predicted, vel, params, cfg: SimConfig, carry=None,
     return planes, counts, flat, order.to(torch.int32), srows, overflow
 
 
-def _build_slab_buckets(predicted, vel, params, cfg: SimConfig, time=None):
+def _build_slab_buckets(predicted, vel, params, cfg: SimConfig, origin=None,
+                        time=None):
     """Particle-order build: ``addr`` maps PARTICLE i to its plane address
     (cap_p·L when it overflowed). Returns (planes, counts, addr, overflow)."""
     n = predicted.shape[0]
     planes, counts, flat, order, _, overflow = _build_core(
-        predicted, vel, params, cfg, time=time)
+        predicted, vel, params, cfg, origin=origin, time=time)
     addr = torch.empty(n, dtype=torch.int32, device=predicted.device)
     addr[order.long()] = flat
     return planes, counts, addr, overflow
@@ -497,6 +501,30 @@ def force_plain(planes, dens, counts, addr, params_vec, cfg: SimConfig):
 
 # ----------------------------------------------------------------- passes --
 
+def rescue_density_planes(dens, addr, dropped, n_over: int, predicted,
+                          params: SimParams, coeffs: KernelCoeffs,
+                          cfg: SimConfig):
+    """The rescue's density half on a step with ``n_over`` > 0 dropped
+    rows: exact densities with the dropped rows included (up to the
+    budget), and the residents' corrected rows written into all 6 density
+    planes, so the force pass reads pressures and reciprocals consistent
+    with them. Returns (den, nden, rescued, unrescued, budget)."""
+    from .. import rescue as rescue_mod
+
+    small = rescue_mod.small_budget(cfg)
+    budget = small if n_over <= small else cfg.rescue_capacity
+    safe = torch.clamp_max(addr, dens[0].numel() - 1).long()
+    den = torch.where(dropped, params.target_density,
+                      dens[0].reshape(-1)[safe])
+    nden = torch.where(dropped, DENSITY_PADDING, dens[1].reshape(-1)[safe])
+    den_r, nden_r, rescued, unrescued = rescue_mod.density_rescue(
+        predicted, dropped, den, nden, params, coeffs, cfg, budget=budget)
+    keep = ~dropped
+    dens.view(6, -1)[:, addr[keep].long()] = derived_density_planes(
+        den_r, nden_r, params)[:, keep]
+    return den_r, nden_r, rescued, unrescued, budget
+
+
 def sph_passes(planes, counts, addr, dropped, overflow, predicted, vel,
                params: SimParams, coeffs: KernelCoeffs, cfg: SimConfig):
     """Density + exact rescue + force + gather-back on built planes.
@@ -514,20 +542,8 @@ def sph_passes(planes, counts, addr, dropped, overflow, predicted, vel,
     rescue = n_over > 0
     unrescued = overflow
     if rescue:
-        small = rescue_mod.small_budget(cfg)
-        budget = small if n_over <= small else cfg.rescue_capacity
-        safe = torch.clamp_max(addr, dens[0].numel() - 1).long()
-        den = torch.where(dropped, params.target_density,
-                          dens[0].reshape(-1)[safe])
-        nden = torch.where(dropped, DENSITY_PADDING,
-                           dens[1].reshape(-1)[safe])
-        den_r, nden_r, rescued, unrescued = rescue_mod.density_rescue(
-            predicted, dropped, den, nden, params, coeffs, cfg, budget=budget)
-        # corrected rows into all 6 planes, so the force pass reads
-        # pressures and reciprocals consistent with them
-        keep = ~dropped
-        dens.view(6, -1)[:, addr[keep].long()] = derived_density_planes(
-            den_r, nden_r, params)[:, keep]
+        den_r, nden_r, rescued, unrescued, budget = rescue_density_planes(
+            dens, addr, dropped, n_over, predicted, params, coeffs, cfg)
 
     out_c = run_force(planes, dens, counts, addr, params_vec, cfg)
     den, nden, acc = gather_results(out_c, addr, dropped, params)

@@ -32,7 +32,7 @@ def density_pass(predicted: torch.Tensor, params: SimParams,
     near_density, pressure, near_pressure)."""
     h = params.smoothing_radius
     _, dist = _pairwise_dist(predicted)
-    inside = dist <= h
+    inside = kernels.support_mask(dist, h)
     w = torch.where(inside, kernels.w_density(dist, h, coeffs), 0.0)
     wn = torch.where(inside, kernels.w_near(dist, h, coeffs), 0.0)
     if pair_weight is not None:
@@ -63,7 +63,7 @@ def force_pass(predicted: torch.Tensor, vel: torch.Tensor,
     disp, dist = _pairwise_dist(predicted)
 
     eye = torch.eye(n, dtype=torch.bool, device=predicted.device)
-    mask = (dist <= h) & ~eye
+    mask = kernels.support_mask(dist, h) & ~eye
     if pair_weight is not None:
         weight = torch.where(mask, pair_weight.to(predicted.dtype), 0.0)
     else:

@@ -191,7 +191,8 @@ def bucket_density_pass(grid: BucketGrid, params: SimParams,
             d_a = d_a * d_a
             dist2 = d_a if dist2 is None else dist2.add_(d_a)
         dist = dist2.sqrt_()
-        m = torch.where(dist <= h, rolled[dim][None], 0.0)
+        m = torch.where(kernels.support_mask(dist, h), rolled[dim][None],
+                        0.0)
         # clamp before the kernels: sentinel distances overflow f32 in the
         # (h-d)^3 term and turn the masked product into 0·inf = NaN
         dc = torch.clamp_max(dist, h)
@@ -235,7 +236,7 @@ def bucket_force_pass(grid: BucketGrid, den: torch.Tensor,
             disp.append(d_a)
             dist2 = d_a * d_a if dist2 is None else dist2.add_(d_a * d_a)
         dist = dist2.sqrt_()
-        m = torch.where(dist <= h, MQ[None], 0.0)
+        m = torch.where(kernels.support_mask(dist, h), MQ[None], 0.0)
         if shift == 0:
             m = m * not_self        # skip self in the centre cell only
         dc = torch.clamp_max(dist, h)  # see density pass: avoid 0·inf = NaN
@@ -427,7 +428,7 @@ def hash_density_pass(predicted: torch.Tensor, grid: HashGrid,
         idx = _hash_candidates(chunk_pred, grid, params, cfg)
         disp = pred_pad[idx] - chunk_pred[:, None, :]
         dist = torch.sqrt((disp * disp).sum(dim=-1))
-        m = dist <= h
+        m = kernels.support_mask(dist, h)
         dc = torch.clamp_max(dist, h)  # sentinel distances overflow the kernels
         den.append(torch.where(m, kernels.w_density(dc, h, coeffs),
                                0.0).sum(dim=1))
@@ -465,7 +466,7 @@ def hash_force_pass(predicted: torch.Tensor, vel: torch.Tensor,
         idx = _hash_candidates(chunk_pred, grid, params, cfg)
         disp = pred_pad[idx] - chunk_pred[:, None, :]
         dist = torch.sqrt((disp * disp).sum(dim=-1))
-        m = (dist <= h) & (idx != iota[sl][:, None])
+        m = kernels.support_mask(dist, h) & (idx != iota[sl][:, None])
         mf = m.to(predicted.dtype)
         dc = torch.clamp_max(dist, h)  # sentinel distances overflow the kernels
 

@@ -1,6 +1,6 @@
 """SPH smoothing-kernel functions — the counterpart of
-``water_sandbox_tpu/ops/kernels.py``. Unmasked: callers apply the inclusive
-``d <= h`` support cutoff themselves."""
+``water_sandbox_tpu/ops/kernels.py``. The kernels are unmasked;
+``support_mask`` is the inclusive ``d <= h`` support cutoff."""
 
 from __future__ import annotations
 
@@ -37,3 +37,8 @@ def w_viscosity(d: torch.Tensor, h, k: KernelCoeffs) -> torch.Tensor:
     """Poly6 kernel used for viscosity: (h²-d²)³ · spikey_pow3."""
     v = h * h - d * d
     return v * v * v * k.spikey_pow3
+
+
+def support_mask(d: torch.Tensor, h) -> torch.Tensor:
+    """Inside-support mask, inclusive of d == h like the reference."""
+    return d <= h

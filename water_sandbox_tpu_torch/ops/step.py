@@ -9,7 +9,8 @@ run the fused bucket-kernel pipeline:
 ``"dense"`` runs the all-pairs oracle (``ops/dense.py``), ``"bucket_grid"``
 and ``"hash_grid"`` the plain PyTorch pipelines of ``ops/grid.py``.
 ``rollout`` and ``trajectory`` are Python loops over ``step`` (PyTorch runs
-eagerly).
+eagerly); in the kernel pipeline with ``incremental_rebuild > 0``,
+``rollout`` runs the plane-resident steps of ``ops/cuda/incremental.py``.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 from ..core.params import KernelCoeffs, SimConfig, SimParams
 from ..core.state import FluidState
 from . import dense, grid as grid_mod, integrate as integrate_mod
-from .cuda import sph_bucket
+from .cuda import incremental, sph_bucket
 
 
 def step(state: FluidState, params: SimParams, cfg: SimConfig) -> FluidState:
@@ -89,7 +90,14 @@ def _next_state(state, pos, vel, predicted, acc, density, near_density,
 
 def rollout(state: FluidState, params: SimParams, cfg: SimConfig,
             num_steps: int) -> FluidState:
-    """``num_steps`` of ``step``."""
+    """``num_steps`` of ``step``. With ``cfg.incremental_rebuild > 0`` in
+    the kernel pipeline the particles stay resident in the bucket planes
+    across the steps and only cell-crossing movers are re-inserted
+    (``ops/cuda/incremental.py``); the full build runs on entry and then
+    every ``incremental_rebuild`` steps."""
+    cfg = cfg.resolved()
+    if cfg.neighbor_mode == "pallas" and cfg.incremental_rebuild > 0:
+        return incremental.rollout_inc(state, params, cfg, num_steps)
     for _ in range(num_steps):
         state = step(state, params, cfg)
     return state
@@ -97,8 +105,9 @@ def rollout(state: FluidState, params: SimParams, cfg: SimConfig,
 
 def trajectory(state: FluidState, params: SimParams, cfg: SimConfig,
                num_steps: int, record_every: int = 1):
-    """Rollout that also stacks recorded positions: returns (final_state,
-    positions (num_steps // record_every, n, dim)).
+    """Steps that also stack recorded positions: returns (final_state,
+    positions (num_steps // record_every, n, dim)). Always the rebuild
+    step, as in the JAX package, whatever ``incremental_rebuild`` says.
 
     Under ``cfg.sorted_state`` the recorded rows are in each step's bucket
     order (row identity varies frame to frame); for id-stable frames use
@@ -109,7 +118,8 @@ def trajectory(state: FluidState, params: SimParams, cfg: SimConfig,
             f"{record_every}; the remainder steps would be silently dropped")
     frames = []
     for _ in range(num_steps // record_every):
-        state = rollout(state, params, cfg, record_every)
+        for _ in range(record_every):
+            state = step(state, params, cfg)
         frames.append(state.pos)
     if not frames:
         return state, state.pos.new_zeros((0, *state.pos.shape))

@@ -23,17 +23,32 @@ from ..parallel import domain, mesh as mesh_mod
 from . import metrics as metrics_mod
 
 
+def _shard_count(n_shards: int | None, n_devices: int | None) -> int:
+    """The shard count from the port's ``n_shards`` or the JAX package's
+    ``n_devices`` (default 1); both given must agree."""
+    if n_shards is not None and n_devices is not None \
+            and n_shards != n_devices:
+        raise ValueError(f"n_shards={n_shards} and n_devices={n_devices} "
+                         "name different shard counts")
+    n = n_shards if n_shards is not None else n_devices
+    return 1 if n is None else n
+
+
 class DistributedSimulation:
     """Fixed-capacity per-shard particle slots, halo exchange and migration
     between the shards of ``mesh`` (default: ``n_shards`` shards on
     ``device``, CUDA unless the caller names the CPU; raises without a CUDA
-    device). The first ``run`` is recorded as warm-up, as in
+    device). ``n_devices``, the JAX package's name for the shard count, is
+    taken as ``n_shards``. The first ``run`` is recorded as warm-up, as in
     ``Simulation``."""
 
     def __init__(self, cfg: SimConfig, params: SimParams, state: FluidState,
-                 mesh: mesh_mod.Mesh | None = None, n_shards: int = 1,
+                 mesh: mesh_mod.Mesh | None = None,
+                 n_shards: int | None = None,
                  slack: float = 2.0, mig_cap: int = 1024,
-                 name: str = "custom", device=device_mod.DEFAULT):
+                 name: str = "custom", device=device_mod.DEFAULT,
+                 n_devices: int | None = None):
+        n_shards = _shard_count(n_shards, n_devices)
         self.mesh = mesh or mesh_mod.make_mesh(n_shards, device)
         self.cfg = cfg.resolved()
         self.params = params.to(self.mesh.devices[0])
@@ -48,9 +63,11 @@ class DistributedSimulation:
         self._warm = False
 
     @classmethod
-    def from_scene(cls, name: str, n_shards: int = 1, slack: float = 2.0,
-                   device=device_mod.DEFAULT, **cfg_overrides):
-        mesh = mesh_mod.make_mesh(n_shards, device)
+    def from_scene(cls, name: str, n_shards: int | None = None,
+                   slack: float = 2.0,
+                   device=device_mod.DEFAULT, n_devices: int | None = None,
+                   **cfg_overrides):
+        mesh = mesh_mod.make_mesh(_shard_count(n_shards, n_devices), device)
         cfg, params, state = scene_registry.build(
             name, device=mesh.devices[0], **cfg_overrides)
         return cls(cfg, params, state, mesh=mesh, slack=slack, name=name)
