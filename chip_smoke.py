@@ -5,10 +5,17 @@
 
 Builds the port's CUDA kernels from ``water_sandbox_tpu_torch/csrc``, holds
 each against its plain PyTorch version at the main path's shapes, checks
-the exact overflow rescue and the ``mini-3d`` golden pins, holds the
+the exact overflow rescue and the JAX package's ``mini-3d`` golden pin
+(and that the planted physics bug of ``golden.flipped_near_derivative``
+trips it), holds the
 kernel pipeline against the dense oracle and ``hash_grid`` against the
 weighted oracle on ``mini-3d``, runs ``reference-cube`` in ``bucket_grid``
-mode against the kernel pipeline, then drives the single-device path through ``Simulation.from_scene(...).run(n)`` on
+mode against the kernel pipeline. Then the port's own 1,000-step pins of
+``reference-cube`` and ``moving-container-256k``, made on the card
+(``golden.GOLDEN``): the kernels' own row group must meet the pin and
+repeat bit for bit, the row groups G = 1, 2 and 4 (three summation
+orders) must stay within the pin's bars, no particle may drop, and the
+planted bug must trip a pin. Then it drives the single-device path through ``Simulation.from_scene(...).run(n)`` on
 ``reference-cube`` (65,536 particles) and ``moving-container-256k``
 (266,112 particles), then the incremental plane-resident mode on
 ``reference-cube`` in particle order (parity with the rebuild path at the
@@ -43,6 +50,7 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -60,13 +68,10 @@ import torch
 # the pairs in different orders (and the force kernel uses rsqrtf).
 RTOL = 2e-4
 
-# The JAX package's golden pin ("mini-3d", "pallas", 60) and its tolerances
-# (tests/test_golden.py:58-63 and :153-175).
-MINI_3D_PIN = dict(
-    com=[0.0, -3.79511, 0.0], ke=10585.89,
-    bbox_lo=[-2.28083, -4.4, -2.28083], bbox_hi=[2.28083, -3.10759, 2.28083],
-    mean_rho=156.2288, vq=[1.79178, 5.23468, 8.81625],
-    rq=[152.7888, 152.7888, 168.9195])
+# The scenes with 1,000-step pins made on the card (golden.GOLDEN), and the
+# row groups G whose summation orders set those pins' bars.
+GOLDEN_1K = ("reference-cube", "moving-container-256k")
+ROW_GROUPS = (1, 2, 4)
 
 # The domain step's parity bar against the single-device step, summed over
 # the axes per particle (tests/test_domain.py:42).
@@ -83,6 +88,9 @@ FRONT_PATHS = ("cli run dam-break-2d-4k", "cli run reference-cube",
                "viewer moving-container-256k", "viewer dam-break-2d-4k",
                "bench")
 
+# The golden phase's runs of the picker's order (each counted from 0).
+GOLDEN_PATHS = tuple(f"golden {scene}" for scene in GOLDEN_1K)
+
 # The TPU kernels (K1-K4) and, for each, the wrapper's launch counter, the
 # path whose launches and the call site whose time the summary reports, and
 # the step paths it runs on (launches a step are read from each of their
@@ -91,7 +99,7 @@ KERNELS = {
     "sph_density": dict(
         counter="sph_density", path="reference-cube",
         paths=("reference-cube", "moving-container-256k", "sharded-1m",
-               "reference-cube incremental") + FRONT_PATHS,
+               "reference-cube incremental") + GOLDEN_PATHS + FRONT_PATHS,
         at="reference-cube step 100",
         source="water_sandbox_tpu_torch/csrc/sph_density.cu",
         replaces="water_sandbox_tpu/ops/pallas/sph_bucket.py:571"),
@@ -100,7 +108,7 @@ KERNELS = {
     "sph_force": dict(
         counter="sph_force", path="reference-cube",
         paths=("reference-cube", "moving-container-256k",
-               "reference-cube incremental") + FRONT_PATHS,
+               "reference-cube incremental") + GOLDEN_PATHS + FRONT_PATHS,
         at="reference-cube step 100",
         source="water_sandbox_tpu_torch/csrc/sph_force.cu",
         replaces="water_sandbox_tpu/ops/pallas/sph_bucket.py:1128"),
@@ -116,7 +124,7 @@ KERNELS = {
     "bitonic_sort": dict(
         counter="bitonic_sort", path="argsort_keys",
         paths=("reference-cube", "moving-container-256k", "sharded-1m",
-               "reference-cube incremental") + FRONT_PATHS,
+               "reference-cube incremental") + GOLDEN_PATHS + FRONT_PATHS,
         at="sort n=65536",
         source="water_sandbox_tpu_torch/csrc/bitonic_sort.cu",
         replaces="water_sandbox_tpu/ops/pallas/bitonic_sort.py:55"),
@@ -395,29 +403,123 @@ def phase_rescue(state100) -> None:
 
 
 def phase_golden():
-    """The JAX package's ("mini-3d", "pallas", 60) pin on the kernels;
+    """The JAX package's ("mini-3d", "pallas", 60) pin on the kernels, and
+    the planted physics bug (golden.flipped_near_derivative) tripping it;
     returns the scene's config, parameters and its state at step 60."""
-    import water_sandbox_tpu_torch as wst
-    cfg, params, state = wst.scenes.build("mini-3d", device="cuda",
-                                          grid_dims=(20, 16, 16))
-    s = wst.rollout(state, params, cfg, 60)
-    pos, vel = s.pos.cpu().numpy(), s.vel.cpu().numpy()
-    rho = s.density.cpu().numpy()
-    g = MINI_3D_PIN
-    check(float(s.overflow_total) == 0.0, "golden run dropped particles")
-    np.testing.assert_allclose(pos.mean(0), g["com"], atol=2e-3)
-    np.testing.assert_allclose(0.5 * (vel ** 2).sum(), g["ke"], rtol=2e-3)
-    np.testing.assert_allclose(pos.min(0), g["bbox_lo"], atol=5e-3)
-    np.testing.assert_allclose(pos.max(0), g["bbox_hi"], atol=5e-3)
-    np.testing.assert_allclose(rho.mean(), g["mean_rho"], rtol=2e-3)
-    speed = np.sqrt((vel ** 2).sum(axis=1))
-    np.testing.assert_allclose(np.quantile(speed, (0.1, 0.5, 0.9)), g["vq"],
-                               rtol=2e-3, atol=1e-3)
-    np.testing.assert_allclose(np.quantile(rho, (0.1, 0.5, 0.9)), g["rq"],
-                               rtol=2e-3)
-    log(f"[golden] mini-3d 60 steps on the kernels: pins met "
-        f"(ke {0.5 * (vel ** 2).sum():.2f}, mean_rho {rho.mean():.4f})")
+    from water_sandbox_tpu_torch import golden
+    key = ("mini-3d", "pallas", 60)
+    pin = golden.JAX_GOLDEN[key]
+    cfg, params, s = golden.run(*key, device="cuda", **pin["kw"])
+    got = golden.summarize(s)
+    tripped = golden.check(got, pin)
+    check(tripped == [], f"golden mini-3d: tripped {tripped}")
+    with golden.flipped_near_derivative():
+        flipped = golden.check(golden.stats(*key, device="cuda",
+                                            **pin["kw"]), pin)
+    check(bool(set(flipped) - {"overflow_total"}),
+          f"golden mini-3d: the flipped run tripped {flipped}")
+    log(f"[golden] mini-3d 60 steps on the kernels: the JAX package's pin "
+        f"met, worst statistic at {max(golden.margins(got, pin).values()):.3f}"
+        f" of its bar (ke {got['ke']:.2f}, mean_rho {got['mean_rho']:.4f}); "
+        f"pow3_der flipped trips {flipped}")
     return cfg, params, s
+
+
+@contextlib.contextmanager
+def row_group(group: int):
+    """Every launch of the density and force kernels with ``group`` threads
+    a row while open: each row's lanes split G ways and the partial sums
+    joined by warp shuffles, another summation order of the same pairs."""
+    from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
+    orig = sb._row_group
+    sb._row_group = lambda n, sms: group
+    try:
+        yield
+    finally:
+        sb._row_group = orig
+
+
+def spreads(runs) -> dict:
+    """Per statistic, the largest difference between two of ``runs`` (stats
+    dicts) over its elements."""
+    from water_sandbox_tpu_torch import golden
+    out = {}
+    for key in golden.BARS:
+        v = np.array([np.atleast_1d(np.asarray(r[key], np.float64))
+                      for r in runs])
+        out[key] = float((v.max(axis=0) - v.min(axis=0)).max())
+    return out
+
+
+def rounded(margins: dict) -> dict:
+    return {k: round(v, 3) for k, v in margins.items()}
+
+
+def phase_golden_1k(scene: str, paths: dict, steps: int = 1000) -> None:
+    """``steps`` steps of ``scene`` in the kernel pipeline, through
+    golden.run, against the port's pin made on the card: the picker's row
+    group, then G = 1, 2 and 4 forced (three summation orders; the one the
+    picker takes must repeat the first run bit for bit), then the planted
+    physics bug. Every run prints its statistics before any check fails."""
+    from water_sandbox_tpu_torch import golden
+    from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
+    from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
+    key = (scene, "pallas", steps)
+    pin = golden.GOLDEN.get(key)
+    t_phase = time.perf_counter()
+
+    def run(label):
+        t0 = time.perf_counter()
+        _, _, s = golden.run(*key, device="cuda")
+        got = golden.summarize(s)
+        log(f"[golden] {scene} {steps} steps, {label}: {json.dumps(got)} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        return s, got
+
+    sb.reset_launches()
+    bs.reset_launches()
+    first, picked = run("the picker's order")
+    launches = {**sb.LAUNCHES, **bs.LAUNCHES}
+    paths[f"golden {scene}"] = (launches, steps)
+    group = sb._row_group(first.n, sb._sm_count(0))
+    orders, same = {}, False
+    for g in ROW_GROUPS:
+        with row_group(g):
+            s, orders[g] = run(f"G = {g}")
+        if g == group:
+            same = all(torch.equal(getattr(s, f), getattr(first, f))
+                       for f in ("pos", "vel", "density", "ids"))
+    spread = spreads(orders.values())
+    log(f"[golden] {scene}: spread over G = 1, 2, 4 {json.dumps(spread)}; "
+        f"2x the spread {json.dumps({k: 2 * v for k, v in spread.items()})}")
+    with golden.flipped_near_derivative():
+        _, flipped = run("pow3_der flipped")
+    jax_pin = golden.JAX_GOLDEN[key]
+    log(f"[golden] {scene} beside the JAX package's TPU pin (information "
+        f"only): tripped {golden.check(picked, jax_pin)}, margins "
+        f"{json.dumps(rounded(golden.margins(picked, jax_pin)))}")
+
+    check(pin is not None, f"golden {scene}: no pin for {key}")
+    check_launches(f"golden {scene}", launches, steps)
+    check(same, f"golden {scene}: two runs of G = {group} differ")
+    tripped = golden.check(picked, pin)
+    log(f"[golden] {scene}: the picker's order (G = {group}) against the pin "
+        f"made on {pin['made_on']}: tripped {tripped}, margins "
+        f"{json.dumps(rounded(golden.margins(picked, pin)))}")
+    check(tripped == [], f"golden {scene}: the picker's order tripped "
+          f"{tripped}")
+    for g, got in orders.items():
+        tripped = golden.check(got, pin)
+        log(f"[golden] {scene}: G = {g} against the pin's bars: tripped "
+            f"{tripped}, worst margin {max(golden.margins(got, pin).values()):.3f}")
+        check(tripped == [], f"golden {scene}: G = {g} tripped {tripped}")
+    tripped = golden.check(flipped, pin)
+    log(f"[golden] {scene}: pow3_der flipped trips {tripped} "
+        f"(overflow_total {flipped['overflow_total']})")
+    check(bool(set(tripped) - {"overflow_total"}),
+          f"golden {scene}: the flipped run tripped no statistic")
+    log(f"[golden] {scene}: launches {launches}, two runs of G = {group} "
+        f"bit-identical, phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def hold(name, got, want, rtol=RTOL) -> float:
@@ -1451,11 +1553,16 @@ def main() -> int:
     phase_oracle(*phase_golden())
     phase_bucket_grid(state100)
 
+    # 5b. the port's 1,000-step pins made on the card
+    paths: dict = {}
+    for scene in GOLDEN_1K:
+        phase_golden_1k(scene, paths)
+
     # 6. single-device path
-    paths = {"reference-cube": phase_main_path("reference-cube", 200,
-                                               warmup=20),
-             "moving-container-256k": phase_main_path(
-                 "moving-container-256k", 50, warmup=10)}
+    paths["reference-cube"] = phase_main_path("reference-cube", 200,
+                                              warmup=20)
+    paths["moving-container-256k"] = phase_main_path(
+        "moving-container-256k", 50, warmup=10)
 
     # 6b. the incremental plane-resident path
     phase_incremental(record, paths)

@@ -28,7 +28,7 @@ def test_no_module_of_the_port_imports_jax():
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["loaded"] == []
-    for name in ("cli", "bench", "io.export", "runtime.keymap",
+    for name in ("cli", "bench", "golden", "io.export", "runtime.keymap",
                  "runtime.profiling", "viz.raster", "viz.live", "viz.render",
                  "viz.server", "ops.cuda.sph_bucket", "ops.cuda.incremental",
                  "parallel.domain"):

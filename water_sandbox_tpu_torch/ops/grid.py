@@ -5,17 +5,19 @@ reaches a hand-written kernel).
 * ``bucket_grid``: particles are scattered once per step into a dense
   cell-bucket tensor, slot-major: ``(dim, C, num_cells)`` planes with the
   cell axis last (C = fixed per-cell capacity). The 3^dim neighbour cells
-  come from ``torch.roll`` of the flat cell axis, and each cell computes a
-  dense masked C×C pair block against each rolled neighbourhood. The only
-  irregular memory operations are one stable sort, one n-row scatter and one
-  n-row gather-back per pass.
+  sit at fixed offsets of the flat cell axis (the JAX package rolls it;
+  here each occupied cell gathers its neighbours at those offsets), and
+  each occupied cell computes a dense masked C×C pair block against each
+  neighbour. Empty cells are skipped: their slots pair with nothing. The
+  irregular memory operations are one stable sort, one n-row scatter, the
+  neighbour gathers and one n-row gather-back per pass.
 * ``hash_grid``: emulation of the reference's hashed cell table — hash
   collision aliasing and per-offset multi-count included — by sorted-run
   gathers. Slow by design; it exists for parity against the dense oracle.
 
 Grid-boundary notes (bucket mode): the grid anchors one cell below the
 minimum predicted position each step; out-of-range cells clamp to the
-border. Roll wraparound at the border can only alias cells that are at
+border. Offset wraparound at the border can only alias cells that are at
 least a grid extent apart in space, so the per-pair distance filter keeps
 it exact.
 """
@@ -168,39 +170,54 @@ def _roll_shifts(dims: tuple) -> list[int]:
             for off in itertools.product((-1, 0, 1), repeat=len(dims))]
 
 
+def _occupied_cells(cell_mask: torch.Tensor) -> torch.Tensor:
+    """Flat ids of the cells that hold a particle: the passes walk these as
+    query cells only. An empty cell's slots pair with nothing, so skipping
+    it changes no occupied slot's sums. The neighbour at roll ``shift`` of
+    cell ``c`` is cell ``(c - shift) % num_cells``, as
+    ``torch.roll(x, shift, -1)[..., c]`` reads it."""
+    return torch.nonzero((cell_mask > 0).any(dim=0)).reshape(-1)
+
+
 def bucket_density_pass(grid: BucketGrid, params: SimParams,
                         coeffs: KernelCoeffs, cfg: SimConfig):
     """Density + EOS over the slot-major bucket layout: a loop over the
-    3^dim neighbour offsets, each rolling the cell grid and accumulating a
-    dense masked Cq×Cn pair block per cell (one block's temporaries live at
-    a time). Returns cell-layout (den, nden, prs, nprs), each
-    (C, num_cells). Self-interaction included."""
+    3^dim neighbour offsets, each gathering the occupied cells' neighbours
+    and accumulating a dense masked Cq×Cn pair block per occupied cell (one
+    block's temporaries live at a time). Returns cell-layout (den, nden,
+    prs, nprs), each (C, num_cells). Self-interaction included."""
     h = params.smoothing_radius
     P, M = grid.cell_pos, grid.cell_mask            # (dim, C, nc), (C, nc)
     dim = P.shape[0]
+    occ = _occupied_cells(M)
     PM = torch.cat([P, M[None]], dim=0)             # (dim+1, C, nc)
-    den = torch.zeros_like(M)
-    nden = torch.zeros_like(M)
+    Pq = P[:, :, occ]
+    den_o = torch.zeros_like(M[:, occ])
+    nden_o = torch.zeros_like(den_o)
     for shift in _roll_shifts(cfg.grid_dims):
-        rolled = torch.roll(PM, shift, dims=-1)
+        nb = PM[:, :, (occ - shift) % M.shape[1]]
         # pair block: query slots on axis 0, neighbour slots on axis 1,
         # cells last
         dist2 = None
         for a in range(dim):
-            d_a = rolled[a][None, :, :] - P[a][:, None, :]  # (Cq, Cn, nc)
+            d_a = nb[a][None, :, :] - Pq[a][:, None, :]  # (Cq, Cn, occ)
             d_a = d_a * d_a
             dist2 = d_a if dist2 is None else dist2.add_(d_a)
         dist = dist2.sqrt_()
-        m = torch.where(kernels.support_mask(dist, h), rolled[dim][None],
+        m = torch.where(kernels.support_mask(dist, h), nb[dim][None],
                         0.0)
         # clamp before the kernels: sentinel distances overflow f32 in the
         # (h-d)^3 term and turn the masked product into 0·inf = NaN
         dc = torch.clamp_max(dist, h)
-        den = den + (m * kernels.w_density(dc, h, coeffs)).sum(dim=1)
-        nden = nden + (m * kernels.w_near(dc, h, coeffs)).sum(dim=1)
+        den_o = den_o + (m * kernels.w_density(dc, h, coeffs)).sum(dim=1)
+        nden_o = nden_o + (m * kernels.w_near(dc, h, coeffs)).sum(dim=1)
 
-    den = den + DENSITY_PADDING
-    nden = nden + DENSITY_PADDING
+    # an empty cell's slots see no pair: padding alone, as the full pass
+    # gives them
+    den = torch.full_like(M, DENSITY_PADDING)
+    nden = torch.full_like(M, DENSITY_PADDING)
+    den[:, occ] = den_o + DENSITY_PADDING
+    nden[:, occ] = nden_o + DENSITY_PADDING
     prs = params.pressure_scalar * (den - params.target_density)
     nprs = params.near_pressure_scalar * nden
     return den, nden, prs, nprs
@@ -211,8 +228,9 @@ def bucket_force_pass(grid: BucketGrid, den: torch.Tensor,
                       nprs: torch.Tensor, params: SimParams,
                       coeffs: KernelCoeffs, cfg: SimConfig) -> torch.Tensor:
     """Pressure + viscosity acceleration over the slot-major bucket layout,
-    a loop over the neighbour offsets. The self pair is excluded in the
-    centre offset only. Returns cell acc (dim, C, num_cells)."""
+    a loop over the neighbour offsets of the occupied cells. The self pair
+    is excluded in the centre offset only. Returns cell acc
+    (dim, C, num_cells)."""
     h = params.smoothing_radius
     P, V, M = grid.cell_pos, grid.cell_vel, grid.cell_mask
     dim, cap, nc = P.shape
@@ -221,18 +239,21 @@ def bucket_force_pass(grid: BucketGrid, den: torch.Tensor,
     not_self = (1.0 - torch.eye(cap, dtype=dtype, device=P.device))[:, :, None]
     feats = torch.cat(
         [P, V, M[None], den[None], nden[None], prs[None], nprs[None]], dim=0)
-    pressure_force = [torch.zeros_like(M) for _ in range(dim)]
-    viscosity_force = [torch.zeros_like(M) for _ in range(dim)]
+    occ = _occupied_cells(M)
+    Pq, Vq = P[:, :, occ], V[:, :, occ]
+    prs_q, nprs_q = prs[:, occ], nprs[:, occ]
+    pressure_force = [torch.zeros_like(M[:, occ]) for _ in range(dim)]
+    viscosity_force = [torch.zeros_like(M[:, occ]) for _ in range(dim)]
     for shift in _roll_shifts(cfg.grid_dims):
-        rolled = torch.roll(feats, shift, dims=-1)
-        MQ = rolled[2 * dim]
-        dQ, ndQ = rolled[2 * dim + 1], rolled[2 * dim + 2]
-        pQ, npQ = rolled[2 * dim + 3], rolled[2 * dim + 4]
+        nb = feats[:, :, (occ - shift) % nc]
+        MQ = nb[2 * dim]
+        dQ, ndQ = nb[2 * dim + 1], nb[2 * dim + 2]
+        pQ, npQ = nb[2 * dim + 3], nb[2 * dim + 4]
 
         disp = []
         dist2 = None
         for a in range(dim):
-            d_a = rolled[a][None, :, :] - P[a][:, None, :]  # (Cq, Cn, nc)
+            d_a = nb[a][None, :, :] - Pq[a][:, None, :]  # (Cq, Cn, occ)
             disp.append(d_a)
             dist2 = d_a * d_a if dist2 is None else dist2.add_(d_a * d_a)
         dist = dist2.sqrt_()
@@ -247,8 +268,8 @@ def bucket_force_pass(grid: BucketGrid, den: torch.Tensor,
         zero_dist = (~positive).to(dtype)
         del positive
 
-        shared_p = (prs[:, None, :] + pQ[None, :, :]) * 0.5
-        shared_np = (nprs[:, None, :] + npQ[None, :, :]) * 0.5
+        shared_p = (prs_q[:, None, :] + pQ[None, :, :]) * 0.5
+        shared_np = (nprs_q[:, None, :] + npQ[None, :, :]) * 0.5
         # neighbour densities: padded slots hold 0 — guard the divide, the
         # mask zeroes those lanes anyway
         dQ_safe = torch.where(dQ > 0.0, dQ, 1.0)[None]
@@ -266,11 +287,15 @@ def bucket_force_pass(grid: BucketGrid, den: torch.Tensor,
                 dir_a = dir_a + zero_dist
             pressure_force[a] = pressure_force[a] + (dir_a * scale).sum(dim=1)
             viscosity_force[a] = viscosity_force[a] + (
-                (rolled[dim + a][None, :, :] - V[a][:, None, :])
+                (nb[dim + a][None, :, :] - Vq[a][:, None, :])
                 * w_visc).sum(dim=1)
 
-    return (torch.stack(pressure_force) / den[None]
-            + params.viscosity_strength * torch.stack(viscosity_force))
+    # an empty cell's slots feel no pair force
+    acc = torch.zeros_like(P)
+    acc[:, :, occ] = (torch.stack(pressure_force) / den[None, :, occ]
+                      + params.viscosity_strength
+                      * torch.stack(viscosity_force))
+    return acc
 
 
 def _from_cells(cell_arr: torch.Tensor, addr: torch.Tensor,
