@@ -2,10 +2,19 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare DIR   # this tree against an older one
+
 
 Builds the port's CUDA kernels from ``water_sandbox_tpu_torch/csrc``, holds
 each against its plain PyTorch version at the main path's shapes, checks
-the exact overflow rescue and the JAX package's ``mini-3d`` golden pin
+the exact overflow rescue (the step on the card against the CPU, and the
+rescue's two kernels against their plain versions at ~5k dropped rows and
+at count 0), the step captured as a CUDA graph against the eager step on
+both flagship scenes ([capture]: bit for bit over ``reference-cube``'s
+rescue-firing steps 100-200 and over 50 settled steps of each, the eager
+step under ``torch.cuda.set_sync_debug_mode("error")``, launches a replay,
+peak memory, eager and captured ms/step alternated), the JAX package's
+``mini-3d`` golden pin
 (and that the planted physics bug of ``golden.flipped_near_derivative``
 trips it), holds the
 kernel pipeline against the dense oracle and ``hash_grid`` against the
@@ -14,8 +23,9 @@ mode against the kernel pipeline. Then the port's own 1,000-step pins of
 ``reference-cube`` and ``moving-container-256k``, made on the card
 (``golden.GOLDEN``): the kernels' own row group must meet the pin and
 repeat bit for bit, the row groups G = 1, 2 and 4 (three summation
-orders) must stay within the pin's bars, no particle may drop, and the
-planted bug must trip a pin. Then it drives the single-device path through ``Simulation.from_scene(...).run(n)`` on
+orders, all different) and the eager step with the rescue's plain versions
+must stay within the pin's bars, no particle may drop, and the planted bug
+must trip a pin. Then it drives the single-device path through ``Simulation.from_scene(...).run(n)`` on
 ``reference-cube`` (65,536 particles) and ``moving-container-256k``
 (266,112 particles), then the incremental plane-resident mode on
 ``reference-cube`` in particle order (parity with the rebuild path at the
@@ -34,7 +44,7 @@ the front end: ``python -m water_sandbox_tpu_torch.cli`` as subprocesses
 (``scenes``; ``run`` at its default 2-D scene and at ``reference-cube``,
 each with a trajectory and a checkpoint; ``resume`` held by id against the
 same steps in this process; ``bench``), ``runtime/profiling.py``'s trace of
-``Simulation.run`` (both kernels once a step), ``viz/live.py`` on a stub
+``Simulation.run`` (the step's four kernels once a step), ``viz/live.py`` on a stub
 terminal, ``viz/server.py`` over HTTP (a density raster at the flagship,
 points at ``dam-break-2d-4k``), and ``python -m
 water_sandbox_tpu_torch.bench`` at its defaults. Each
@@ -88,6 +98,10 @@ FRONT_PATHS = ("cli run dam-break-2d-4k", "cli run reference-cube",
                "viewer moving-container-256k", "viewer dam-break-2d-4k",
                "bench")
 
+# The kernels every single-device step launches once.
+STEP_KERNELS = ("sph_density", "sph_force", "sph_rescue_density",
+                "sph_rescue_force")
+
 # The golden phase's runs of the picker's order (each counted from 0).
 GOLDEN_PATHS = tuple(f"golden {scene}" for scene in GOLDEN_1K)
 
@@ -99,7 +113,9 @@ KERNELS = {
     "sph_density": dict(
         counter="sph_density", path="reference-cube",
         paths=("reference-cube", "moving-container-256k", "sharded-1m",
-               "reference-cube incremental") + GOLDEN_PATHS + FRONT_PATHS,
+               "reference-cube incremental",
+               "reference-cube incremental cap 8") + GOLDEN_PATHS
+        + FRONT_PATHS,
         at="reference-cube step 100",
         source="water_sandbox_tpu_torch/csrc/sph_density.cu",
         replaces="water_sandbox_tpu/ops/pallas/sph_bucket.py:571"),
@@ -108,7 +124,9 @@ KERNELS = {
     "sph_force": dict(
         counter="sph_force", path="reference-cube",
         paths=("reference-cube", "moving-container-256k",
-               "reference-cube incremental") + GOLDEN_PATHS + FRONT_PATHS,
+               "reference-cube incremental",
+               "reference-cube incremental cap 8") + GOLDEN_PATHS
+        + FRONT_PATHS,
         at="reference-cube step 100",
         source="water_sandbox_tpu_torch/csrc/sph_force.cu",
         replaces="water_sandbox_tpu/ops/pallas/sph_bucket.py:1128"),
@@ -119,16 +137,57 @@ KERNELS = {
         at="sharded-1m shard 1 (halo-filled)",
         source="water_sandbox_tpu_torch/csrc/sph_force.cu",
         replaces="water_sandbox_tpu/ops/pallas/sph_bucket.py:774"),
+    # the exact rescue's two halves, launched on every single-device step
+    # and gated on the device count: no pallas_call in the JAX package
+    # (XLA ops under lax.cond, ops/pallas/sph_bucket.py:1701, :1727)
+    "sph_rescue_density": dict(
+        counter="sph_rescue_density", path="reference-cube",
+        paths=("reference-cube", "moving-container-256k",
+               "reference-cube incremental",
+               "reference-cube incremental cap 8") + GOLDEN_PATHS
+        + FRONT_PATHS,
+        at="reference-cube cap 8 step 100",
+        source="water_sandbox_tpu_torch/csrc/sph_rescue.cu",
+        replaces="water_sandbox_tpu/ops/rescue.py:61"),
+    "sph_rescue_force": dict(
+        counter="sph_rescue_force", path="reference-cube",
+        paths=("reference-cube", "moving-container-256k",
+               "reference-cube incremental",
+               "reference-cube incremental cap 8") + GOLDEN_PATHS
+        + FRONT_PATHS,
+        at="reference-cube cap 8 step 100",
+        source="water_sandbox_tpu_torch/csrc/sph_rescue.cu",
+        replaces="water_sandbox_tpu/ops/rescue.py:116"),
     # on no step path, as in the JAX package: its launches a step are read
     # from every step path's run all the same
     "bitonic_sort": dict(
         counter="bitonic_sort", path="argsort_keys",
         paths=("reference-cube", "moving-container-256k", "sharded-1m",
-               "reference-cube incremental") + GOLDEN_PATHS + FRONT_PATHS,
+               "reference-cube incremental",
+               "reference-cube incremental cap 8") + GOLDEN_PATHS
+        + FRONT_PATHS,
         at="sort n=65536",
         source="water_sandbox_tpu_torch/csrc/bitonic_sort.cu",
         replaces="water_sandbox_tpu/ops/pallas/bitonic_sort.py:55"),
 }
+
+
+def reset_launches() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
+    from water_sandbox_tpu_torch.ops.cuda import rescue as rk
+    from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
+    sb.reset_launches()
+    bs.reset_launches()
+    rk.reset_launches()
+
+
+def launches_now() -> dict:
+    """Every kernel wrapper's launch count."""
+    from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
+    from water_sandbox_tpu_torch.ops.cuda import rescue as rk
+    from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
+    return {**sb.LAUNCHES, **bs.LAUNCHES, **rk.LAUNCHES}
 
 
 def log(msg: str) -> None:
@@ -378,11 +437,15 @@ def box_local(params, state):
                                      inverse=True)
 
 
-def phase_rescue(state100) -> None:
+def phase_rescue(state100, record) -> None:
     """reference-cube at cell_capacity 8 (forces overflow): one step on the
     kernel path against the same step on the plain path (CPU). At step 100
     about 5k particles overflow cap 8, past the scene's rescue budget of
-    2048, so the budget is raised to keep every particle exact."""
+    2048, so the budget is raised to keep every particle exact. Then the
+    rescue's kernels at that state: R1 and R2 against their plain versions
+    on the same CUDA tensors, two launches bit-identical, count 0 leaving
+    den, nden, the density planes and acc bit-untouched, and their times
+    at the state's count and at count 0."""
     import water_sandbox_tpu_torch as wst
     cfg, params, _ = wst.scenes.build("reference-cube", device="cuda",
                                       cell_capacity=8, rescue_capacity=8192)
@@ -400,6 +463,133 @@ def phase_rescue(state100) -> None:
     worst = max(hold(f"rescue step {f}", by_id(s_k, f), by_id(s_p, f))
                 for f in ("density", "near_density", "acc", "vel", "pos"))
     log(f"[rescue] kernel path vs plain path: max_abs_err={worst:.3e}")
+    rescue_kernels("reference-cube cap 8 step 100", cfg, params, state100,
+                   record)
+
+
+def rescue_kernels(label, cfg, params, state, record) -> None:
+    """R1 and R2 (csrc/sph_rescue.cu) against density_plain and
+    force_plain at the sorted step's inputs of ``state``: K1's planes, the
+    gathered densities, the rescue selection; R2 on R1's output and K2's
+    accelerations."""
+    from water_sandbox_tpu_torch.core.params import KernelCoeffs
+    from water_sandbox_tpu_torch.ops import rescue as rescue_mod
+    from water_sandbox_tpu_torch.ops.cuda import rescue as rk
+    from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
+    cfg = cfg.resolved()
+    dim, n = cfg.dim, state.n
+    coeffs = KernelCoeffs.from_radius(params.smoothing_radius, dim)
+    pv = sb._param_vector(params, coeffs)
+    planes, counts, flat, _, srows, overflow = sb._build_core(
+        state.predicted, state.vel, params, cfg, time=state.time)
+    pred = srows[:, :dim].contiguous()
+    vel = srows[:, dim:2 * dim].contiguous()
+    PL = sb._cap_pad(cfg.cell_capacity) * sb._geometry(cfg).L
+    dropped = flat == PL
+    dens = sb.run_density(planes, counts, flat, pv, cfg)
+    den, nden = sb.gather_density(dens, flat, dropped, params)
+    sel, slot, count = rescue_mod.rescue_selection(
+        dropped, overflow, min(cfg.rescue_capacity, n))
+    k = int(count)
+    zero = torch.zeros_like(count)
+    occ = flat[flat < PL].long()
+
+    def r1(out, c=count):
+        rk.rescue_density(pred, sel, slot, c, flat, *out, params, coeffs,
+                          pv, cfg)
+
+    def r1_plain(out):
+        rk.density_plain(pred, sel, slot, count, flat, *out, params, coeffs,
+                         cfg)
+
+    fresh = lambda: (den.clone(), nden.clone(), dens.clone())  # noqa: E731
+    got, again, want = fresh(), fresh(), fresh()
+    r1(got)
+    r1(again)
+    r1_plain(want)
+    torch.cuda.synchronize()
+    check(all(same_bits(a, b) for a, b in zip(got, again)),
+          f"{label}: two launches of R1 differ")
+    err_d = max(hold(f"{label} R1 {name}", g.cpu().numpy(), w.cpu().numpy())
+                for name, g, w in zip(("den", "nden"), got, want))
+    err_d = max(err_d, compare_planes(f"{label} R1 planes", got[2], want[2],
+                                      occ))
+    out_c = sb.run_force(planes, got[2], counts, flat, pv, cfg)
+    safe = torch.clamp_max(flat, PL - 1).long()
+    acc = torch.where(dropped, 0.0, out_c[2:].reshape(dim, -1)[:, safe]
+                      ).T.contiguous()
+    d, nd = got[0], got[1]
+    prs = params.pressure_scalar * (d - params.target_density)
+    nprs = params.near_pressure_scalar * nd
+
+    def r2(a, c=count):
+        rk.rescue_force(pred, vel, d, nd, prs, nprs, sel, slot, c, a, params,
+                        coeffs, pv, cfg)
+
+    a_k, a_again, a_p = acc.clone(), acc.clone(), acc.clone()
+    r2(a_k)
+    r2(a_again)
+    rk.force_plain(pred, vel, d, nd, prs, nprs, sel, slot, count, a_p,
+                   params, coeffs, cfg)
+    torch.cuda.synchronize()
+    check(same_bits(a_k, a_again), f"{label}: two launches of R2 differ")
+    err_f = hold(f"{label} R2 acc", a_k.cpu().numpy(), a_p.cpu().numpy())
+
+    zd, za = fresh(), acc.clone()
+    r1(zd, zero)
+    rk.rescue_force(pred, vel, den, nden, prs, nprs, sel, slot, zero, za,
+                    params, coeffs, pv, cfg)
+    torch.cuda.synchronize()
+    check(all(same_bits(a, b) for a, b in zip(zd, (den, nden, dens)))
+          and same_bits(za, acc),
+          f"{label}: count 0 changed den, nden, the planes or acc")
+
+    # pairs within h between a rescued row and any row (self included)
+    rows = pred[sel[:k].long()]
+    p_h = sum(int((torch.cdist(
+        rows[i:i + 256], pred, compute_mode="donot_use_mm_for_euclid_dist")
+        <= params.smoothing_radius).sum()) for i in range(0, k, 256))
+    tests = k * n * (3 * dim - 1)          # the sweep's distance tests
+    residents = int((~dropped).sum())
+    bounds = {
+        # 7 flops a pair within h a side; reads pred, slot, den, nden, sel
+        # and the residents' addresses, writes den, nden and 6 planes a
+        # resident
+        "sph_rescue_density": bound(
+            tests + 2 * 7 * p_h,
+            n * (4 * dim + 12) + 4 * k + n * 8 + residents * (4 + 24)),
+        # 20 + 5*dim flops a pair within h a side; reads pred, vel, den,
+        # nden, prs, nprs, slot, acc, sel, writes acc
+        "sph_rescue_force": bound(
+            tests + 2 * (20 + 5 * dim) * p_h,
+            n * (8 * dim + 20) + 4 * k + n * 4 * dim * 2),
+    }
+    scratch_d, scratch_a = fresh(), acc.clone()
+    runs = {
+        "sph_rescue_density": (err_d, lambda c=count: r1(scratch_d, c),
+                               lambda: r1_plain(fresh())),
+        "sph_rescue_force": (err_f, lambda c=count: r2(scratch_a, c),
+                             lambda: rk.force_plain(
+                                 pred, vel, d, nd, prs, nprs, sel, slot,
+                                 count, acc.clone(), params, coeffs, cfg)),
+    }
+    for name, (err, launch, plain) in runs.items():
+        kernel = name.replace("sph_", "") + "_kernel"
+        rec = dict(max_abs_err=err, ms=cuda_ms(launch),
+                   device_ms=device_ms(launch, kernel),
+                   ms_count0=cuda_ms(lambda: launch(zero)),
+                   device_ms_count0=device_ms(lambda: launch(zero), kernel),
+                   plain_ms=cuda_ms(plain, reps=5), library_ms=None)
+        rec["bound_ms"], rec["bound_by"] = bounds[name]
+        record.setdefault(name, {})[label] = rec
+        log(f"[rescue] {label}: {name} at count {k} of {int(overflow)} "
+            f"dropped: max_abs_err={err:.3e} kernel_ms={rec['ms']:.4f} "
+            f"device_ms={fmt(rec['device_ms'])} plain_ms="
+            f"{rec['plain_ms']:.4f} bound_ms={rec['bound_ms']:.3e} "
+            f"({rec['bound_by']}) library_ms=none; at count 0: kernel_ms="
+            f"{rec['ms_count0']:.4f} device_ms="
+            f"{fmt(rec['device_ms_count0'])} (n {n}, pairs within h of a "
+            f"rescued row {p_h}, distance tests {tests})")
 
 
 def phase_golden():
@@ -455,14 +645,49 @@ def rounded(margins: dict) -> dict:
     return {k: round(v, 3) for k, v in margins.items()}
 
 
+@contextlib.contextmanager
+def plain_rescue():
+    """While open, the step's rescue runs its plain versions (ops/cuda/
+    rescue.py::density_plain, force_plain) on the card's tensors instead of
+    the kernels: another summation order of the same pairs. Eager only: it
+    reads the rescued count on the host, skips the halves at count 0 as the
+    kernels do, and sweeps the first count slots of the rescued list."""
+    from water_sandbox_tpu_torch.ops.cuda import rescue as rk
+    saved = rk.rescue_density, rk.rescue_force
+
+    def density(predicted, sel, slot, count, addr, den, nden, dens, params,
+                coeffs, params_vec, cfg):
+        k = int(count)
+        if k:
+            rk.density_plain(predicted, sel[:k], slot, count, addr, den,
+                             nden, dens, params, coeffs, cfg)
+
+    def force(predicted, vel, den, nden, prs, nprs, sel, slot, count, acc,
+              params, coeffs, params_vec, cfg):
+        k = int(count)
+        if k:
+            rk.force_plain(predicted, vel, den, nden, prs, nprs, sel[:k],
+                           slot, count, acc, params, coeffs, cfg)
+
+    rk.rescue_density, rk.rescue_force = density, force
+    try:
+        yield
+    finally:
+        rk.rescue_density, rk.rescue_force = saved
+
+
 def phase_golden_1k(scene: str, paths: dict, steps: int = 1000) -> None:
     """``steps`` steps of ``scene`` in the kernel pipeline, through
-    golden.run, against the port's pin made on the card: the picker's row
-    group, then G = 1, 2 and 4 forced (three summation orders; the one the
-    picker takes must repeat the first run bit for bit), then the planted
-    physics bug. Every run prints its statistics before any check fails."""
+    golden.run (the captured step, one graph a run, captured under the
+    run's own context), against the port's pin made on the card: the
+    picker's row group, then G = 1, 2 and 4 forced (three summation
+    orders, which must differ from one another; the one the picker takes
+    must repeat the first run bit for bit), then the eager step with the
+    rescue's plain versions at the picker's G (a fourth order), then the
+    planted physics bug. Every run prints its statistics before any check
+    fails."""
+    import water_sandbox_tpu_torch as wst
     from water_sandbox_tpu_torch import golden
-    from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
     from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
     key = (scene, "pallas", steps)
     pin = golden.GOLDEN.get(key)
@@ -476,22 +701,36 @@ def phase_golden_1k(scene: str, paths: dict, steps: int = 1000) -> None:
             f"({time.perf_counter() - t0:.1f} s)")
         return s, got
 
-    sb.reset_launches()
-    bs.reset_launches()
+    reset_launches()
     first, picked = run("the picker's order")
-    launches = {**sb.LAUNCHES, **bs.LAUNCHES}
+    launches = launches_now()
     paths[f"golden {scene}"] = (launches, steps)
     group = sb._row_group(first.n, sb._sm_count(0))
-    orders, same = {}, False
+    orders, states, same = {}, {}, False
     for g in ROW_GROUPS:
         with row_group(g):
-            s, orders[g] = run(f"G = {g}")
+            states[g], orders[g] = run(f"G = {g}")
         if g == group:
-            same = all(torch.equal(getattr(s, f), getattr(first, f))
-                       for f in ("pos", "vel", "density", "ids"))
+            same = same_state(states[g], first)
+    differ = all(not torch.equal(states[a].pos, states[b].pos)
+                 for a in ROW_GROUPS for b in ROW_GROUPS if a < b)
+    del states
+
+    t0 = time.perf_counter()
+    cfg, params, s = wst.scenes.build(scene, device="cuda")
+    with plain_rescue():
+        for _ in range(steps):
+            s = wst.step(s, params, cfg)
+    orders["plain rescue"] = golden.summarize(s)
+    log(f"[golden] {scene} {steps} steps, the eager step with the plain "
+        f"rescue (G = {group}): {json.dumps(orders['plain rescue'])} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del s
+    spread_g = spreads([orders[g] for g in ROW_GROUPS])
     spread = spreads(orders.values())
-    log(f"[golden] {scene}: spread over G = 1, 2, 4 {json.dumps(spread)}; "
-        f"2x the spread {json.dumps({k: 2 * v for k, v in spread.items()})}")
+    log(f"[golden] {scene}: spread over G = 1, 2, 4 {json.dumps(spread_g)}; "
+        f"over G = 1, 2, 4 and the plain rescue {json.dumps(spread)}; 2x "
+        f"that {json.dumps({k: 2 * v for k, v in spread.items()})}")
     with golden.flipped_near_derivative():
         _, flipped = run("pow3_der flipped")
     jax_pin = golden.JAX_GOLDEN[key]
@@ -502,6 +741,8 @@ def phase_golden_1k(scene: str, paths: dict, steps: int = 1000) -> None:
     check(pin is not None, f"golden {scene}: no pin for {key}")
     check_launches(f"golden {scene}", launches, steps)
     check(same, f"golden {scene}: two runs of G = {group} differ")
+    check(differ, f"golden {scene}: the runs of G = 1, 2, 4 do not all "
+          "differ (a graph replayed another context's step)")
     tripped = golden.check(picked, pin)
     log(f"[golden] {scene}: the picker's order (G = {group}) against the pin "
         f"made on {pin['made_on']}: tripped {tripped}, margins "
@@ -510,16 +751,18 @@ def phase_golden_1k(scene: str, paths: dict, steps: int = 1000) -> None:
           f"{tripped}")
     for g, got in orders.items():
         tripped = golden.check(got, pin)
-        log(f"[golden] {scene}: G = {g} against the pin's bars: tripped "
-            f"{tripped}, worst margin {max(golden.margins(got, pin).values()):.3f}")
-        check(tripped == [], f"golden {scene}: G = {g} tripped {tripped}")
+        log(f"[golden] {scene}: {g if isinstance(g, str) else f'G = {g}'} "
+            f"against the pin's bars: tripped {tripped}, worst margin "
+            f"{max(golden.margins(got, pin).values()):.3f}")
+        check(tripped == [], f"golden {scene}: {g} tripped {tripped}")
     tripped = golden.check(flipped, pin)
     log(f"[golden] {scene}: pow3_der flipped trips {tripped} "
         f"(overflow_total {flipped['overflow_total']})")
     check(bool(set(tripped) - {"overflow_total"}),
           f"golden {scene}: the flipped run tripped no statistic")
     log(f"[golden] {scene}: launches {launches}, two runs of G = {group} "
-        f"bit-identical, phase {time.perf_counter() - t_phase:.1f} s")
+        f"bit-identical, G = 1, 2, 4 all different, phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def hold(name, got, want, rtol=RTOL) -> float:
@@ -618,11 +861,10 @@ def phase_main_path(scene: str, steps: int, warmup: int):
     from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
     from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
     sim = wst.Simulation.from_scene(scene, device="cuda")
-    sb.reset_launches()
-    bs.reset_launches()
+    reset_launches()
     sim.run(warmup)
     sim.run(steps - warmup)
-    launches = {**sb.LAUNCHES, **bs.LAUNCHES}
+    launches = launches_now()
     st = sim.stats()
     s = sim.state
     pos = s.pos
@@ -635,14 +877,226 @@ def phase_main_path(scene: str, steps: int, warmup: int):
     ids = torch.sort(s.ids.long()).values
     check(bool((ids == torch.arange(s.n, device=ids.device)).all()),
           f"{scene}: ids are not a permutation")
-    for k in sb.LAUNCHES:
-        check(launches[k] == steps, f"{scene}: {k} launched {launches[k]} "
-              f"times in {steps} steps")
+    check_launches(scene, launches, steps)
     log(f"[main] {scene}: {steps} steps, n={s.n}, "
         f"ms/step {st['ms_per_step']:.3f} (timed over {st['steps_timed']} "
         f"steps after {warmup} warm-up), ke {st['kinetic_energy']:.2f}, "
         f"mean_rho {st['mean_density']:.3f}, launches {launches}")
     return launches, steps
+
+
+def busy_intervals(dev) -> tuple:
+    """(union, span) in us of device events ``dev``: the time covered by at
+    least one event, and the time from the first event's start to the last
+    one's end, both on the trace's device clock."""
+    iv = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    union, (lo, hi) = 0.0, iv[0]
+    for a, b in iv[1:]:
+        if a > hi:
+            union += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    return union + hi - lo, iv[-1][1] - iv[0][0]
+
+
+def profile_replays(g, steps: int = 20):
+    """torch.profiler over ``steps`` replays of StepGraph ``g``, launched
+    back to back: device ms a step (the device events' times summed),
+    kernels a step, how many times each of the four step kernels' names
+    appears (the kernels run inside the replays), and the busy share on
+    the trace's own clock: the union of the device events' intervals over
+    the span from the first event's start to the last one's end (at most 1;
+    gaps between kernels and between replays count as idle). Also the host
+    clock a step of the traced replays and of as many replays run again
+    without the profiler (launch to synchronisation)."""
+    names = ("sph_density_kernel", "sph_force_kernel",
+             "rescue_density_kernel", "rescue_force_kernel")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        g.run(steps)
+        torch.cuda.synchronize()
+        traced_ms = 1e3 * (time.perf_counter() - t0)
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    found = {k: sum(1 for e in dev if k in e.name) for k in names}
+    summed_us = sum(e.time_range.end - e.time_range.start for e in dev)
+    union_us, span_us = busy_intervals(dev) if dev else (0.0, 0.0)
+    kernels = sum(1 for e in dev
+                  if not e.name.lower().startswith(("memcpy", "memset")))
+    t0 = time.perf_counter()
+    g.run(steps)
+    torch.cuda.synchronize()
+    alone_ms = 1e3 * (time.perf_counter() - t0)
+    return dict(device_ms=summed_us / 1e3 / steps, kernels=kernels / steps,
+                found=found, busy=union_us / span_us if span_us else None,
+                union_ms=union_us / 1e3 / steps,
+                span_ms=span_us / 1e3 / steps, steps=steps,
+                wall_ms=alone_ms / steps, traced_ms=traced_ms / steps)
+
+
+def same_bits(a, b) -> bool:
+    """Bit for bit (unwritten plane slots may hold NaN)."""
+    return a.dtype == b.dtype and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def same_state(a, b) -> bool:
+    return all(same_bits(getattr(a, f), getattr(b, f))
+               for f in ("pos", "vel", "density", "ids"))
+
+
+def phase_capture(scene: str, state100=None, pairs: int = 10,
+                  window: int = 50) -> None:
+    """The step as a captured CUDA graph (ops/cuda/graph.py) on ``scene``
+    at full size: the capture succeeds (it raises on any host read in the
+    step); the eager step runs under torch.cuda.set_sync_debug_mode
+    ("error"); captured against eager bit for bit (pos, vel, density, ids)
+    over steps 100-200 from ``state100`` (reference-cube: the rescue
+    fires), then over ``window`` settled steps from step 600; launches a
+    replay (counters and profiler trace), peak memory, and ms/step of
+    eager and captured windows alternated ``pairs`` times."""
+    import water_sandbox_tpu_torch as wst
+    from water_sandbox_tpu_torch.core.params import _map_tensors
+    from water_sandbox_tpu_torch.ops.cuda import graph as graph_mod
+    from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
+    t_phase = time.perf_counter()
+    cfg, params, state = wst.scenes.build(scene, device="cuda")
+    cfg = cfg.resolved()
+
+    def graph_at(s):
+        return graph_mod.StepGraph(s.clone(), _map_tensors(params,
+                                                           torch.clone), cfg)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    g = graph_at(state)
+    g.capture()
+    check(g.graph is not None, f"capture {scene}: no graph")
+    check(g.per_replay == {k: 1 for k in STEP_KERNELS},
+          f"capture {scene}: launches a replay {g.per_replay}")
+    g.run(window)
+    torch.cuda.synchronize()
+    peak_captured = (torch.cuda.max_memory_allocated() - base) / 2**20
+    log(f"[capture] {scene}: n={state.n}, captured in {g.capture_s:.2f} s "
+        f"({graph_mod.WARMUP_STEPS} warm-up steps on a side stream, then "
+        f"one step), launches a replay {g.per_replay}, peak memory above "
+        f"the scene's tensors {peak_captured:.1f} MiB (capture + "
+        f"{window} replays)")
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        wst.step(state, params, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log(f"[capture] {scene}: the eager step ran under "
+        "torch.cuda.set_sync_debug_mode('error'): no synchronisation")
+
+    if state100 is not None:
+        # steps 100-200: eager and captured, each step synced and timed
+        gi = graph_at(state100)
+        gi.run(1)                                   # captures
+        graph_mod.copy_state(gi.state, state100)
+        e = state100
+        t_e, t_c, rescued = [], [], 0
+        for _ in range(100):
+            rescued += int(sb._build_core(e.predicted, e.vel, params, cfg,
+                                          time=e.time)[5]) > 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e = wst.step(e, params, cfg)
+            torch.cuda.synchronize()
+            t_e.append(1e3 * (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            gi.run(1)
+            torch.cuda.synchronize()
+            t_c.append(1e3 * (time.perf_counter() - t0))
+        check(same_state(gi.state, e),
+              f"capture {scene}: steps 100-200 captured and eager differ")
+        check(float(e.overflow_total) == float(state100.overflow_total),
+              f"capture {scene}: steps 100-200 left particles unrescued")
+        log(f"[capture] {scene} steps 100-200: captured and eager "
+            f"bit-identical (pos, vel, density, ids); the rescue fired on "
+            f"{rescued} of 100 steps")
+        log(f"[rescue] {scene} steps 100-200, host clock a synced step: "
+            f"captured mean {statistics.mean(t_c):.4f} median "
+            f"{statistics.median(t_c):.4f} max {max(t_c):.4f} ms/step; eager "
+            f"mean {statistics.mean(t_e):.4f} median "
+            f"{statistics.median(t_e):.4f} max {max(t_e):.4f} (the first "
+            f"eager step with the torch-op rescue, PERF.md §5: mean 8.271, "
+            f"median 2.912)")
+        check(rescued > 0, f"capture {scene}: no rescue in steps 100-200")
+        del gi
+
+    # settle to step 600, then eager against captured from one state
+    g.run(600 - int(g.state.step_count))
+    settled = g.state.clone()
+    e = settled
+    for _ in range(window):
+        e = wst.step(e, params, cfg)
+    g.run(window)
+    torch.cuda.synchronize()
+    check(same_state(g.state, e),
+          f"capture {scene}: {window} settled steps captured and eager "
+          "differ")
+    log(f"[capture] {scene}: {window} steps from step "
+        f"{int(settled.step_count)}, captured and eager bit-identical (pos, "
+        f"vel, density, ids)")
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for _ in range(window):
+        e = wst.step(e, params, cfg)
+    torch.cuda.synchronize()
+    peak_eager = (torch.cuda.max_memory_allocated() - base) / 2**20
+
+    times = {"eager": [], "captured": []}
+    for i in range(pairs):
+        for mode in (("eager", "captured") if i % 2 == 0
+                     else ("captured", "eager")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "eager":
+                for _ in range(window):
+                    e = wst.step(e, params, cfg)
+            else:
+                g.run(window)
+            torch.cuda.synchronize()
+            times[mode].append(1e3 * (time.perf_counter() - t0) / window)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    ratios = [a / b for a, b in zip(times["eager"], times["captured"])]
+    log(f"[capture] {scene} settled, {pairs} pairs of {window}-step windows "
+        f"alternated (host clock, synced at each window's end): captured "
+        f"median {med['captured']:.4f} ms/step (windows "
+        f"{', '.join(f'{x:.4f}' for x in times['captured'])}); eager median "
+        f"{med['eager']:.4f} (windows "
+        f"{', '.join(f'{x:.4f}' for x in times['eager'])}); eager/captured "
+        f"median ratio {statistics.median(ratios):.3f}; peak memory of "
+        f"{window} eager steps above their state {peak_eager:.1f} MiB")
+    prof = profile_replays(g)
+    log(f"[capture] {scene} torch.profiler over {prof['steps']} settled "
+        f"replays: device ms a step {prof['device_ms']:.4f} (events "
+        f"summed), kernels a step {prof['kernels']:.1f}, step kernels found "
+        f"{prof['found']}, busy share {fmt(prof['busy'])} on the trace's "
+        f"clock (device events' union {prof['union_ms']:.4f} over the span "
+        f"{prof['span_ms']:.4f} ms a step); host clock a step "
+        f"{prof['wall_ms']:.4f} without the profiler, "
+        f"{prof['traced_ms']:.4f} traced")
+    if prof["kernels"] == 0:
+        # then bit-identity with the eager step above is the proof that
+        # the replays run the kernels
+        log(f"[capture] {scene}: this torch's trace records no kernels "
+            "inside a CUDA graph")
+    else:
+        check(all(v == prof["steps"] for v in prof["found"].values()),
+              f"capture {scene}: the trace of {prof['steps']} replays holds "
+              f"the step kernels {prof['found']} times")
+    log(f"[capture] {scene}: phase passed in "
+        f"{time.perf_counter() - t_phase:.1f} s")
 
 
 # The incremental path against the rebuild path at JAX's own bars
@@ -717,8 +1171,8 @@ def phase_incremental(record, paths) -> None:
     with its launches counted."""
     import dataclasses
     import water_sandbox_tpu_torch as wst
-    from water_sandbox_tpu_torch.core.params import KernelCoeffs
-    from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
+    from water_sandbox_tpu_torch.core.params import KernelCoeffs, _map_tensors
+    from water_sandbox_tpu_torch.ops.cuda import graph as graph_mod
     from water_sandbox_tpu_torch.ops.cuda import incremental as inc
     from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
     t_phase = time.perf_counter()
@@ -792,21 +1246,33 @@ def phase_incremental(record, paths) -> None:
     variants = {"k=0": cfg0, "k=4": cfg_k(4), "k=8": cfg8,
                 "k=16": cfg_k(16), "sorted rebuild": cfg_sorted}
 
-    def window(c, steps=50):
+    # the rebuild steps (k = 0, sorted) replay one captured step each, as
+    # Simulation.run does; each window starts from the settled state
+    graphs = {name: graph_mod.StepGraph(settled.clone(), _map_tensors(
+        params, torch.clone), c) for name, c in variants.items()
+        if not c.incremental_rebuild}
+
+    def window(name, c, steps=50):
+        g = graphs.get(name)
+        if g is not None:
+            graph_mod.copy_state(g.state, settled)
         s = settled.clone()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        wst.rollout(s, params, c, steps)
+        if g is not None:
+            g.run(steps)
+        else:
+            wst.rollout(s, params, c, steps)
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t) / steps
 
-    for c in variants.values():
-        window(c, 5)
+    for name, c in variants.items():
+        window(name, c, 5)
     times = {name: [] for name in variants}
     for r in range(3):
         order = list(variants.items())
         for name, c in (order if r % 2 == 0 else order[::-1]):
-            times[name].append(window(c))
+            times[name].append(window(name, c))
 
     def what_it_did(name, c, steps=50):
         """Untimed: steps that rescued, rebuilds, mean movers a step and the
@@ -845,7 +1311,8 @@ def phase_incremental(record, paths) -> None:
                      f"{did['debt']:.0f} slots")
         log(f"[incremental] {name}: median ms/step {statistics.median(t):.4f}"
             f" (rounds {', '.join(f'{x:.4f}' for x in t)}; host clock over 50"
-            f" synced steps from the settled state), rescue steps "
+            f" synced steps from the settled state; k=0 and the sorted "
+            f"step replay their captured step), rescue steps "
             f"{did['rescued']} of 50{extra}")
 
     for name in ("k=0", "k=8"):
@@ -873,15 +1340,53 @@ def phase_incremental(record, paths) -> None:
             f"launches a step {launches / 5:.1f}; largest over the 5 steps: "
             f"{top}")
 
+    def run_counting_rescues(sim, steps):
+        """sim.run(steps) with the launches counted from 0, and the steps
+        whose overflow was above 0 (those whose rescue ran) read from each
+        step_inc the rollout makes."""
+        rescue_steps = 0
+        step_inc = inc.step_inc
+
+        def counting(*a, **k):
+            nonlocal rescue_steps
+            out = step_inc(*a, **k)
+            rescue_steps += int(out[0].overflow) > 0
+            return out
+
+        inc.step_inc = counting
+        try:
+            reset_launches()
+            sim.run(steps)
+            launches = launches_now()
+        finally:
+            inc.step_inc = step_inc
+        return launches, rescue_steps
+
+    # the rescue on the incremental path: cell capacity 8 from the settled
+    # state drops thousands of particles a step
+    sim8 = wst.Simulation(dataclasses.replace(cfg8, cell_capacity=8),
+                          params, settled)
+    sim8.run(2)
+    launches, rescued8 = run_counting_rescues(sim8, 10)
+    check(rescued8 == 10, f"incremental cap 8: the rescue ran on {rescued8} "
+          "of 10 steps")
+    check_launches("reference-cube incremental cap 8", launches, 10,
+                   rescued8)
+    check(bool(torch.isfinite(sim8.state.pos).all()),
+          "incremental cap 8: non-finite")
+    paths["reference-cube incremental cap 8"] = (launches, 10)
+    log(f"[incremental] cell capacity 8: 10 steps after 2 from the settled "
+        f"state, the rescue on {rescued8} (overflow {int(sim8.state.overflow)}"
+        f" on the last), launches {launches}")
+    del sim8
+
     sim = wst.Simulation.from_scene("reference-cube", device="cuda",
                                     sorted_state=False, incremental_rebuild=8)
     sim.run(5)
     steps = 50
-    sb.reset_launches()
-    bs.reset_launches()
-    sim.run(steps)
-    launches = {**sb.LAUNCHES, **bs.LAUNCHES}
-    check_launches("reference-cube incremental", launches, steps)
+    launches, rescue_steps = run_counting_rescues(sim, steps)
+    check_launches("reference-cube incremental", launches, steps,
+                   rescue_steps)
     paths["reference-cube incremental"] = (launches, steps)
     s = sim.state
     check(bool(torch.isfinite(s.pos).all()), "incremental: non-finite")
@@ -896,8 +1401,8 @@ def phase_incremental(record, paths) -> None:
     st = sim.stats()
     log(f"[main] reference-cube incremental (Simulation.from_scene, "
         f"sorted_state=False, incremental_rebuild=8): {steps} steps after 5, "
-        f"ms/step {st['ms_per_step']:.3f}, dropped-particle steps "
-        f"{float(s.overflow_total):.0f}, ke {st['kinetic_energy']:.2f}, "
+        f"ms/step {st['ms_per_step']:.3f}, steps with dropped particles "
+        f"{rescue_steps}, ke {st['kinetic_energy']:.2f}, "
         f"launches {launches}")
     log(f"[incremental] phase passed in {time.perf_counter() - t_phase:.1f} s")
 
@@ -1028,10 +1533,9 @@ def phase_domain_full(record, scene="sharded-1m", dev="cuda"):
     del single, state
     sim = DistributedSimulation.from_scene(scene, n_shards=nsh, device=dev)
 
-    sb.reset_launches()
-    bs.reset_launches()
+    reset_launches()
     sim.run(warm)
-    launches = {**sb.LAUNCHES, **bs.LAUNCHES}
+    launches = launches_now()
     err = float(np.abs(sharded_by_id(sim.states, sim.active) - want)
                 .sum(axis=1).max())
     log(f"[domain] {scene}: n={sim.cfg.n}, {warm} steps on {nsh} shards "
@@ -1040,12 +1544,11 @@ def phase_domain_full(record, scene="sharded-1m", dev="cuda"):
     check(err <= DOMAIN_TOL, f"{scene}: parity {err:.3e}")
     domain_kernels_vs_plain(sim, 1, record)
 
-    sb.reset_launches()
-    bs.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     sim.run(timed)
     ms = 1000.0 * (time.perf_counter() - t0) / timed
-    for k, v in {**sb.LAUNCHES, **bs.LAUNCHES}.items():
+    for k, v in launches_now().items():
         launches[k] += v
     st = sim.stats()
     dense = sim.to_dense_state().to(dev)
@@ -1170,11 +1673,14 @@ _COUNTED = """
 import json, runpy, sys
 from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
 from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
+from water_sandbox_tpu_torch.ops.cuda import rescue as rk
 sb.reset_launches()
 bs.reset_launches()
+rk.reset_launches()
 sys.argv = sys.argv[1:]
 runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
-print("[launches] " + json.dumps({**sb.LAUNCHES, **bs.LAUNCHES}))
+print("[launches] " + json.dumps({**sb.LAUNCHES, **bs.LAUNCHES,
+                                  **rk.LAUNCHES}))
 """
 
 ROOT = Path(__file__).resolve().parent
@@ -1202,11 +1708,20 @@ def run_front(module: str, *argv: str, timeout: float = 600.0):
     return lines[:-1], json.loads(lines[-1][len("[launches] "):])
 
 
-def check_launches(path: str, launches: dict, steps: int) -> None:
-    """The two main-path kernels once a step, the sort never."""
-    for k in ("sph_density", "sph_force"):
-        check(launches[k] == steps,
-              f"{path}: {k} launched {launches[k]} times in {steps} steps")
+def check_launches(path: str, launches: dict, steps: int,
+                   rescue_steps: int | None = None) -> None:
+    """The four main-path kernels once a step (the density and force
+    kernels and both halves of the rescue, which gate themselves on the
+    device), the sort never. The incremental path reads the overflow on
+    the host and launches the rescue's two only on the ``rescue_steps``
+    steps that have dropped particles."""
+    for k in STEP_KERNELS:
+        want = (steps if rescue_steps is None or k in ("sph_density",
+                                                       "sph_force")
+                else rescue_steps)
+        check(launches[k] == want,
+              f"{path}: {k} launched {launches[k]} times in {steps} steps "
+              f"(expected {want})")
     check(launches["bitonic_sort"] == 0, f"{path}: the sort ran")
 
 
@@ -1310,8 +1825,11 @@ def phase_cli(paths: dict) -> None:
 
 def phase_profile(paths: dict) -> None:
     """runtime/profiling.py's device_trace around 5 steps of
-    Simulation.from_scene("reference-cube").run after 5 of warm-up: the
-    trace must hold both hand kernels 5 times each."""
+    Simulation.from_scene("reference-cube").run after 5 of warm-up, five
+    replays of the captured step: the trace must hold each of the step's
+    four kernels (K1, K2, R1, R2) 5 times. The launch counts on a replayed
+    path are the capture's counts times the replays, so this trace is what
+    shows the replays run every kernel."""
     import water_sandbox_tpu_torch as wst
     from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
     from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
@@ -1319,11 +1837,10 @@ def phase_profile(paths: dict) -> None:
     sim = wst.Simulation.from_scene("reference-cube")
     sim.run(5)
     logdir = FRONT_OUT / "profile"
-    sb.reset_launches()
-    bs.reset_launches()
+    reset_launches()
     with profiling.device_trace(str(logdir)):
         sim.run(5)
-    launches = {**sb.LAUNCHES, **bs.LAUNCHES}
+    launches = launches_now()
     check_launches("profile", launches, 5)
     paths["profile"] = (launches, 5)
     with open(logdir / "trace.json") as f:
@@ -1331,20 +1848,19 @@ def phase_profile(paths: dict) -> None:
                   if e.get("cat") == "kernel"]
     # the names may be mangled C++ names: match the kernel's name inside
     found = {k: [e for e in events if k in e["name"]]
-             for k in ("sph_density_kernel", "sph_force_kernel")}
+             for k in ("sph_density_kernel", "sph_force_kernel",
+                       "rescue_density_kernel", "rescue_force_kernel")}
     for k, evs in found.items():
         check(len(evs) == 5, f"profile: {k} {len(evs)} times in the trace "
               f"of {len(events)} kernels (first names: "
               f"{sorted({e['name'][:60] for e in events})[:8]})")
     total_us = sum(e.get("dur", 0.0) for e in events)
+    each = ", ".join(f"{k} {len(evs)} times "
+                     f"({sum(e['dur'] for e in evs) / 5e3:.4f} ms a step)"
+                     for k, evs in found.items())
     log(f"[profile] reference-cube steps 6-10 under device_trace: "
-        f"{len(events)} kernels in the trace, sph_density_kernel "
-        f"{len(found['sph_density_kernel'])} times ("
-        f"{sum(e['dur'] for e in found['sph_density_kernel']) / 5e3:.4f} ms "
-        f"a step), sph_force_kernel {len(found['sph_force_kernel'])} times "
-        f"({sum(e['dur'] for e in found['sph_force_kernel']) / 5e3:.4f} ms a "
-        f"step), all kernels {total_us / 5e3:.4f} ms a step, launches "
-        f"{launches}")
+        f"{len(events)} kernels in the trace, {each}, all kernels "
+        f"{total_us / 5e3:.4f} ms a step, launches {launches}")
 
 
 def phase_live(paths: dict) -> None:
@@ -1371,15 +1887,14 @@ def phase_live(paths: dict) -> None:
     k0 = float(sim.params.pressure_scalar)
     out = io.StringIO()
     saved, live._RawTerminal = live._RawTerminal, StubTerminal
-    sb.reset_launches()
-    bs.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     try:
         live.run_live(sim, steps_per_frame=4, max_frames=3, out=out)
     finally:
         live._RawTerminal = saved
     sec = time.perf_counter() - t0
-    launches = {**sb.LAUNCHES, **bs.LAUNCHES}
+    launches = launches_now()
     check(abs(float(sim.params.pressure_scalar) - (k0 + 0.1)) < 1e-5,
           "live: w did not raise the pressure")
     check(int(sim.state.step_count) == 4, "live: Space did not reset")
@@ -1426,8 +1941,7 @@ def serve_and_check(scene: str, mode: str, paths: dict) -> None:
     server = ViewerServer(sim, port=0)
     check(server.render == mode, f"viewer {scene}: render {server.render}")
     step0 = int(sim.state.step_count)
-    sb.reset_launches()
-    bs.reset_launches()
+    reset_launches()
     thread = threading.Thread(target=server.serve,
                               kwargs={"max_seconds": 120.0})
     thread.start()
@@ -1468,7 +1982,7 @@ def serve_and_check(scene: str, mode: str, paths: dict) -> None:
         server.stop()
         thread.join(timeout=30)
     check(not thread.is_alive(), f"viewer {scene}: did not stop in 30 s")
-    launches = {**sb.LAUNCHES, **bs.LAUNCHES}
+    launches = launches_now()
     steps = int(sim.state.step_count) - step0
     check_launches(f"viewer {scene}", launches, steps)
     paths[f"viewer {scene}"] = (launches, steps)
@@ -1496,6 +2010,65 @@ def phase_bench(paths: dict) -> None:
         f"{res['reference_scene_ms_per_step']:.4f} ms/step "
         f"({res['protocol']}), launches {launches} "
         f"({time.perf_counter() - t0:.1f} s)")
+
+
+# reference-cube steps 100-200 through Simulation.run(1), each step synced
+# (the landing cube, where the rescue fires): only what every tree's port
+# has, so it runs in an older checkout too
+TRANSIENT = """
+import json, statistics, time
+import water_sandbox_tpu_torch as wst
+sim = wst.Simulation.from_scene("reference-cube")
+sim.run(100)
+t = []
+for _ in range(100):
+    t0 = time.perf_counter()
+    sim.run(1)
+    t.append(1e3 * (time.perf_counter() - t0))
+print(json.dumps({"mean": statistics.mean(t), "median": statistics.median(t),
+                  "max": max(t)}))
+"""
+
+
+def compare(other: Path) -> int:
+    """``--compare DIR``: this tree against the checkout in DIR (an older
+    commit unpacked with ``git archive``) on one card, in the order DIR,
+    this tree, this tree, DIR: ``python -m water_sandbox_tpu_torch.bench``
+    and ``reference-cube`` steps 100-200 (TRANSIENT) in each, as
+    subprocesses started in the tree they measure."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    other = other.resolve()
+    check((other / "water_sandbox_tpu_torch").is_dir(),
+          f"--compare {other}: no port there")
+    for label, tree in (("parent", other), ("change", ROOT),
+                        ("change", ROOT), ("parent", other)):
+        runs = {}
+        for name, argv in (("bench", ["-m", "water_sandbox_tpu_torch.bench"]),
+                           ("steps 100-200", ["-c", TRANSIENT])):
+            out = subprocess.run([sys.executable, *argv], cwd=tree,
+                                 capture_output=True, text=True,
+                                 env=_front_env(), timeout=900)
+            if out.returncode != 0:
+                log(out.stderr[-3000:])
+            check(out.returncode == 0,
+                  f"--compare {label} {name}: exit {out.returncode}")
+            runs[name] = json.loads(out.stdout.strip().splitlines()[-1])
+        b, t = runs["bench"], runs["steps 100-200"]
+        log(f"[compare] {label} ({tree}): bench settle600+best3x50 flagship "
+            f"{b['ms_per_step']} ms/step, reference-cube "
+            f"{b['reference_scene_ms_per_step']}, step "
+            f"{b['config'].get('step')}; reference-cube steps 100-200, host "
+            f"clock a synced step: mean {t['mean']:.4f} median "
+            f"{t['median']:.4f} max {t['max']:.4f} ms/step")
+    log(smi)
+    return 0
 
 
 def main() -> int:
@@ -1546,8 +2119,12 @@ def main() -> int:
                      crossing=True)
     del state3
 
-    # 4. exact rescue on the card
-    phase_rescue(state100)
+    # 4. exact rescue on the card, its kernels against their plain versions
+    phase_rescue(state100, record)
+
+    # 4b. the step as a captured CUDA graph against the eager step
+    phase_capture("reference-cube", state100)
+    phase_capture("moving-container-256k")
 
     # 5. golden pins, the oracle and the plain neighbour modes
     phase_oracle(*phase_golden())
@@ -1619,4 +2196,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--compare"]:
+        sys.exit(compare(Path(sys.argv[2])))
     sys.exit(main())

@@ -156,12 +156,17 @@ def test_kernel_entry_points_declare_every_argument():
     import ctypes
     import re
     from water_sandbox_tpu_torch.ops.cuda import _build
-    for name, (entry, argtypes) in _build._ENTRY_POINTS.items():
+    for name in _build._ENTRY_POINTS:
         src = (_build.CSRC / f"{name}.cu").read_text()
-        sig = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", src)
-        params = [p.strip() for p in sig.group(1).split(",")]
-        want = [ctypes.c_void_p if "*" in p else ctypes.c_int
-                for p in params]
-        assert argtypes == want, name
-        if name.startswith("sph_"):
-            assert params[-3:] == ["int group", "int device", "void* stream"]
+        entries = _build._entries(name)
+        assert len(re.findall(r'extern "C" int ', src)) == len(entries), name
+        for entry, argtypes in entries:
+            sig = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)",
+                            src)
+            params = [p.strip() for p in sig.group(1).split(",")]
+            want = [ctypes.c_void_p if "*" in p else ctypes.c_int
+                    for p in params]
+            assert argtypes == want, entry
+            assert params[-2:] == ["int device", "void* stream"], entry
+            if name in ("sph_density", "sph_force"):
+                assert params[-3] == "int group", entry

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on a CUDA device: each kernel against its plain
-PyTorch version, and one main-path step on the card against the same step
-on the CPU (plain versions). Without a CUDA device each test skips (the
+PyTorch version (the rescue's two kernels too), one main-path step on the
+card against the same step on the CPU (plain versions), and the step
+captured as a CUDA graph against the eager step. Without a CUDA device each test skips (the
 ``cuda_device`` fixture decides, at run time). This file imports no JAX, so
 it also runs where JAX is absent:
 
@@ -340,3 +341,146 @@ def test_wrappers_refuse_mixed_devices(cuda_device):
     pv = sb._param_vector(params, coeffs)
     with pytest.raises(ValueError, match="one device"):
         sb.run_density(planes, counts.cpu(), addr, pv, cfg)
+
+
+def _same_bits(a, b):
+    """Bit for bit (the planes' unwritten slots may hold NaN)."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _crowded_rescue(device, dim):
+    """A dense random cloud at cell capacity 4 (hundreds of rows overflow)
+    with its density planes, gathered densities and rescue selection, on
+    ``device``."""
+    from water_sandbox_tpu_torch.ops import rescue
+    rng = np.random.default_rng(11)
+    pred = ((rng.random((3000, dim)) - 0.5) * 2.0).astype(np.float32)
+    vel = rng.standard_normal((3000, dim)).astype(np.float32)
+    params = wt.SimParams.create(dim=dim, device=device)
+    coeffs = KernelCoeffs.from_radius(params.smoothing_radius, dim)
+    cfg = SimConfig(n=pred.shape[0], dim=dim, grid_dims=(14,) * dim,
+                    cell_capacity=4, rescue_capacity=512, chunk=512)
+    p, v = (torch.from_numpy(pred).to(device),
+            torch.from_numpy(vel).to(device))
+    planes, counts, addr, overflow = sb._build_slab_buckets(p, v, params,
+                                                            cfg)
+    dropped = addr == sb._cap_pad(cfg.cell_capacity) * sb._geometry(cfg).L
+    pv = sb._param_vector(params, coeffs)
+    dens = sb.density_plain(planes, counts, addr, pv, cfg)
+    den, nden = sb.gather_density(dens, addr, dropped, params)
+    sel, slot, count = rescue.rescue_selection(dropped, overflow, 512)
+    acc = torch.from_numpy(rng.standard_normal((3000, dim)).astype(
+        np.float32)).to(device)
+    return (p, v, params, coeffs, cfg, addr, pv, dens, den, nden, sel, slot,
+            count, acc, overflow)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_rescue_kernels_match_plain(cuda_device, dim):
+    """R1 and R2 (csrc/sph_rescue.cu) against their plain versions on the
+    same CUDA tensors, past the budget of 512 rows (budget exceeded rows
+    excluded); two launches give the same bits; with count 0 both leave
+    den, nden, the density planes and acc bit-untouched."""
+    from water_sandbox_tpu_torch.ops.cuda import rescue as rk
+    (p, v, params, coeffs, cfg, addr, pv, dens, den, nden, sel, slot, count,
+     acc, overflow) = _crowded_rescue(cuda_device, dim)
+    assert int(overflow) > 512
+    outs = []
+    for run in (rk.rescue_density, rk.density_plain, rk.rescue_density):
+        d, nd, ds = den.clone(), nden.clone(), dens.clone()
+        args = (p, sel, slot, count, addr, d, nd, ds, params, coeffs)
+        run(*args, pv, cfg) if run is rk.rescue_density else run(*args, cfg)
+        outs.append((d, nd, ds))
+    torch.cuda.synchronize()
+    occ = addr[addr < dens[0].numel()].long()
+    for a, b in zip(outs[0], outs[2]):
+        assert _same_bits(a, b)
+    for a, b in zip(outs[0][:2], outs[1][:2]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **TOL)
+    np.testing.assert_allclose(_at(outs[0][2], occ), _at(outs[1][2], occ),
+                               **TOL)
+    d, nd, _ = outs[1]
+    prs = params.pressure_scalar * (d - params.target_density)
+    nprs = params.near_pressure_scalar * nd
+    got, want = acc.clone(), acc.clone()
+    rk.reset_launches()
+    rk.rescue_force(p, v, d, nd, prs, nprs, sel, slot, count, got, params,
+                    coeffs, pv, cfg)
+    rk.force_plain(p, v, d, nd, prs, nprs, sel, slot, count, want, params,
+                   coeffs, cfg)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES == {"sph_rescue_density": 0, "sph_rescue_force": 1}
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+
+    zero = torch.zeros_like(count)
+    d, nd, ds, a = den.clone(), nden.clone(), dens.clone(), acc.clone()
+    rk.rescue_density(p, sel, slot, zero, addr, d, nd, ds, params, coeffs,
+                      pv, cfg)
+    rk.rescue_force(p, v, d, nd, prs, nprs, sel, slot, zero, a, params,
+                    coeffs, pv, cfg)
+    torch.cuda.synchronize()
+    for x, y in ((d, den), (nd, nden), (ds, dens), (a, acc)):
+        assert _same_bits(x, y)
+
+
+def test_captured_rollout_matches_eager(cuda_device):
+    """The kernel pipeline's captured step (ops/cuda/graph.py) against the
+    eager step on the card, bit for bit over 6 steps with the rescue firing
+    past its budget; the eager step runs with no synchronisation (sync
+    debug mode "error"); each replay counts one launch of each of the four
+    kernels; a Simulation replays its own graph, and tune takes effect
+    without a recapture."""
+    cfg, params, state = wt.scenes.build(
+        "mini-3d", device=cuda_device, sorted_state=True, cell_capacity=4,
+        rescue_capacity=16)
+    from water_sandbox_tpu_torch.ops.cuda import graph
+    s = wt.step(state, params, cfg)                       # builds, loads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s = state
+        for _ in range(6):
+            s = wt.step(s, params, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sb.reset_launches()
+    got = wt.rollout(state, params, cfg, 6)
+    torch.cuda.synchronize()
+    for f in ("pos", "vel", "density", "ids", "acc", "overflow_total"):
+        assert torch.equal(getattr(got, f), getattr(s, f)), f
+    assert float(s.overflow_total) > 0
+    assert sb.LAUNCHES == {"sph_density": 6, "sph_force": 6}
+    g = graph.StepGraph(state.clone(), params, cfg)
+    g.run(1)
+    assert g.per_replay == {"sph_density": 1, "sph_force": 1,
+                            "sph_rescue_density": 1, "sph_rescue_force": 1}
+    sim = wt.Simulation(cfg, params, state)
+    sim.run(3)
+    sim.tune(viscosity_strength=0.5)
+    sim.run(3)
+    ref = wt.rollout(wt.rollout(state, params, cfg, 3),
+                     params.replace(viscosity_strength=0.5), cfg, 3)
+    assert torch.equal(sim.state.pos, ref.pos)
+
+
+def test_a_host_read_in_the_step_fails_the_capture(cuda_device, monkeypatch):
+    """A step that reads the device on the host cannot be captured, and the
+    capture raises: nothing falls back to the eager loop. (Last in the
+    file: it leaves a failed capture behind.)"""
+    from water_sandbox_tpu_torch.ops.cuda import graph
+    cfg, params, state = wt.scenes.build("mini-3d", device=cuda_device,
+                                         sorted_state=True)
+    orig = sb._param_vector
+
+    def reading(params, coeffs):
+        float(params.dt)                     # a device-to-host copy
+        return orig(params, coeffs)
+
+    g = graph.StepGraph(state.clone(), params, cfg)
+    g.run(1)                                 # captures the clean step
+    assert g.graph is not None
+    monkeypatch.setattr(sb, "_param_vector", reading)
+    bad = graph.StepGraph(state.clone(), params, cfg)
+    with pytest.raises(RuntimeError):
+        bad.run(1)
+    assert bad.graph is None

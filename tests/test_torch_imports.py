@@ -31,5 +31,5 @@ def test_no_module_of_the_port_imports_jax():
     for name in ("cli", "bench", "golden", "io.export", "runtime.keymap",
                  "runtime.profiling", "viz.raster", "viz.live", "viz.render",
                  "viz.server", "ops.cuda.sph_bucket", "ops.cuda.incremental",
-                 "parallel.domain"):
+                 "ops.cuda.rescue", "ops.cuda.graph", "parallel.domain"):
         assert f"water_sandbox_tpu_torch.{name}" in got["modules"], name

@@ -153,6 +153,37 @@ def test_viewer_server_roundtrip(sim):
     sim.tune(pressure_scalar=k0)
 
 
+def test_viewer_handlers_take_the_simulations_lock(sim):
+    """A key request waits while the Simulation's lock is held (in the
+    viewer, by the stepping thread around a frame), so a tune or a reset
+    never lands between two steps of one frame."""
+    from water_sandbox_tpu_torch.viz.server import ViewerServer
+
+    server = ViewerServer(sim, port=0)
+    server.thread.start()                   # requests only, no stepping
+    host, port = server.httpd.server_address[:2]
+    k0 = float(sim.params.pressure_scalar)
+    got = {}
+
+    def press():
+        got["desc"] = _get(f"http://{host}:{port}/key?k=w").decode()
+
+    try:
+        with sim.lock:
+            t = threading.Thread(target=press)
+            t.start()
+            t.join(0.3)
+            assert t.is_alive(), "the key was applied under a held lock"
+            assert float(sim.params.pressure_scalar) == k0
+        t.join(10)
+        assert "pressure_scalar" in got["desc"]
+        assert float(sim.params.pressure_scalar) == pytest.approx(k0 + 0.1)
+    finally:
+        server.httpd.shutdown()
+        server.httpd.server_close()
+        sim.tune(pressure_scalar=k0)
+
+
 def test_viewer_server_raster_mode(sim):
     """The raster stream: a density/speed image made on the sim's device in
     place of a point cloud."""

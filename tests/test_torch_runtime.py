@@ -3,10 +3,13 @@ both directions (one step compared after each load), and the Simulation
 API — run/pause/reset, live tuning, id-ordered observation, stats."""
 
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
 import torch
+
+from _torch_fixtures import _one_torch_thread  # noqa: F401 (autouse)
 
 import water_sandbox_tpu as wj
 import water_sandbox_tpu_torch as wt
@@ -151,3 +154,112 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch):
         wt.scenes.build("mini-3d")
     assert wt.Simulation.from_scene("mini-3d", device="cpu").device == \
         torch.device("cpu")
+
+
+def _rescuing(**kw):
+    """mini-3d in the kernel pipeline, sorted, at cell capacity 4 with a
+    rescue budget of 16: the rescue fires and runs past its budget on every
+    step (the plain versions of its kernels, on the CPU)."""
+    return wt.scenes.build("mini-3d", device="cpu", sorted_state=True,
+                           cell_capacity=4, rescue_capacity=16, **kw)
+
+
+def _equal_states(a, b):
+    for f in dataclasses.fields(a):
+        assert torch.equal(getattr(a, f.name), getattr(b, f.name)), f.name
+
+
+def test_runs_step_the_buffers_as_one_rollout():
+    """run(3) then run(4) equals rollout(7) bit for bit; the Simulation
+    steps its own buffers in place and leaves the caller's tensors as they
+    were."""
+    cfg, params, state = _rescuing()
+    sim = wt.Simulation(cfg, params, state)
+    assert sim.graph is not None and not sim.graph.captures
+    ptrs = [getattr(sim.state, f.name).data_ptr()
+            for f in dataclasses.fields(sim.state)]
+    sim.run(3)
+    sim.run(4)
+    _equal_states(sim.state, wt.rollout(state, params, cfg, 7))
+    assert ptrs == [getattr(sim.state, f.name).data_ptr()
+                    for f in dataclasses.fields(sim.state)]
+    assert int(state.step_count) == 0 and int(sim.state.step_count) == 7
+    assert float(sim.state.overflow_total) > 0, "the budget must overflow"
+
+
+def test_tune_takes_effect_on_the_next_step():
+    """tune(viscosity_strength=...) and tune(field={...}) copy into the
+    parameter buffers: the next steps equal a fresh Simulation built with
+    those parameters from the same state, and the caller's params stay."""
+    cfg, params, state = _rescuing()
+    sim = wt.Simulation(cfg, params, state)
+    sim.run(2)
+    mid = sim.state.clone()
+    buf = sim.params.field.position
+    sim.tune(viscosity_strength=0.3,
+             field={"position": (0.1, -0.2, 0.0), "strength": -20.0,
+                    "radius": 1.5})
+    assert sim.params.field.position is buf
+    sim.run(2)
+    tuned = dataclasses.replace(
+        params.replace(viscosity_strength=0.3),
+        field=wt.InteractionField.create((0.1, -0.2, 0.0), -20.0, 1.5,
+                                         device="cpu"))
+    fresh = wt.Simulation(cfg, tuned, mid)
+    fresh.run(2)
+    _equal_states(sim.state, fresh.state)
+    assert float(params.viscosity_strength) != 0.3
+    assert float(params.field.strength) == 0.0
+    with pytest.raises(TypeError, match="no field"):
+        sim.tune(viscosity=0.2)
+    with pytest.raises(ValueError, match="shape"):
+        sim.tune(gravity=[0.0, 1.0])
+
+
+def test_reset_copies_the_initial_state_back():
+    cfg, params, state = _rescuing()
+    sim = wt.Simulation(cfg, params, state)
+    sim.run(3)
+    first = sim.state.clone()
+    sim.reset()
+    _equal_states(sim.state, state)
+    sim.run(3)
+    _equal_states(sim.state, first)
+
+
+@pytest.mark.parametrize("action", ["reset", "tune"])
+def test_reset_and_tune_wait_for_a_running_step(action):
+    """reset() or tune() from a second thread while run() steps waits for
+    the step, as the viewer's request handlers do against its stepping
+    thread: after it, the state is the whole reset, or the step taken with
+    the old parameters and the new ones in place, never a mix."""
+    cfg, params, state = _rescuing()
+    sim = wt.Simulation(cfg, params, state)
+    entered, go = threading.Event(), threading.Event()
+    advance = sim.graph._advance
+
+    def held_step():
+        entered.set()
+        go.wait(30)
+        advance()
+
+    sim.graph._advance = held_step
+    stepper = threading.Thread(target=sim.run, args=(1,))
+    stepper.start()
+    assert entered.wait(30)
+    other = threading.Thread(
+        target=sim.reset if action == "reset"
+        else lambda: sim.tune(viscosity_strength=0.3))
+    other.start()
+    other.join(0.3)
+    blocked = other.is_alive()
+    go.set()
+    stepper.join(30)
+    other.join(30)
+    assert blocked, f"{action} ran while a step held the Simulation"
+    if action == "reset":
+        _equal_states(sim.state, state)
+        assert sim.phase is SimPhase.READY
+    else:
+        _equal_states(sim.state, wt.rollout(state, params, cfg, 1))
+        assert float(sim.params.viscosity_strength) == pytest.approx(0.3)

@@ -128,3 +128,30 @@ def test_trajectory_stacks_positions_and_rejects_a_remainder():
     _, frames_k = wt.trajectory(state_k, params_k, cfg_k, 2)
     _, frames_d = wt.trajectory(state, params, cfg, 2)
     np.testing.assert_allclose(frames_k.numpy(), frames_d.numpy(), **TOL)
+
+
+def test_rollout_and_trajectory_step_the_buffers_like_a_step_loop():
+    """The kernel pipeline's rollout and trajectory run ops/cuda/graph.py's
+    StepGraph (on the CPU: eager steps into its buffers): bit for bit a
+    loop of step, with the device-gated rescue firing past its budget; the
+    caller's state stays as it was."""
+    from water_sandbox_tpu_torch.ops.cuda import graph
+    cfg, params, state = wt.scenes.build("mini-3d", device="cpu",
+                                         sorted_state=True, cell_capacity=4,
+                                         rescue_capacity=16)
+    s, frames = state, []
+    for _ in range(4):
+        s = wt.step(s, params, cfg)
+        frames.append(s.pos)
+    assert float(s.overflow_total) > 0
+    got = wt.rollout(state, params, cfg, 4)
+    for f in dataclasses.fields(s):
+        assert torch.equal(getattr(got, f.name), getattr(s, f.name)), f.name
+    final, rec = wt.trajectory(state, params, cfg, 4, 2)
+    assert torch.equal(rec, torch.stack(frames[1::2]))
+    assert torch.equal(final.vel, s.vel)
+    assert int(state.step_count) == 0
+    with pytest.raises(ValueError, match="rebuild step"):
+        graph.StepGraph(state, params,
+                        dataclasses.replace(cfg, neighbor_mode="dense",
+                                            sorted_state=False))

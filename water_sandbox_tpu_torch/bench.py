@@ -13,7 +13,9 @@ the workload that 60 FPS figure is about.
 
 PINNED PROTOCOL (``settle600+best3x50``, the JAX bench's
 ``settle600+best3x50+ssync`` less the suffix that named its scalar-fetch
-sync): windows of 50 steps of the same ``rollout`` program; the state is
+sync): windows of 50 steps of ``Simulation.run`` (on the card, 50 replays
+of the captured step, ``ops/cuda/graph.py``, captured in the first
+window); the state is
 settled to step 600 first (the first two windows included, the second
 timed as the transient rate), then the best of 3 timed windows gives the
 rate. Every window ends in ``torch.cuda.synchronize``. The JSON carries ``ms_per_step`` and a
@@ -53,31 +55,27 @@ def measure(scene: str, mode: str = "auto", chunk: int = 50,
     """(sim, rate, transient, done): the settled rate (particle-steps/s,
     best of 3 windows of ``chunk`` steps), the rate of the second window
     from the fresh lattice, and the steps run before the timed windows."""
-    from .ops.step import rollout
     from .runtime.runner import Simulation
 
     sim = Simulation.from_scene(scene, device=device, neighbor_mode=mode)
     sync = sim._sync  # torch.cuda.synchronize on the card
 
-    # first window: kernel build + allocator warm-up; second: transient
-    sim.state = rollout(sim.state, sim.params, sim.cfg, chunk)
-    sync()
+    # first window: kernel build, warm-up and capture; second: transient
+    sim.run(chunk)
     t0 = time.perf_counter()
-    sim.state = rollout(sim.state, sim.params, sim.cfg, chunk)
-    sync()
+    sim.run(chunk)
     transient = chunk * sim.cfg.n / (time.perf_counter() - t0)
 
     done = 2 * chunk
     while done < settle:
-        sim.state = rollout(sim.state, sim.params, sim.cfg, chunk)
+        sim.run(chunk, block=False)
         done += chunk
     sync()
 
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
-        sim.state = rollout(sim.state, sim.params, sim.cfg, chunk)
-        sync()
+        sim.run(chunk)
         walls.append(time.perf_counter() - t0)
     rate = chunk * sim.cfg.n / min(walls)
     return sim, rate, transient, done
@@ -104,11 +102,13 @@ def true_pairs(pos: torch.Tensor, h: torch.Tensor,
 
 
 def fingerprint(sim) -> dict:
-    """What the port runs for ``sim``: the scene's config and, on the
-    kernel pipeline ("pallas"), each hand kernel's source file, the threads
-    a row ``G`` that ``ops/cuda/sph_bucket.py::_row_group`` picks for the
-    scene's rows on this card (None off the card), and the lane-tile width
-    of the bucket layout (the JAX bench's ``tile``: the same pick)."""
+    """What the port runs for ``sim``: the scene's config, how a step runs
+    (``"captured"``: one replay of a CUDA graph a step; ``"eager"``), and,
+    on the kernel pipeline ("pallas"), each hand kernel's source file, the
+    threads a row ``G`` that ``ops/cuda/sph_bucket.py::_row_group`` picks
+    for the scene's rows on this card (None off the card), and the
+    lane-tile width of the bucket layout (the JAX bench's ``tile``: the
+    same pick)."""
     from .ops.cuda import sph_bucket as sb
     cfg = sim.cfg
     out = {
@@ -118,6 +118,8 @@ def fingerprint(sim) -> dict:
         "grid_frame": cfg.grid_frame,
         "cell_capacity": cfg.cell_capacity,
         "sorted_state": cfg.sorted_state,
+        "step": ("captured" if sim.graph is not None
+                 and sim.graph.captures else "eager"),
         "kernels": None, "row_group": None, "tile": None,
         "build_scatter": cfg.build_scatter,
         "dt": float(sim.params.dt),
@@ -128,7 +130,8 @@ def fingerprint(sim) -> dict:
     if cfg.neighbor_mode == "pallas":
         out["kernels"] = {
             "sph_density": "water_sandbox_tpu_torch/csrc/sph_density.cu",
-            "sph_force": "water_sandbox_tpu_torch/csrc/sph_force.cu"}
+            "sph_force": "water_sandbox_tpu_torch/csrc/sph_force.cu",
+            "sph_rescue": "water_sandbox_tpu_torch/csrc/sph_rescue.cu"}
         out["tile"] = sb._geometry(cfg).T
         if sim.device.type == "cuda":
             out["row_group"] = sb._row_group(

@@ -36,7 +36,7 @@ import torch
 from .core import device as device_mod
 from .core.params import KernelCoeffs
 from .models import scenes
-from .ops.step import rollout
+from .runtime.runner import Simulation
 
 # Bars of tests/test_golden.py: (rtol, atol) a statistic, as
 # np.testing.assert_allclose applies them against the pin (its default
@@ -156,20 +156,23 @@ def run(name: str, mode: str, steps: int, device=device_mod.DEFAULT,
         progress: bool = False, **kw):
     """``steps`` steps of scene ``name`` in ``neighbor_mode=mode`` on
     ``device`` (the card unless the caller names the CPU); ``kw`` replaces
-    SimConfig fields. Rolls out in 50-step chunks, as the JAX tool does.
-    Returns (cfg, params, state)."""
+    SimConfig fields. Runs what ``Simulation.run`` runs (on the card, the
+    kernel pipeline's captured step, captured here under whatever context
+    the caller has open), in 50-step chunks as the JAX tool does. Returns
+    (cfg, params, state)."""
     cfg, params, state = scenes.build(name, device=device,
                                       neighbor_mode=mode, **kw)
+    sim = Simulation(cfg, params, state, name=name)
     t0 = time.perf_counter()
     done = 0
     while done < steps:
         chunk = min(50, steps - done)
-        state = rollout(state, params, cfg, chunk)
+        sim.run(chunk, block=progress)
         done += chunk
         if progress:
             print(f"# {done}/{steps} ({time.perf_counter() - t0:.0f}s)",
                   file=sys.stderr, flush=True)
-    return cfg, params, state
+    return cfg, sim.params, sim.state
 
 
 def summarize(state) -> dict:

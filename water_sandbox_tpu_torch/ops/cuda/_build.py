@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# source (csrc/<name>.cu) -> its C entry point and argtypes
+# source (csrc/<name>.cu) -> its C entry point and argtypes (a list of
+# such pairs where the source has several)
 _ENTRY_POINTS = {
     "sph_density": ("wst_sph_density",
                     [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -40,7 +41,20 @@ _ENTRY_POINTS = {
                   [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                    _P]),
     "bitonic_sort": ("wst_bitonic_sort", [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "sph_rescue": [
+        ("wst_sph_rescue_density",
+         [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        ("wst_sph_rescue_force",
+         [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    ],
 }
+
+
+def _entries(name: str) -> list:
+    """The (entry point, argtypes) pairs of source ``name``: a source may
+    hold one entry point or several."""
+    spec = _ENTRY_POINTS[name]
+    return spec if isinstance(spec, list) else [spec]
 
 
 class Built(NamedTuple):
@@ -116,11 +130,13 @@ def build() -> Built:
                if not (out_dir / f"lib{n}.so").exists()]
     seconds = _compile(out_dir, missing) if missing else 0.0
     fns = {}
-    for name, (entry, argtypes) in _ENTRY_POINTS.items():
-        fn = getattr(ctypes.CDLL(str(out_dir / f"lib{name}.so")), entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        fns[entry] = fn
+    for name in _ENTRY_POINTS:
+        lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+        for entry, argtypes in _entries(name):
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns[entry] = fn
     log = "".join((out_dir / f"{n}.nvcc.log").read_text()
                   for n in _ENTRY_POINTS
                   if (out_dir / f"{n}.nvcc.log").exists())

@@ -29,13 +29,16 @@ step is ordered
   ``cfg.incremental_rebuild`` steps, and whenever the mover budget
   overflows, the anchor drifts by more than 3/4 h from where a fresh build
   would put it, or the hole debt ``sum(top) - occupied`` passes n/2. The
-  decision is read on the host (one device sync a step, besides the
-  rescue's read of ``overflow``): PyTorch runs eagerly, so the branch is a
-  Python ``if``.
+  decision is read on the host (one device sync a step, besides the read
+  of ``overflow`` that decides the rescue and the dropped rows'
+  integration below): PyTorch runs eagerly, so the branch is a Python
+  ``if``.
 * A mover whose column is full is dropped (address ``cap_p·L``): the same
-  step's rescue (``ops/rescue.py``) computes it exactly, it integrates in
-  particle order, and it retries insertion every step. ``state.overflow``
-  counts the dropped particles, rescued or not, as the JAX package does.
+  step's rescue (the kernels of ``ops/cuda/rescue.py``, launched only on
+  steps with dropped particles) computes it exactly, it integrates in
+  particle order, and it retries insertion every step.
+  ``state.overflow`` counts the dropped particles, rescued or not, as the
+  JAX package does.
 * Per-particle densities and accelerations are gathered only when
   ``materialize`` (the rollout's last step); earlier steps carry
   one-step-stale shadows, and the planes are the state.
@@ -52,7 +55,8 @@ import torch
 
 from ...core.params import DENSITY_PADDING, KernelCoeffs, SimConfig, SimParams
 from ...core.state import FluidState
-from .. import hashing, integrate as integrate_mod, rescue as rescue_mod
+from .. import hashing, integrate as integrate_mod
+from . import rescue as rescue_k
 from . import sph_bucket as sb
 
 _I32_MAX = torch.iinfo(torch.int32).max
@@ -289,16 +293,20 @@ def step_inc(state: FluidState, cache: BucketCache, params: SimParams,
     # the rescue and the dropped particles' particle-order integration run
     # only on steps with dropped particles: read on the host
     n_over = int(overflow)
-    rescued = None
-    if n_over and cfg.rescue_capacity > 0:
-        den_r, nden_r, rescued, _, budget = sb.rescue_density_planes(
-            dens, addr_r, dropped, n_over, pred_c, params, coeffs, cfg)
+    rescue = n_over > 0 and cfg.rescue_capacity > 0
+    if rescue:
+        # the kernels read rows through raw pointers
+        pred_k, vel_k = pred_c.contiguous(), vel_c.contiguous()
+        den_r, nden_r, sel, slot, count = sb.rescue_density_planes(
+            dens, addr_r, dropped, overflow, pred_k, params, coeffs, cfg,
+            params_vec)
+        rescued = (slot >= 0) & (slot < count)
 
     out_c = sb.run_force(planes_r, dens, top, addr_r, params_vec, cfg)
     t_new = state.time + params.dt
 
     def corrected(den, nden):
-        if rescued is None:
+        if not rescue:
             return den, nden
         return (torch.where(rescued, den_r, den),
                 torch.where(rescued, nden_r, nden))
@@ -308,12 +316,13 @@ def step_inc(state: FluidState, cache: BucketCache, params: SimParams,
         # residents' corrected accelerations back into the plane layout
         den, nden, acc = sb.gather_results(out_c, addr_r, dropped, params)
         den, nden = corrected(den, nden)
-        if rescued is not None:
+        if rescue:
+            acc = acc.contiguous()
             prs = params.pressure_scalar * (den - params.target_density)
             nprs = params.near_pressure_scalar * nden
-            acc = rescue_mod.force_rescue(pred_c, vel_c, den, nden, prs, nprs,
-                                          dropped, acc, params, coeffs, cfg,
-                                          budget=budget)
+            rescue_k.rescue_force(pred_k, vel_k, den, nden, prs, nprs, sel,
+                                  slot, count, acc, params, coeffs,
+                                  params_vec, cfg)
             keep = ~dropped
             out_c.view(2 + dim, -1)[2:, addr_r[keep].long()] = acc[keep].T
         # dropped particles integrate in particle order

@@ -12,9 +12,12 @@
   its plain PyTorch version (``density_plain`` / ``force_plain``) for CPU
   tensors and launches its kernel for CUDA tensors — there is no fallback
   between the two — and counts its launches in ``LAUNCHES``.
-* Passes: ``sph_passes`` (density → exact overflow rescue → force → one
+* Passes: ``sph_passes`` (density → exact overflow rescue → force →
   gather), ``bucket_sph`` (particle order) and ``bucket_sph_sorted`` (rows
-  in this step's bucket order, identity on ``ids``).
+  in this step's bucket order, identity on ``ids``). The rescue's kernels
+  (``ops/cuda/rescue.py``) run on every step and gate themselves on the
+  device count, and nothing in the step reads the device on the host, so
+  ``ops/cuda/graph.py`` captures it as a CUDA graph.
 """
 
 from __future__ import annotations
@@ -172,12 +175,14 @@ def _build_core(predicted, vel, params, cfg: SimConfig, carry=None,
         origin = hashing.grid_origin(kpred, h)
     # a true division, not a multiply by 1/h: keys must match JAX's bits
     cell = torch.floor((kpred - origin) / h).to(torch.int32)
-    hi = torch.tensor(cfg.grid_dims, dtype=torch.int32, device=dev) - 1
-    cell = torch.minimum(torch.clamp_min(cell, 0), hi)
-    r = cell[:, 1]
+    # clamped axis by axis with Python bounds: no host-to-device copy, so
+    # the step runs under CUDA-graph capture
+    ax = [torch.clamp(cell[:, a], 0, cfg.grid_dims[a] - 1)
+          for a in range(dim)]
+    r = ax[1]
     if dim == 3:
-        r = r * g.gz + cell[:, 2]
-    col = cell[:, 0] * g.S_pad + r                   # slab-strided column
+        r = r * g.gz + ax[2]
+    col = ax[0] * g.S_pad + r                        # slab-strided column
 
     # stable: ties keep ascending row order, as jax.lax.sort((col, iota))
     sorted_col, order = torch.sort(col, stable=True)
@@ -501,62 +506,70 @@ def force_plain(planes, dens, counts, addr, params_vec, cfg: SimConfig):
 
 # ----------------------------------------------------------------- passes --
 
-def rescue_density_planes(dens, addr, dropped, n_over: int, predicted,
-                          params: SimParams, coeffs: KernelCoeffs,
-                          cfg: SimConfig):
-    """The rescue's density half on a step with ``n_over`` > 0 dropped
-    rows: exact densities with the dropped rows included (up to the
-    budget), and the residents' corrected rows written into all 6 density
-    planes, so the force pass reads pressures and reciprocals consistent
-    with them. Returns (den, nden, rescued, unrescued, budget)."""
-    from .. import rescue as rescue_mod
-
-    small = rescue_mod.small_budget(cfg)
-    budget = small if n_over <= small else cfg.rescue_capacity
+def gather_density(dens, addr, dropped, params):
+    """(den, nden) (n,) from the density planes at ``addr``; dropped rows
+    (sentinel addr) read a clamped element and get fill values."""
     safe = torch.clamp_max(addr, dens[0].numel() - 1).long()
-    den = torch.where(dropped, params.target_density,
-                      dens[0].reshape(-1)[safe])
-    nden = torch.where(dropped, DENSITY_PADDING, dens[1].reshape(-1)[safe])
-    den_r, nden_r, rescued, unrescued = rescue_mod.density_rescue(
-        predicted, dropped, den, nden, params, coeffs, cfg, budget=budget)
-    keep = ~dropped
-    dens.view(6, -1)[:, addr[keep].long()] = derived_density_planes(
-        den_r, nden_r, params)[:, keep]
-    return den_r, nden_r, rescued, unrescued, budget
+    out = dens[:2].reshape(2, -1)[:, safe]
+    return (torch.where(dropped, params.target_density, out[0]),
+            torch.where(dropped, DENSITY_PADDING, out[1]))
+
+
+def rescue_density_planes(dens, addr, dropped, overflow, predicted,
+                          params: SimParams, coeffs: KernelCoeffs,
+                          cfg: SimConfig, params_vec):
+    """The rescue's density half, gated on the device: the selection
+    (``ops/rescue.py::rescue_selection``) and R1 (``ops/cuda/rescue.py``).
+    Exact densities with the dropped rows included (up to
+    ``rescue_capacity``), and the residents' corrected rows written into
+    all 6 density planes, so the force pass reads pressures and reciprocals
+    consistent with them. Reads nothing on the host: with no overflow R1
+    changes nothing. Returns (den, nden, sel, slot, count) — the last three
+    for the force half."""
+    from .. import rescue as rescue_mod
+    from . import rescue as rescue_k
+    den, nden = gather_density(dens, addr, dropped, params)
+    sel, slot, count = rescue_mod.rescue_selection(
+        dropped, overflow, min(cfg.rescue_capacity, dropped.shape[0]))
+    rescue_k.rescue_density(predicted, sel, slot, count, addr, den, nden,
+                            dens, params, coeffs, params_vec, cfg)
+    return den, nden, sel, slot, count
 
 
 def sph_passes(planes, counts, addr, dropped, overflow, predicted, vel,
                params: SimParams, coeffs: KernelCoeffs, cfg: SimConfig):
     """Density + exact rescue + force + gather-back on built planes.
 
-    The rescue runs only on steps that overflow; whether one did is read on
-    the host (one device sync per step when ``rescue_capacity > 0``).
+    With ``rescue_capacity > 0`` both rescue kernels run on every step and
+    gate themselves on the device count (JAX's ``lax.cond``): the passes
+    read nothing on the host, so the step can be captured as a CUDA graph.
     Returns (den, nden, prs, nprs, acc, unrescued) in the row order of
     ``addr``."""
-    from .. import rescue as rescue_mod
+    from . import rescue as rescue_k
 
     params_vec = _param_vector(params, coeffs)
     dens = run_density(planes, counts, addr, params_vec, cfg)
-
-    n_over = int(overflow) if cfg.rescue_capacity > 0 else 0
-    rescue = n_over > 0
-    unrescued = overflow
+    rescue = cfg.rescue_capacity > 0
     if rescue:
-        den_r, nden_r, rescued, unrescued, budget = rescue_density_planes(
-            dens, addr, dropped, n_over, predicted, params, coeffs, cfg)
+        # the kernels read rows through raw pointers: the sorted step's
+        # rows are column views of one gathered block
+        predicted, vel = predicted.contiguous(), vel.contiguous()
+        den, nden, sel, slot, count = rescue_density_planes(
+            dens, addr, dropped, overflow, predicted, params, coeffs, cfg,
+            params_vec)
+        unrescued = overflow - count
+    else:
+        den, nden = gather_density(dens, addr, dropped, params)
+        unrescued = overflow
 
     out_c = run_force(planes, dens, counts, addr, params_vec, cfg)
-    den, nden, acc = gather_results(out_c, addr, dropped, params)
-
-    if rescue:
-        den = torch.where(rescued, den_r, den)
-        nden = torch.where(rescued, nden_r, nden)
+    acc = gather_results(out_c, addr, dropped, params)[2].contiguous()
     prs = params.pressure_scalar * (den - params.target_density)
     nprs = params.near_pressure_scalar * nden
     if rescue:
-        acc = rescue_mod.force_rescue(predicted, vel, den, nden, prs, nprs,
-                                      dropped, acc, params, coeffs, cfg,
-                                      budget=budget)
+        rescue_k.rescue_force(predicted, vel, den, nden, prs, nprs, sel,
+                              slot, count, acc, params, coeffs, params_vec,
+                              cfg)
     return den, nden, prs, nprs, acc, unrescued
 
 

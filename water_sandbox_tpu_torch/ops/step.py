@@ -8,19 +8,27 @@ run the fused bucket-kernel pipeline:
 
 ``"dense"`` runs the all-pairs oracle (``ops/dense.py``), ``"bucket_grid"``
 and ``"hash_grid"`` the plain PyTorch pipelines of ``ops/grid.py``.
-``rollout`` and ``trajectory`` are Python loops over ``step`` (PyTorch runs
-eagerly); in the kernel pipeline with ``incremental_rebuild > 0``,
-``rollout`` runs the plane-resident steps of ``ops/cuda/incremental.py``.
+
+The kernel pipeline's step reads nothing on the host (the rescue gates
+itself on the device), so on a CUDA device ``rollout`` and ``trajectory``
+run it as a captured CUDA graph replayed once a step
+(``ops/cuda/graph.py``), as the JAX package runs ``lax.scan`` in one
+compiled program; on the CPU the same buffers step eagerly. The other
+modes loop over ``step`` in Python. In the kernel pipeline with
+``incremental_rebuild > 0``, ``rollout`` runs the plane-resident steps of
+``ops/cuda/incremental.py``, eagerly.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from ..core.params import KernelCoeffs, SimConfig, SimParams
+from ..core.params import KernelCoeffs, SimConfig, SimParams, _map_tensors
 from ..core.state import FluidState
 from . import dense, grid as grid_mod, integrate as integrate_mod
-from .cuda import incremental, sph_bucket
+from .cuda import graph as graph_mod, incremental, sph_bucket
 
 
 def step(state: FluidState, params: SimParams, cfg: SimConfig) -> FluidState:
@@ -98,9 +106,20 @@ def rollout(state: FluidState, params: SimParams, cfg: SimConfig,
     cfg = cfg.resolved()
     if cfg.neighbor_mode == "pallas" and cfg.incremental_rebuild > 0:
         return incremental.rollout_inc(state, params, cfg, num_steps)
+    if cfg.neighbor_mode == "pallas":
+        g = _own_graph(state, params, cfg)
+        g.run(num_steps)
+        return g.state
     for _ in range(num_steps):
         state = step(state, params, cfg)
     return state
+
+
+def _own_graph(state, params, cfg) -> graph_mod.StepGraph:
+    """A StepGraph on copies of the caller's state and params (the caller's
+    tensors stay as they were)."""
+    return graph_mod.StepGraph(state.clone(),
+                               _map_tensors(params, torch.clone), cfg)
 
 
 def trajectory(state: FluidState, params: SimParams, cfg: SimConfig,
@@ -116,11 +135,20 @@ def trajectory(state: FluidState, params: SimParams, cfg: SimConfig,
         raise ValueError(
             f"num_steps={num_steps} not divisible by record_every="
             f"{record_every}; the remainder steps would be silently dropped")
+    cfg = cfg.resolved()
+    g = None
+    if cfg.neighbor_mode == "pallas":
+        g = _own_graph(state, params,
+                       dataclasses.replace(cfg, incremental_rebuild=0))
+        state = g.state                  # stepped in place by g.run
     frames = []
     for _ in range(num_steps // record_every):
-        for _ in range(record_every):
-            state = step(state, params, cfg)
-        frames.append(state.pos)
+        if g is None:
+            for _ in range(record_every):
+                state = step(state, params, cfg)
+        else:
+            g.run(record_every)
+        frames.append(state.pos.clone())
     if not frames:
         return state, state.pos.new_zeros((0, *state.pos.shape))
     return state, torch.stack(frames)

@@ -16,8 +16,11 @@ every step is FLUID_PROPS_CHANGE_STEP = 0.1 (hud.rs:11):
 
 plus the app-shell keys: Space = scene reset (fluid_compute.rs:505-525),
 Esc/p = pause toggle (state.rs:34-40). Used by the live TUI (viz/live.py)
-and the web viewer (viz/server.py). ``Simulation.tune`` swaps whole
-parameter tensors, so every change applies from the next step.
+and the web viewer (viz/server.py). ``Simulation.tune`` copies into the
+parameter buffers the step reads, under the Simulation's lock, so every
+change applies from the next step; a caller on another thread holds
+``sim.lock`` around ``apply_key``, so the values it reads are the ones it
+changes.
 """
 
 from __future__ import annotations

@@ -7,18 +7,19 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import threading
 import time as _time
-from typing import Any
 
 import numpy as np
 import torch
 
 from ..core import convert
 from ..core import device as device_mod
-from ..core.params import Container, InteractionField, SimConfig, SimParams
+from ..core.params import SimConfig, SimParams, _map_tensors
 from ..core.state import FluidState
 from ..models import scenes as scene_registry
 from ..ops import step as step_mod
+from ..ops.cuda import graph as graph_mod
 from . import metrics as metrics_mod
 
 
@@ -29,22 +30,42 @@ class SimPhase(enum.Enum):
 
 
 class Simulation:
-    """Holds the current state and params on ``device`` and steps them
-    eagerly. The first ``run`` of a Simulation is recorded as warm-up (it
-    builds the CUDA kernels on first use and fills the allocator)."""
+    """Holds the current state and params on ``device`` in buffers of its
+    own. In the kernel pipeline (``neighbor_mode`` "auto"/"pallas",
+    ``incremental_rebuild`` 0) it owns a ``StepGraph``
+    (``ops/cuda/graph.py``): on a CUDA device the first ``run`` captures
+    the step as a CUDA graph and every step after it is one replay; on the
+    CPU the same buffers step eagerly. Other modes step eagerly through
+    ``rollout``. ``tune`` copies into the parameter buffers, so a change
+    takes effect on the next step with no recapture, as the JAX package's
+    traced parameters do; ``reset`` copies the initial state back. The
+    first ``run`` of a Simulation is recorded as warm-up (it builds the
+    CUDA kernels on first use and captures the graph).
+
+    ``run``, ``tune`` and ``reset`` hold ``lock`` (reentrant), so a caller
+    on another thread (the viewer's request handlers) never lands a copy
+    between two steps of one ``run``, or inside a capture: a reset is
+    whole or not yet begun. Hold ``lock`` around a read-then-tune, or
+    around reads that must see one state."""
 
     def __init__(self, cfg: SimConfig, params: SimParams, state: FluidState,
                  name: str = "custom", device=None):
         device = torch.device(device) if device is not None else state.device
         self.cfg = cfg.resolved()
-        self.params = params.to(device)
-        self.state = state.to(device)
+        self.params = _map_tensors(params, lambda t: t.to(device).clone())
+        self.state = state.to(device).clone()
         self.device = device
         self.name = name
         self.phase = SimPhase.READY
         self._initial_state = self.state.clone()
         self.metrics = metrics_mod.MetricsRecorder()
         self._warm = False
+        self.lock = threading.RLock()
+        self.graph = None
+        if (self.cfg.neighbor_mode == "pallas"
+                and self.cfg.incremental_rebuild == 0):
+            self.graph = graph_mod.StepGraph(self.state, self.params,
+                                             self.cfg)
 
     @classmethod
     def from_scene(cls, name: str, device=device_mod.DEFAULT,
@@ -62,19 +83,24 @@ class Simulation:
             torch.cuda.synchronize(self.device)
 
     def run(self, num_steps: int = 1, block: bool = True) -> "Simulation":
-        """Advance num_steps. Respects PAUSED."""
-        if self.phase is SimPhase.PAUSED:
-            return self
-        self.phase = SimPhase.RUNNING
-        t0 = _time.perf_counter()
-        self.state = step_mod.rollout(self.state, self.params, self.cfg,
-                                      num_steps)
-        if block:
-            self._sync()
-            self.metrics.record_steps(num_steps, self.cfg.n,
-                                      _time.perf_counter() - t0,
-                                      compiled=not self._warm)
-            self._warm = True
+        """Advance num_steps (on CUDA in the kernel pipeline: num_steps
+        replays of the captured step). Respects PAUSED."""
+        with self.lock:
+            if self.phase is SimPhase.PAUSED:
+                return self
+            self.phase = SimPhase.RUNNING
+            t0 = _time.perf_counter()
+            if self.graph is not None:
+                self.graph.run(num_steps)
+            else:
+                graph_mod.copy_state(self.state, step_mod.rollout(
+                    self.state, self.params, self.cfg, num_steps))
+            if block:
+                self._sync()
+                self.metrics.record_steps(num_steps, self.cfg.n,
+                                          _time.perf_counter() - t0,
+                                          compiled=not self._warm)
+                self._warm = True
         return self
 
     def step(self) -> "Simulation":
@@ -92,8 +118,9 @@ class Simulation:
 
     def reset(self) -> "Simulation":
         """Restore the initial particle state, keep the live-tuned params."""
-        self.state = self._initial_state.clone()
-        self.phase = SimPhase.READY
+        with self.lock:
+            graph_mod.copy_state(self.state, self._initial_state)
+            self.phase = SimPhase.READY
         return self
 
     # -- live tuning -------------------------------------------------------
@@ -101,20 +128,19 @@ class Simulation:
     def tune(self, **kw) -> "Simulation":
         """Set any SimParams field by name; container/field accept dicts,
         e.g. ``sim.tune(viscosity_strength=0.2)`` or
-        ``sim.tune(field={'strength': -20, 'radius': 3})``."""
-        p = self.params
-        as_t = lambda v: torch.as_tensor(  # noqa: E731
-            v, dtype=torch.float32, device=self.device)
-        updates: dict[str, Any] = {}
-        for k, v in kw.items():
-            if k in ("container", "field") and isinstance(v, dict):
-                updates[k] = dataclasses.replace(
-                    getattr(p, k), **{kk: as_t(vv) for kk, vv in v.items()})
-            elif isinstance(v, (Container, InteractionField)):
-                updates[k] = v
-            else:
-                updates[k] = as_t(v)
-        self.params = dataclasses.replace(p, **updates)
+        ``sim.tune(field={'strength': -20, 'radius': 3})``. The values are
+        copied into the parameter buffers the step reads."""
+        with self.lock:
+            for k, v in kw.items():
+                target = _field(self.params, k)
+                if dataclasses.is_dataclass(target):
+                    items = (v.items() if isinstance(v, dict) else
+                             ((f.name, getattr(v, f.name))
+                              for f in dataclasses.fields(v)))
+                    for kk, vv in items:
+                        _set(_field(target, kk), vv, f"{k}.{kk}")
+                else:
+                    _set(target, v, k)
         return self
 
     def gravity_off(self):
@@ -159,3 +185,18 @@ class Simulation:
         }
         out.update(self.metrics.summary())
         return out
+
+
+def _field(obj, name: str):
+    if name not in {f.name for f in dataclasses.fields(obj)}:
+        raise TypeError(f"{type(obj).__name__} has no field {name!r}")
+    return getattr(obj, name)
+
+
+def _set(buf: torch.Tensor, value, name: str) -> None:
+    """Copy ``value`` into the parameter buffer ``buf`` in place."""
+    src = torch.as_tensor(value, dtype=torch.float32).to("cpu")
+    if src.shape != buf.shape:
+        raise ValueError(f"{name}: expected shape {tuple(buf.shape)}, got "
+                         f"{tuple(src.shape)}")
+    buf.copy_(src)

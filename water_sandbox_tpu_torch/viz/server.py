@@ -18,9 +18,12 @@ raster made on the device.
         --port 8787
 
 Threads: the main thread steps and snapshots; handler threads apply keys
-and the mouse field through ``Simulation.tune``/``reset``/``pause``, which
-swap whole attributes (tensors made on the sim's device), so the stepping
-thread sees either the old or the new value, never a mix.
+and the mouse field through ``Simulation.tune``/``reset``/``pause``. Both
+hold the Simulation's ``lock`` (the main thread around a frame's steps
+and its reads, a handler around a key or a field change), so a reset or a
+tune lands between two frames, never between two steps of one frame or
+inside the first run's capture. ``ViewerServer.lock`` guards the frame
+bytes only.
 """
 
 from __future__ import annotations
@@ -279,7 +282,7 @@ class ViewerServer:
                     self._send(body, "application/json")
                 elif url.path == "/key":
                     k = parse_qs(url.query).get("k", [""])[0]
-                    with viewer.lock:
+                    with viewer.sim.lock:
                         desc = keymap.apply_key(viewer.sim, k) or ""
                     self._send(desc.encode(), "text/plain")
                 elif url.path == "/field":
@@ -288,7 +291,7 @@ class ViewerServer:
                     # only): ctrl-drag in the browser points the
                     # InteractionField at the fluid from the next step
                     q = parse_qs(url.query)
-                    with viewer.lock:
+                    with viewer.sim.lock:
                         desc = viewer.apply_field(q)
                     self._send(desc.encode(), "text/plain")
                 else:
@@ -326,7 +329,7 @@ class ViewerServer:
     def _snapshot(self):
         sim = self.sim
         st = sim.stats()
-        # one read of each attribute: handler threads may swap them
+        # the Simulation's own buffers: tune and reset copy into them
         p, state = sim.params, sim.state
         c = p.container
         t = float(state.time)
@@ -404,14 +407,14 @@ class ViewerServer:
         t0 = time.perf_counter()
         try:
             while not self._stop.is_set():
-                # step WITHOUT the lock: params/state updates are atomic
-                # attribute swaps, and holding the lock here starves the
-                # handler threads (CPython locks are not fair). The lock only
-                # guards the frame-bytes swap and keymap application.
-                if self.sim.phase.value != "paused":
-                    self.sim.run(self.steps_per_frame)
-                self._snapshot()
-                time.sleep(0.002)  # yield the GIL to handler threads
+                # a frame's steps and reads under the Simulation's lock;
+                # the sleep after it lets a waiting handler take the lock
+                # (CPython locks are not fair)
+                with self.sim.lock:
+                    if self.sim.phase.value != "paused":
+                        self.sim.run(self.steps_per_frame)
+                    self._snapshot()
+                time.sleep(0.002)
                 if max_seconds and time.perf_counter() - t0 > max_seconds:
                     break
         except KeyboardInterrupt:
