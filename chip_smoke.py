@@ -8,8 +8,10 @@
 Builds the port's CUDA kernels from ``water_sandbox_tpu_torch/csrc``, holds
 each against its plain PyTorch version at the main path's shapes, checks
 the exact overflow rescue (the step on the card against the CPU, and the
-rescue's two kernels against their plain versions at ~5k dropped rows and
-at count 0), the step captured as a CUDA graph against the eager step on
+rescue's two kernels against their plain versions at ~5k dropped rows, at
+64, 512 and 2,048 of them, at count 0 and at the flagship forced past its
+budget, each timed beside two bounds: the cell-list walk's work and the
+all-pairs sweep's), the step captured as a CUDA graph against the eager step on
 both flagship scenes ([capture]: bit for bit over ``reference-cube``'s
 rescue-firing steps 100-200 and over 50 settled steps of each, the eager
 step under ``torch.cuda.set_sync_debug_mode("error")``, launches a replay,
@@ -97,6 +99,10 @@ FRONT_PATHS = ("cli run dam-break-2d-4k", "cli run reference-cube",
                "cli resume", "cli bench", "profile", "live",
                "viewer moving-container-256k", "viewer dam-break-2d-4k",
                "bench")
+
+# The rescue budgets of the [rescue] count sweep: the cap-8 state's list
+# cut to its first 64, 512 and 2,048 rows.
+RESCUE_SWEEP = (64, 512, 2048)
 
 # The kernels every single-device step launches once.
 STEP_KERNELS = ("sph_density", "sph_force", "sph_rescue_density",
@@ -293,8 +299,8 @@ def kernel_inputs(cfg, params, state):
     from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
     cfg = cfg.resolved()
     coeffs = KernelCoeffs.from_radius(params.smoothing_radius, cfg.dim)
-    planes, counts, flat, _, _, overflow = sb._build_core(
-        state.predicted, state.vel, params, cfg, time=state.time)
+    planes, counts, flat = sb._build_core(
+        state.predicted, state.vel, params, cfg, time=state.time)[:3]
     return planes, counts, flat, sb._param_vector(params, coeffs), cfg
 
 
@@ -464,94 +470,45 @@ def phase_rescue(state100, record) -> None:
                 for f in ("density", "near_density", "acc", "vel", "pos"))
     log(f"[rescue] kernel path vs plain path: max_abs_err={worst:.3e}")
     rescue_kernels("reference-cube cap 8 step 100", cfg, params, state100,
-                   record)
+                   record, sweep=RESCUE_SWEEP)
 
 
-def rescue_kernels(label, cfg, params, state, record) -> None:
-    """R1 and R2 (csrc/sph_rescue.cu) against density_plain and
-    force_plain at the sorted step's inputs of ``state``: K1's planes, the
-    gathered densities, the rescue selection; R2 on R1's output and K2's
-    accelerations."""
-    from water_sandbox_tpu_torch.core.params import KernelCoeffs
-    from water_sandbox_tpu_torch.ops import rescue as rescue_mod
+def rescue_bounds(pred, scol, rows, dropped, h, cfg):
+    """Both bounds of R1 and R2 at one rescue selection, from this run's
+    inputs: (sweep, walk, facts). ``rows``: the rescued rows, which on the
+    sorted step are their positions.
+
+    sweep: the all-pairs sweep's work, the yardstick of the kernels before
+    the cell list: count x n distance tests (3*dim - 1 flops each), the
+    pairs within h on both sides; bytes: every row's fields once. walk: the
+    cell list's work: the candidate rows of the rescued rows' clamped
+    3^dim neighbourhoods, tested once a side, and the same pairs within h;
+    bytes: the rows in those neighbourhoods, each read once (and, for the
+    residents among them, their outputs written once), the rescued list,
+    the rescued rows' outputs."""
     from water_sandbox_tpu_torch.ops.cuda import rescue as rk
-    from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
-    cfg = cfg.resolved()
-    dim, n = cfg.dim, state.n
-    coeffs = KernelCoeffs.from_radius(params.smoothing_radius, dim)
-    pv = sb._param_vector(params, coeffs)
-    planes, counts, flat, _, srows, overflow = sb._build_core(
-        state.predicted, state.vel, params, cfg, time=state.time)
-    pred = srows[:, :dim].contiguous()
-    vel = srows[:, dim:2 * dim].contiguous()
-    PL = sb._cap_pad(cfg.cell_capacity) * sb._geometry(cfg).L
-    dropped = flat == PL
-    dens = sb.run_density(planes, counts, flat, pv, cfg)
-    den, nden = sb.gather_density(dens, flat, dropped, params)
-    sel, slot, count = rescue_mod.rescue_selection(
-        dropped, overflow, min(cfg.rescue_capacity, n))
-    k = int(count)
-    zero = torch.zeros_like(count)
-    occ = flat[flat < PL].long()
-
-    def r1(out, c=count):
-        rk.rescue_density(pred, sel, slot, c, flat, *out, params, coeffs,
-                          pv, cfg)
-
-    def r1_plain(out):
-        rk.density_plain(pred, sel, slot, count, flat, *out, params, coeffs,
-                         cfg)
-
-    fresh = lambda: (den.clone(), nden.clone(), dens.clone())  # noqa: E731
-    got, again, want = fresh(), fresh(), fresh()
-    r1(got)
-    r1(again)
-    r1_plain(want)
-    torch.cuda.synchronize()
-    check(all(same_bits(a, b) for a, b in zip(got, again)),
-          f"{label}: two launches of R1 differ")
-    err_d = max(hold(f"{label} R1 {name}", g.cpu().numpy(), w.cpu().numpy())
-                for name, g, w in zip(("den", "nden"), got, want))
-    err_d = max(err_d, compare_planes(f"{label} R1 planes", got[2], want[2],
-                                      occ))
-    out_c = sb.run_force(planes, got[2], counts, flat, pv, cfg)
-    safe = torch.clamp_max(flat, PL - 1).long()
-    acc = torch.where(dropped, 0.0, out_c[2:].reshape(dim, -1)[:, safe]
-                      ).T.contiguous()
-    d, nd = got[0], got[1]
-    prs = params.pressure_scalar * (d - params.target_density)
-    nprs = params.near_pressure_scalar * nd
-
-    def r2(a, c=count):
-        rk.rescue_force(pred, vel, d, nd, prs, nprs, sel, slot, c, a, params,
-                        coeffs, pv, cfg)
-
-    a_k, a_again, a_p = acc.clone(), acc.clone(), acc.clone()
-    r2(a_k)
-    r2(a_again)
-    rk.force_plain(pred, vel, d, nd, prs, nprs, sel, slot, count, a_p,
-                   params, coeffs, cfg)
-    torch.cuda.synchronize()
-    check(same_bits(a_k, a_again), f"{label}: two launches of R2 differ")
-    err_f = hold(f"{label} R2 acc", a_k.cpu().numpy(), a_p.cpu().numpy())
-
-    zd, za = fresh(), acc.clone()
-    r1(zd, zero)
-    rk.rescue_force(pred, vel, den, nden, prs, nprs, sel, slot, zero, za,
-                    params, coeffs, pv, cfg)
-    torch.cuda.synchronize()
-    check(all(same_bits(a, b) for a, b in zip(zd, (den, nden, dens)))
-          and same_bits(za, acc),
-          f"{label}: count 0 changed den, nden, the planes or acc")
-
-    # pairs within h between a rescued row and any row (self included)
-    rows = pred[sel[:k].long()]
+    n, dim = pred.shape
+    k = rows.numel()
     p_h = sum(int((torch.cdist(
-        rows[i:i + 256], pred, compute_mode="donot_use_mm_for_euclid_dist")
-        <= params.smoothing_radius).sum()) for i in range(0, k, 256))
-    tests = k * n * (3 * dim - 1)          # the sweep's distance tests
-    residents = int((~dropped).sum())
-    bounds = {
+        pred[rows[i:i + 256]], pred,
+        compute_mode="donot_use_mm_for_euclid_dist") <= h).sum())
+        for i in range(0, k, 256))
+    lo, hi = rk.neighbour_runs(scol[rows], cfg)
+    s64 = scol.long()
+    valid = lo <= hi
+    b = torch.where(valid, torch.searchsorted(s64, lo), 0).reshape(-1)
+    e = torch.where(valid, torch.searchsorted(s64, hi + 1), 0).reshape(-1)
+    cand = int((e - b).sum())
+    delta = torch.zeros(n + 1, dtype=torch.int64, device=pred.device)
+    delta.index_add_(0, b, torch.ones_like(b))
+    delta.index_add_(0, e, -torch.ones_like(e))
+    covered = torch.cumsum(delta, 0)[:n] > 0
+    u = int(covered.sum())
+    u_res = int((covered & ~dropped).sum())
+    tests = k * n * (3 * dim - 1)
+    walk_tests = 2 * cand * (3 * dim - 1)
+    residents = n - int(dropped.sum())
+    sweep = {
         # 7 flops a pair within h a side; reads pred, slot, den, nden, sel
         # and the residents' addresses, writes den, nden and 6 planes a
         # resident
@@ -564,32 +521,173 @@ def rescue_kernels(label, cfg, params, state, record) -> None:
             tests + 2 * (20 + 5 * dim) * p_h,
             n * (8 * dim + 20) + 4 * k + n * 4 * dim * 2),
     }
-    scratch_d, scratch_a = fresh(), acc.clone()
-    runs = {
-        "sph_rescue_density": (err_d, lambda c=count: r1(scratch_d, c),
-                               lambda: r1_plain(fresh())),
-        "sph_rescue_force": (err_f, lambda c=count: r2(scratch_a, c),
-                             lambda: rk.force_plain(
-                                 pred, vel, d, nd, prs, nprs, sel, slot,
-                                 count, acc.clone(), params, coeffs, cfg)),
+    walk = {
+        # a neighbourhood row: pred, slot, its column; a resident among
+        # them: addr, den, nden read, den, nden and 6 planes written; a
+        # rescued row: its list entry, den and nden written
+        "sph_rescue_density": bound(
+            walk_tests + 2 * 7 * p_h,
+            u * (4 * dim + 8) + u_res * (4 + 8 + 8 + 24) + k * (4 + 8)),
+        # a neighbourhood row: pred, vel, den, nden, prs, nprs, slot, its
+        # column; a resident among them: acc read and written; a rescued
+        # row: its list entry, acc written
+        "sph_rescue_force": bound(
+            walk_tests + 2 * (20 + 5 * dim) * p_h,
+            u * (8 * dim + 24) + u_res * 8 * dim + k * (4 + 4 * dim)),
     }
-    for name, (err, launch, plain) in runs.items():
-        kernel = name.replace("sph_", "") + "_kernel"
-        rec = dict(max_abs_err=err, ms=cuda_ms(launch),
-                   device_ms=device_ms(launch, kernel),
-                   ms_count0=cuda_ms(lambda: launch(zero)),
-                   device_ms_count0=device_ms(lambda: launch(zero), kernel),
-                   plain_ms=cuda_ms(plain, reps=5), library_ms=None)
-        rec["bound_ms"], rec["bound_by"] = bounds[name]
-        record.setdefault(name, {})[label] = rec
-        log(f"[rescue] {label}: {name} at count {k} of {int(overflow)} "
-            f"dropped: max_abs_err={err:.3e} kernel_ms={rec['ms']:.4f} "
-            f"device_ms={fmt(rec['device_ms'])} plain_ms="
-            f"{rec['plain_ms']:.4f} bound_ms={rec['bound_ms']:.3e} "
-            f"({rec['bound_by']}) library_ms=none; at count 0: kernel_ms="
-            f"{rec['ms_count0']:.4f} device_ms="
-            f"{fmt(rec['device_ms_count0'])} (n {n}, pairs within h of a "
-            f"rescued row {p_h}, distance tests {tests})")
+    facts = dict(p_h=p_h, tests=tests, cand=cand, walk_rows=u)
+    return sweep, walk, facts
+
+
+def rescue_kernels(label, cfg, params, state, record, sweep=()) -> None:
+    """R1 and R2 (csrc/sph_rescue.cu) against density_plain and
+    force_plain at the sorted step's inputs of ``state``: K1's planes, the
+    gathered densities, the rescue selection and its walk; R2 on R1's
+    output and K2's accelerations. At the state's own budget, then at each
+    budget of ``sweep`` on the same state (the first rows of the same
+    list): held against the plain versions, two launches bit-identical,
+    timed beside both bounds (rescue_bounds). At the state's budget also
+    count 0 (den, nden, the planes and acc bit-untouched, and timed)."""
+    from water_sandbox_tpu_torch.core.params import KernelCoeffs
+    from water_sandbox_tpu_torch.ops import rescue as rescue_mod
+    from water_sandbox_tpu_torch.ops.cuda import rescue as rk
+    from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
+    cfg = cfg.resolved()
+    dim, n = cfg.dim, state.n
+    coeffs = KernelCoeffs.from_radius(params.smoothing_radius, dim)
+    pv = sb._param_vector(params, coeffs)
+    planes, counts, flat, _, srows, overflow, scol = sb._build_core(
+        state.predicted, state.vel, params, cfg, time=state.time)
+    pred = srows[:, :dim].contiguous()
+    vel = srows[:, dim:2 * dim].contiguous()
+    PL = sb._cap_pad(cfg.cell_capacity) * sb._geometry(cfg).L
+    dropped = flat == PL
+    dens = sb.run_density(planes, counts, flat, pv, cfg)
+    den, nden = sb.gather_density(dens, flat, dropped, params)
+    zero = torch.zeros((), dtype=torch.int32, device=flat.device)
+    occ = flat[flat < PL].long()
+    fresh = lambda: (den.clone(), nden.clone(), dens.clone())  # noqa: E731
+    safe = torch.clamp_max(flat, PL - 1).long()
+
+    for cap in (min(cfg.rescue_capacity, n),) + tuple(sweep):
+        sel, slot, count = rescue_mod.rescue_selection(dropped, overflow,
+                                                       cap)
+        walk = rk.cell_walk(sel, count, scol)
+        k = int(count)
+        at = label if cap == min(cfg.rescue_capacity, n) else (
+            f"{label} count {k}")
+
+        def r1(out, c=count):
+            rk.rescue_density(pred, sel, slot, c, flat, *out, params,
+                              coeffs, pv, cfg, walk)
+
+        def r1_plain(out):
+            rk.density_plain(pred, sel, slot, count, flat, *out, params,
+                             coeffs, cfg)
+
+        got, again, want = fresh(), fresh(), fresh()
+        r1(got)
+        r1(again)
+        r1_plain(want)
+        torch.cuda.synchronize()
+        check(all(same_bits(a, b) for a, b in zip(got, again)),
+              f"{at}: two launches of R1 differ")
+        err_d = max(hold(f"{at} R1 {name}", g.cpu().numpy(),
+                         w.cpu().numpy())
+                    for name, g, w in zip(("den", "nden"), got, want))
+        err_d = max(err_d, compare_planes(f"{at} R1 planes", got[2],
+                                          want[2], occ))
+        # R2 on R1's densities and the force pass over its planes
+        acc = torch.where(dropped[:, None], 0.0, sb.run_force(
+            planes, got[2], counts, flat, pv, cfg)[2:].reshape(dim, -1)[
+            :, safe].T).contiguous()
+        d, nd = got[0], got[1]
+        prs = params.pressure_scalar * (d - params.target_density)
+        nprs = params.near_pressure_scalar * nd
+
+        def r2(a, c=count):
+            rk.rescue_force(pred, vel, d, nd, prs, nprs, sel, slot, c, a,
+                            params, coeffs, pv, cfg, walk)
+
+        a_k, a_again, a_p = acc.clone(), acc.clone(), acc.clone()
+        r2(a_k)
+        r2(a_again)
+        rk.force_plain(pred, vel, d, nd, prs, nprs, sel, slot, count, a_p,
+                       params, coeffs, cfg)
+        torch.cuda.synchronize()
+        check(same_bits(a_k, a_again), f"{at}: two launches of R2 differ")
+        err_f = hold(f"{at} R2 acc", a_k.cpu().numpy(), a_p.cpu().numpy())
+
+        if at == label:
+            zd, za = fresh(), acc.clone()
+            r1(zd, zero)
+            rk.rescue_force(pred, vel, den, nden, prs, nprs, sel, slot,
+                            zero, za, params, coeffs, pv, cfg, walk)
+            torch.cuda.synchronize()
+            check(all(same_bits(a, b) for a, b in zip(zd, (den, nden, dens)))
+                  and same_bits(za, acc),
+                  f"{at}: count 0 changed den, nden, the planes or acc")
+
+        bsweep, bwalk, facts = rescue_bounds(
+            pred, scol, sel[:k].long(), dropped,
+            float(params.smoothing_radius), cfg)
+        scratch_d, scratch_a = fresh(), acc.clone()
+        runs = {
+            "sph_rescue_density": (err_d, lambda c=count: r1(scratch_d, c),
+                                   lambda: r1_plain(fresh())),
+            "sph_rescue_force": (err_f, lambda c=count: r2(scratch_a, c),
+                                 lambda: rk.force_plain(
+                                     pred, vel, d, nd, prs, nprs, sel, slot,
+                                     count, acc.clone(), params, coeffs,
+                                     cfg)),
+        }
+        for name, (err, launch, plain) in runs.items():
+            kernel = name.replace("sph_", "") + "_kernel"
+            rec = dict(max_abs_err=err, ms=cuda_ms(launch),
+                       device_ms=device_ms(launch, kernel),
+                       plain_ms=cuda_ms(plain, reps=5), library_ms=None,
+                       count=k, **facts)
+            if at == label:
+                rec.update(ms_count0=cuda_ms(lambda: launch(zero)),
+                           device_ms_count0=device_ms(lambda: launch(zero),
+                                                      kernel))
+            rec["bound_ms"], rec["bound_by"] = bwalk[name]
+            rec["sweep_bound_ms"], rec["sweep_bound_by"] = bsweep[name]
+            record.setdefault(name, {})[at] = rec
+            zero_part = (
+                f"; at count 0: kernel_ms={rec['ms_count0']:.4f} device_ms="
+                f"{fmt(rec['device_ms_count0'])}" if at == label else "")
+            log(f"[rescue] {at}: {name} at count {k} of {int(overflow)} "
+                f"dropped: max_abs_err={err:.3e} kernel_ms={rec['ms']:.4f} "
+                f"device_ms={fmt(rec['device_ms'])} plain_ms="
+                f"{rec['plain_ms']:.4f} bound_ms={rec['bound_ms']:.3e} "
+                f"({rec['bound_by']}; cell list: {facts['cand']} candidate "
+                f"rows, {facts['walk_rows']} rows in the neighbourhoods) "
+                f"sweep_bound_ms={rec['sweep_bound_ms']:.3e} "
+                f"({rec['sweep_bound_by']}; {facts['tests']} distance-test "
+                f"flops) library_ms=none{zero_part} (n {n}, pairs within h "
+                f"of a rescued row {facts['p_h']})")
+
+
+def phase_rescue_flagship(cfg, params, state, record) -> None:
+    """The flagship past its own rescue budget (16,384): the highest cell
+    capacity below the scene's that overflows more rows than the budget,
+    then R1 and R2 held against their plain versions there and timed
+    (rescue_kernels: count == budget, beyond-budget rows excluded)."""
+    import dataclasses
+    from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
+    for cap in (8, 6, 4, 3, 2):
+        c = dataclasses.replace(cfg, cell_capacity=cap)
+        raw = int(sb._build_core(state.predicted, state.vel, params,
+                                 c.resolved(), time=state.time)[5])
+        if raw > cfg.rescue_capacity:
+            break
+    log(f"[rescue] moving-container-256k step 10 at cell capacity {cap}: "
+        f"{raw} rows overflow, budget {cfg.rescue_capacity}")
+    check(raw > cfg.rescue_capacity,
+          "the flagship must overflow past its budget")
+    rescue_kernels(f"moving-container-256k cap {cap} step 10", c, params,
+                   state, record)
 
 
 def phase_golden():
@@ -656,14 +754,14 @@ def plain_rescue():
     saved = rk.rescue_density, rk.rescue_force
 
     def density(predicted, sel, slot, count, addr, den, nden, dens, params,
-                coeffs, params_vec, cfg):
+                coeffs, params_vec, cfg, walk):
         k = int(count)
         if k:
             rk.density_plain(predicted, sel[:k], slot, count, addr, den,
                              nden, dens, params, coeffs, cfg)
 
     def force(predicted, vel, den, nden, prs, nprs, sel, slot, count, acc,
-              params, coeffs, params_vec, cfg):
+              params, coeffs, params_vec, cfg, walk):
         k = int(count)
         if k:
             rk.force_plain(predicted, vel, den, nden, prs, nprs, sel[:k],
@@ -2013,12 +2111,13 @@ def phase_bench(paths: dict) -> None:
 
 
 # reference-cube steps 100-200 through Simulation.run(1), each step synced
-# (the landing cube, where the rescue fires): only what every tree's port
-# has, so it runs in an older checkout too
+# (the landing cube, where the rescue fires), at the scene's settings
+# updated by the JSON of argv[1]: only what every tree's port has, so it
+# runs in an older checkout too
 TRANSIENT = """
-import json, statistics, time
+import json, statistics, sys, time
 import water_sandbox_tpu_torch as wst
-sim = wst.Simulation.from_scene("reference-cube")
+sim = wst.Simulation.from_scene("reference-cube", **json.loads(sys.argv[1]))
 sim.run(100)
 t = []
 for _ in range(100):
@@ -2029,13 +2128,75 @@ print(json.dumps({"mean": statistics.mean(t), "median": statistics.median(t),
                   "max": max(t)}))
 """
 
+# R1 and R2 in one tree, through the public step only (so it runs in an
+# older checkout too): reference-cube at step 100 stepped once at cell
+# capacity 8 (its outputs saved to the npz of argv[1]) and timed by the
+# profiler at the budgets of COMPARE_BUDGETS and at count 0; the flagship
+# at step 10 past its own budget, at the highest cell capacity of 8, 6, 4,
+# 3, 2 that leaves rows unrescued (outputs saved to argv[1] too). Prints
+# {label: {kernel: device ms a step}}.
+COMPARE_BUDGETS = (8192,) + RESCUE_SWEEP
+RESCUE = """
+import json, sys
+import numpy as np, torch
+from torch.profiler import ProfilerActivity, profile
+import water_sandbox_tpu_torch as wst
+NAMES = ("rescue_density_kernel", "rescue_force_kernel")
+FIELDS = ("pos", "vel", "predicted", "acc", "density", "near_density",
+          "ids", "overflow")
+
+def kernel_ms(fn, reps=20):
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = {k: sum((getattr(e, "device_time_total", None)
+                  or getattr(e, "cuda_time_total", 0.0))
+                 for e in prof.key_averages() if k in e.key) for k in NAMES}
+    return {k: v / reps / 1e3 if v > 0 else None for k, v in us.items()}
+
+saved, res = {}, {}
+cfg, params, state = wst.scenes.build("reference-cube")
+state100 = wst.rollout(state, params, cfg, 100)
+for budget in %s + (None,):
+    kw = (dict(cell_capacity=8, rescue_capacity=budget) if budget
+          else dict(cell_capacity=64))
+    c, p, _ = wst.scenes.build("reference-cube", **kw)
+    s = wst.step(state100, p, c)
+    label = f"budget {budget}" if budget else "count 0"
+    if budget == 8192:
+        saved.update({"cube_" + f: getattr(s, f).cpu().numpy()
+                      for f in FIELDS})
+    res[label] = kernel_ms(lambda: wst.step(state100, p, c))
+    res[label]["unrescued"] = int(s.overflow)
+cfg, params, state = wst.scenes.build("moving-container-256k")
+state10 = wst.rollout(state, params, cfg, 10)
+for cap in (8, 6, 4, 3, 2):
+    c, p, _ = wst.scenes.build("moving-container-256k", cell_capacity=cap)
+    s = wst.step(state10, p, c)
+    if int(s.overflow) > 0:
+        break
+saved.update({"flagship_" + f: getattr(s, f).cpu().numpy() for f in FIELDS})
+res["flagship"] = kernel_ms(lambda: wst.step(state10, p, c), reps=5)
+res["flagship"].update(unrescued=int(s.overflow), cell_capacity=cap)
+np.savez(sys.argv[1], **saved)
+print(json.dumps(res))
+""" % (COMPARE_BUDGETS,)
+
 
 def compare(other: Path) -> int:
     """``--compare DIR``: this tree against the checkout in DIR (an older
     commit unpacked with ``git archive``) on one card, in the order DIR,
-    this tree, this tree, DIR: ``python -m water_sandbox_tpu_torch.bench``
-    and ``reference-cube`` steps 100-200 (TRANSIENT) in each, as
-    subprocesses started in the tree they measure."""
+    this tree, this tree, DIR, each as subprocesses started in the tree
+    they measure: ``python -m water_sandbox_tpu_torch.bench``,
+    ``reference-cube`` steps 100-200 (TRANSIENT) at the scene's cell
+    capacity and at 8 (the rescue on every step), and R1/R2's device time
+    a step (RESCUE) at cell capacity 8 and the budgets of COMPARE_BUDGETS,
+    at count 0 and at the flagship past its budget. Checks that the
+    sorted step's rescue at cell capacity 8 gives the same bits in every
+    run; reports whether the flagship's does."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2047,11 +2208,18 @@ def compare(other: Path) -> int:
     other = other.resolve()
     check((other / "water_sandbox_tpu_torch").is_dir(),
           f"--compare {other}: no port there")
-    for label, tree in (("parent", other), ("change", ROOT),
-                        ("change", ROOT), ("parent", other)):
+    FRONT_OUT.mkdir(parents=True, exist_ok=True)
+    cap8 = json.dumps({"cell_capacity": 8, "rescue_capacity": 8192})
+    outs = []
+    for i, (label, tree) in enumerate((("parent", other), ("change", ROOT),
+                                       ("change", ROOT), ("parent", other))):
         runs = {}
-        for name, argv in (("bench", ["-m", "water_sandbox_tpu_torch.bench"]),
-                           ("steps 100-200", ["-c", TRANSIENT])):
+        npz = FRONT_OUT / f"compare_{i}_{label}.npz"
+        for name, argv in (
+                ("bench", ["-m", "water_sandbox_tpu_torch.bench"]),
+                ("steps 100-200", ["-c", TRANSIENT, "{}"]),
+                ("steps 100-200 cap 8", ["-c", TRANSIENT, cap8]),
+                ("rescue", ["-c", RESCUE, str(npz)])):
             out = subprocess.run([sys.executable, *argv], cwd=tree,
                                  capture_output=True, text=True,
                                  env=_front_env(), timeout=900)
@@ -2060,13 +2228,41 @@ def compare(other: Path) -> int:
             check(out.returncode == 0,
                   f"--compare {label} {name}: exit {out.returncode}")
             runs[name] = json.loads(out.stdout.strip().splitlines()[-1])
-        b, t = runs["bench"], runs["steps 100-200"]
+        b = runs["bench"]
         log(f"[compare] {label} ({tree}): bench settle600+best3x50 flagship "
             f"{b['ms_per_step']} ms/step, reference-cube "
             f"{b['reference_scene_ms_per_step']}, step "
-            f"{b['config'].get('step')}; reference-cube steps 100-200, host "
-            f"clock a synced step: mean {t['mean']:.4f} median "
-            f"{t['median']:.4f} max {t['max']:.4f} ms/step")
+            f"{b['config'].get('step')}")
+        for name in ("steps 100-200", "steps 100-200 cap 8"):
+            t = runs[name]
+            log(f"[compare] {label}: reference-cube {name}, host clock a "
+                f"synced step: mean {t['mean']:.4f} median "
+                f"{t['median']:.4f} max {t['max']:.4f} ms/step")
+        for at, r in runs["rescue"].items():
+            where = (f"moving-container-256k step 10 cell capacity "
+                     f"{r['cell_capacity']}" if at == "flagship" else
+                     f"reference-cube step 100 cell capacity 8 {at}")
+            log(f"[compare] {label}: R1/R2 device ms a step at {where}: R1 "
+                f"{fmt(r['rescue_density_kernel'])} R2 "
+                f"{fmt(r['rescue_force_kernel'])} (unrescued "
+                f"{r['unrescued']})")
+        outs.append((label, np.load(npz)))
+    base_label, base = outs[0]
+    for label, got in outs[1:]:
+        for scene in ("cube", "flagship"):
+            keys = [k for k in base.files if k.startswith(scene + "_")]
+            same = all(base[k].dtype == got[k].dtype
+                       and base[k].tobytes() == got[k].tobytes()
+                       for k in keys)
+            worst = max(float(np.abs(base[k].astype(np.float64)
+                                     - got[k].astype(np.float64)).max())
+                        for k in keys)
+            log(f"[compare] {label} against the first {base_label}: "
+                f"{scene} rescue step {'bit for bit' if same else 'differs'}"
+                f" (max |diff| {worst:.3e})")
+            if scene == "cube":
+                check(same, f"--compare: {label}'s rescue step at cell "
+                      "capacity 8 differs from the first parent run")
     log(smi)
     return 0
 
@@ -2114,9 +2310,10 @@ def main() -> int:
     # the flagship's gz = 58 window
     cfg3, params3, state3 = wst.scenes.build("moving-container-256k",
                                              device="cuda")
-    kernels_vs_plain("moving-container-256k step 10", cfg3, params3,
-                     wst.rollout(state3, params3, cfg3, 10), record,
-                     crossing=True)
+    state3 = wst.rollout(state3, params3, cfg3, 10)
+    kernels_vs_plain("moving-container-256k step 10", cfg3, params3, state3,
+                     record, crossing=True)
+    phase_rescue_flagship(cfg3, params3, state3, record)
     del state3
 
     # 4. exact rescue on the card, its kernels against their plain versions
@@ -2179,6 +2376,8 @@ def main() -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec.get("library_ms"),
+            **({"sweep_bound_ms": rec["sweep_bound_ms"]}
+               if "sweep_bound_ms" in rec else {}),
             "device_ms": rec["device_ms"], "at": meta["at"],
             "launches_per_step": per_step})
         log(f"[kernels] {name}: launches_per_step {per_step}, at "

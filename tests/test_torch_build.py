@@ -91,12 +91,13 @@ def test_stable_sort_ties_follow_row_order():
     cfg = SimConfig(n=6, dim=3, grid_dims=(8, 8, 8), cell_capacity=8)
     pred = torch.full((6, 3), 0.01) + torch.arange(6)[:, None] * 1e-4
     pred = pred.flip(0).contiguous()
-    planes, counts, flat, order, srows, ovf = sb._build_core(
+    planes, counts, flat, order, srows, ovf, scol = sb._build_core(
         pred, torch.zeros_like(pred), params, cfg)
     assert order.tolist() == list(range(6))
     L = sb._geometry(cfg).L
     assert (flat // L).tolist() == list(range(6))
     assert int(counts.max()) == 6 and int(ovf) == 0
+    assert scol.tolist() == [int(scol[0])] * 6    # one cell
 
 
 @pytest.mark.parametrize("kw", [

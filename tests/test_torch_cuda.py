@@ -353,6 +353,7 @@ def _crowded_rescue(device, dim):
     with its density planes, gathered densities and rescue selection, on
     ``device``."""
     from water_sandbox_tpu_torch.ops import rescue
+    from water_sandbox_tpu_torch.ops.cuda import rescue as rk
     rng = np.random.default_rng(11)
     pred = ((rng.random((3000, dim)) - 0.5) * 2.0).astype(np.float32)
     vel = rng.standard_normal((3000, dim)).astype(np.float32)
@@ -362,17 +363,19 @@ def _crowded_rescue(device, dim):
                     cell_capacity=4, rescue_capacity=512, chunk=512)
     p, v = (torch.from_numpy(pred).to(device),
             torch.from_numpy(vel).to(device))
-    planes, counts, addr, overflow = sb._build_slab_buckets(p, v, params,
-                                                            cfg)
+    planes, counts, flat, order, _, overflow, scol = sb._build_core(
+        p, v, params, cfg)
+    addr = sb._particle_addr(flat, order)
     dropped = addr == sb._cap_pad(cfg.cell_capacity) * sb._geometry(cfg).L
     pv = sb._param_vector(params, coeffs)
     dens = sb.density_plain(planes, counts, addr, pv, cfg)
     den, nden = sb.gather_density(dens, addr, dropped, params)
     sel, slot, count = rescue.rescue_selection(dropped, overflow, 512)
+    walk = rk.cell_walk(sel, count, scol, order)
     acc = torch.from_numpy(rng.standard_normal((3000, dim)).astype(
         np.float32)).to(device)
     return (p, v, params, coeffs, cfg, addr, pv, dens, den, nden, sel, slot,
-            count, acc, overflow)
+            count, acc, overflow, walk)
 
 
 @pytest.mark.parametrize("dim", [2, 3])
@@ -383,13 +386,16 @@ def test_rescue_kernels_match_plain(cuda_device, dim):
     den, nden, the density planes and acc bit-untouched."""
     from water_sandbox_tpu_torch.ops.cuda import rescue as rk
     (p, v, params, coeffs, cfg, addr, pv, dens, den, nden, sel, slot, count,
-     acc, overflow) = _crowded_rescue(cuda_device, dim)
+     acc, overflow, walk) = _crowded_rescue(cuda_device, dim)
     assert int(overflow) > 512
     outs = []
     for run in (rk.rescue_density, rk.density_plain, rk.rescue_density):
         d, nd, ds = den.clone(), nden.clone(), dens.clone()
         args = (p, sel, slot, count, addr, d, nd, ds, params, coeffs)
-        run(*args, pv, cfg) if run is rk.rescue_density else run(*args, cfg)
+        if run is rk.rescue_density:
+            run(*args, pv, cfg, walk)
+        else:
+            run(*args, cfg)
         outs.append((d, nd, ds))
     torch.cuda.synchronize()
     occ = addr[addr < dens[0].numel()].long()
@@ -405,7 +411,7 @@ def test_rescue_kernels_match_plain(cuda_device, dim):
     got, want = acc.clone(), acc.clone()
     rk.reset_launches()
     rk.rescue_force(p, v, d, nd, prs, nprs, sel, slot, count, got, params,
-                    coeffs, pv, cfg)
+                    coeffs, pv, cfg, walk)
     rk.force_plain(p, v, d, nd, prs, nprs, sel, slot, count, want, params,
                    coeffs, cfg)
     torch.cuda.synchronize()
@@ -415,9 +421,105 @@ def test_rescue_kernels_match_plain(cuda_device, dim):
     zero = torch.zeros_like(count)
     d, nd, ds, a = den.clone(), nden.clone(), dens.clone(), acc.clone()
     rk.rescue_density(p, sel, slot, zero, addr, d, nd, ds, params, coeffs,
-                      pv, cfg)
+                      pv, cfg, walk)
     rk.rescue_force(p, v, d, nd, prs, nprs, sel, slot, zero, a, params,
-                    coeffs, pv, cfg)
+                    coeffs, pv, cfg, walk)
+    torch.cuda.synchronize()
+    for x, y in ((d, den), (nd, nden), (ds, dens), (a, acc)):
+        assert _same_bits(x, y)
+
+
+def _edge_rescue(device, dim, rows, budget):
+    """A cloud that overflows its grid on every side (the anchor inside it,
+    the grid ending before it; in 3-D gy·gz == S_pad, where an unclamped
+    y ± 1 would alias into the next slab) at cell capacity 4, with its
+    rescue inputs in ``rows`` order ("sorted": the build's order, the
+    sorted step's; "particle": bucket_sph's) and a rescue budget of
+    ``budget`` rows ("all": the whole overflow, count == cap)."""
+    from water_sandbox_tpu_torch.ops import rescue
+    from water_sandbox_tpu_torch.ops.cuda import rescue as rk
+    rng = np.random.default_rng(23)
+    box, grid, n = (((1.6, 2.6, 7.5), (6, 8, 32), 6000) if dim == 3
+                    else ((2.6, 3.0), (8, 10), 3000))
+    pred = (rng.random((n, dim)) * np.asarray(box, np.float32)).astype(
+        np.float32)
+    params = wt.SimParams.create(dim=dim, device=device)
+    coeffs = KernelCoeffs.from_radius(params.smoothing_radius, dim)
+    cfg = SimConfig(n=n, dim=dim, grid_dims=grid, cell_capacity=4,
+                    rescue_capacity=n)
+    p = torch.from_numpy(pred).to(device)
+    v = torch.from_numpy(rng.standard_normal((n, dim)).astype(
+        np.float32)).to(device)
+    origin = torch.full((dim,), 0.3, device=device)
+    planes, counts, flat, order, srows, overflow, scol = sb._build_core(
+        p, v, params, cfg, origin=origin)
+    if rows == "sorted":
+        p, v = srows[:, :dim].contiguous(), srows[:, dim:].contiguous()
+        addr, order = flat, None
+    else:
+        addr = sb._particle_addr(flat, order)
+    dropped = addr == sb._cap_pad(cfg.cell_capacity) * sb._geometry(cfg).L
+    pv = sb._param_vector(params, coeffs)
+    dens = sb.density_plain(planes, counts, addr, pv, cfg)
+    den, nden = sb.gather_density(dens, addr, dropped, params)
+    cap = int(overflow) if budget == "all" else budget
+    sel, slot, count = rescue.rescue_selection(dropped, overflow, cap)
+    assert int(count) == cap
+    walk = rk.cell_walk(sel, count, scol, order)
+    acc = torch.from_numpy(rng.standard_normal((n, dim)).astype(
+        np.float32)).to(device)
+    return (p, v, params, coeffs, cfg, addr, pv, dens, den, nden, sel, slot,
+            count, acc, walk)
+
+
+@pytest.mark.parametrize("budget", [1, 300, "all"])
+@pytest.mark.parametrize("rows", ["sorted", "particle"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_rescue_walk_matches_plain(cuda_device, dim, rows, budget):
+    """The cell-list walk of R1 and R2 against their all-pairs plain
+    versions with keys clamped at every edge of the grid, on the sorted
+    step's rows and in particle order, at 1 rescued row, 300, and the whole
+    overflow (count == cap); two launches give the same bits, and count 0
+    leaves den, nden, the density planes and acc bit-untouched."""
+    from water_sandbox_tpu_torch.ops.cuda import rescue as rk
+    (p, v, params, coeffs, cfg, addr, pv, dens, den, nden, sel, slot, count,
+     acc, walk) = _edge_rescue(cuda_device, dim, rows, budget)
+    outs = []
+    for run in (rk.rescue_density, rk.rescue_density, rk.density_plain):
+        d, nd, ds = den.clone(), nden.clone(), dens.clone()
+        args = (p, sel, slot, count, addr, d, nd, ds, params, coeffs)
+        if run is rk.rescue_density:
+            run(*args, pv, cfg, walk)
+        else:
+            run(*args, cfg)
+        outs.append((d, nd, ds))
+    torch.cuda.synchronize()
+    occ = addr[addr < dens[0].numel()].long()
+    for a, b in zip(outs[0], outs[1]):
+        assert _same_bits(a, b)
+    for a, b in zip(outs[0][:2], outs[2][:2]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **TOL)
+    np.testing.assert_allclose(_at(outs[0][2], occ), _at(outs[2][2], occ),
+                               **TOL)
+    d, nd, _ = outs[2]
+    prs = params.pressure_scalar * (d - params.target_density)
+    nprs = params.near_pressure_scalar * nd
+    got, again, want = acc.clone(), acc.clone(), acc.clone()
+    for a in (got, again):
+        rk.rescue_force(p, v, d, nd, prs, nprs, sel, slot, count, a, params,
+                        coeffs, pv, cfg, walk)
+    rk.force_plain(p, v, d, nd, prs, nprs, sel, slot, count, want, params,
+                   coeffs, cfg)
+    torch.cuda.synchronize()
+    assert _same_bits(got, again)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+
+    zero = torch.zeros_like(count)
+    d, nd, ds, a = den.clone(), nden.clone(), dens.clone(), acc.clone()
+    rk.rescue_density(p, sel, slot, zero, addr, d, nd, ds, params, coeffs,
+                      pv, cfg, walk)
+    rk.rescue_force(p, v, d, nd, prs, nprs, sel, slot, zero, a, params,
+                    coeffs, pv, cfg, walk)
     torch.cuda.synchronize()
     for x, y in ((d, den), (nd, nden), (ds, dens), (a, acc)):
         assert _same_bits(x, y)

@@ -3,7 +3,13 @@
 the rescue kernels, ``ops/cuda/rescue.py``) against the JAX package's
 ``ops/rescue.py`` with its two budget tiers, and one kernel-pipeline step
 that reads nothing on the host. Bar: rtol = atol = 2e-4 (another
-summation order); zero overflow leaves every output bit-identical."""
+summation order); zero overflow leaves every output bit-identical.
+
+Also the invariants the kernels' cell-list walk (csrc/sph_rescue.cu)
+relies on, which the CPU can check though it cannot run the kernels: the
+build's sorted columns, the rescued list in column order on and off the
+sorted path, and every pair within h of a rescued row inside the clamped
+neighbourhood's runs."""
 
 import dataclasses
 
@@ -49,16 +55,19 @@ def crowded():
 
 
 def _inputs(pred, vel, params, cfg):
-    """The rescue's inputs as the step makes them: the build's dropped rows
-    and overflow, the density planes and their gathered den/nden."""
+    """The rescue's inputs as the particle-order step makes them: the
+    build's dropped rows and overflow, the density planes and their
+    gathered den/nden, and the build's sort (sorted columns, order)."""
     coeffs = KernelCoeffs.from_radius(params.smoothing_radius, cfg.dim)
     pv = sb._param_vector(params, coeffs)
-    planes, counts, addr, overflow = sb._build_slab_buckets(
+    planes, counts, flat, order, _, overflow, scol = sb._build_core(
         T(pred), T(vel), params, cfg)
+    addr = sb._particle_addr(flat, order)
     dropped = addr == sb._cap_pad(cfg.cell_capacity) * sb._geometry(cfg).L
     dens = sb.run_density(planes, counts, addr, pv, cfg)
     den, nden = sb.gather_density(dens, addr, dropped, params)
-    return coeffs, pv, addr, dropped, overflow, dens, den, nden
+    return (coeffs, pv, addr, dropped, overflow, dens, den, nden,
+            (scol, order))
 
 
 # (config overrides, the JAX tier the case takes)
@@ -85,7 +94,7 @@ def test_device_count_rescue_matches_jax(crowded, case):
     kw, tier = CASES[case]
     jc = dataclasses.replace(jcfg, **kw)
     cfg = SimConfig(**dataclasses.asdict(jc))
-    coeffs, pv, addr, dropped, overflow, dens, den, nden = _inputs(
+    coeffs, pv, addr, dropped, overflow, dens, den, nden, sort = _inputs(
         pred, vel, params, cfg)
     n_over = int(overflow)
     small = jrescue.small_budget(jc)
@@ -121,12 +130,13 @@ def test_device_count_rescue_matches_jax(crowded, case):
     np.testing.assert_allclose(ta.numpy(), np.asarray(ja), **TOL)
 
     # the wrappers: in place, the same rows, the planes written
+    walk = rescue_k.cell_walk(sel, count, *sort)
     den_w, nden_w, dens_w, acc_w = (den.clone(), nden.clone(), dens.clone(),
                                     T(acc.copy()))
     rescue_k.rescue_density(T(pred), sel, slot, count, addr, den_w, nden_w,
-                            dens_w, params, coeffs, pv, cfg)
+                            dens_w, params, coeffs, pv, cfg, walk)
     rescue_k.rescue_force(T(pred), T(vel), den_w, nden_w, prs, nprs, sel,
-                          slot, count, acc_w, params, coeffs, pv, cfg)
+                          slot, count, acc_w, params, coeffs, pv, cfg, walk)
     assert rescue_k.LAUNCHES == {"sph_rescue_density": 0,
                                  "sph_rescue_force": 0}
     np.testing.assert_array_equal(den_w.numpy(), td[0].numpy())
@@ -155,7 +165,8 @@ def test_selection_is_dropped_selections_set(crowded):
     overflow."""
     pred, vel, _, _, jcfg, params = crowded
     cfg = SimConfig(**dataclasses.asdict(jcfg))
-    _, _, _, dropped, overflow, _, _, _ = _inputs(pred, vel, params, cfg)
+    _, _, _, dropped, overflow, _, _, _, _ = _inputs(pred, vel, params,
+                                                     cfg)
     n_over = int(overflow)
     for cap in (40, n_over, 500):
         sel, slot, count = rescue.rescue_selection(dropped, overflow, cap)
@@ -196,3 +207,127 @@ def test_kernel_step_reads_nothing_on_the_host(monkeypatch, sorted_state):
     # overflow counts the rows left beyond the budget of 16
     assert int(out.overflow) == int(raw) - 16 and int(out.step_count) == 1
     assert bool(torch.isfinite(out.pos).all())
+
+
+# ----------------------------------------- the cell-list walk's invariants --
+
+def _walk_case(case):
+    """A crowded state at cell capacity 4 and the build's outputs for it:
+    (pred (n, dim) f32 rows in particle order, cfg, the build's 7 outputs
+    (planes, counts, flat, order, srows, overflow, sorted_col))."""
+    rng = np.random.default_rng(21)
+    time, origin, container = None, None, None
+    if case == "2-D":
+        n, dim, box, kw = 500, 2, (1.2, 1.2), dict(grid_dims=(12, 12))
+    elif case == "3-D clamped":
+        # gy·gz = 256 = S_pad: an unclamped y ± 1 at a slab's edge would
+        # alias into the next x slab. The anchor sits inside the cloud and
+        # the grid ends before it, so keys clamp on both sides of x and y.
+        n, dim, box, kw = 6000, 3, (1.6, 2.6, 7.5), dict(grid_dims=(6, 8, 32))
+        origin = torch.tensor([0.3, 0.3, 0.05])
+    else:
+        n, dim, box, kw = 1500, 3, (1.6, 1.6, 1.6), dict(
+            grid_dims=(10, 10, 10), grid_frame="container")
+        container = wt.Container.create((0.1, 0.0, -0.1), (3.0, 3.0, 3.0),
+                                        velocity=(0.5, 0.0, 0.0),
+                                        angular_velocity=0.4, angle=0.3,
+                                        device="cpu")
+        time = torch.tensor(0.9)          # yawed 0.66 rad: mid-turn
+    pred = (rng.random((n, dim)) * np.asarray(box, np.float32)).astype(
+        np.float32)
+    if case == "container":
+        pred -= np.float32(0.8)
+    params = wt.SimParams.create(dim=dim, container=container, device="cpu")
+    cfg = SimConfig(n=n, dim=dim, cell_capacity=4, rescue_capacity=n, **kw)
+    built = sb._build_core(T(pred), torch.zeros((n, dim)), params, cfg,
+                           origin=origin, time=time)
+    assert int(built[5]) > 100, "the case must crowd its cells"
+    return pred, params, cfg, built
+
+
+WALK_CASES = ["2-D", "3-D clamped", "container"]
+
+
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_sorted_col_is_the_scattered_column(case):
+    """The build's sorted_col never decreases and, for every resident, is
+    the column its plane address holds (flat = slot·L + PAD + col)."""
+    _, _, cfg, (_, _, flat, order, _, _, scol) = _walk_case(case)
+    g = sb._geometry(cfg)
+    PL = sb._cap_pad(cfg.cell_capacity) * g.L
+    assert scol.dtype == torch.int32 and scol.shape == flat.shape
+    assert bool((scol[1:] >= scol[:-1]).all())
+    res = flat < PL
+    np.testing.assert_array_equal((flat[res] % g.L - g.PAD).numpy(),
+                                  scol[res].numpy())
+    assert scol.min() >= 0 and scol.max() < g.gx * g.S_pad
+    if case == "3-D clamped":
+        # keys clamped at both ends of x: edge slabs are occupied
+        assert int(scol.min()) // g.S_pad == 0
+        assert int(scol.max()) // g.S_pad == g.gx - 1
+
+
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_rescued_list_is_in_column_order(case):
+    """On the sorted path the list, in row order, is in column order and
+    is the walk's list as it is; off it, cell_walk's copy holds the same
+    rows, by position, in column order — below and above the budget."""
+    _, _, cfg, (_, _, flat, order, _, overflow, scol) = _walk_case(case)
+    PL = sb._cap_pad(cfg.cell_capacity) * sb._geometry(cfg).L
+    n_over = int(overflow)
+    for cap in (n_over // 3, cfg.n):
+        # sorted path: rows are positions
+        sel, _, count = rescue.rescue_selection(flat == PL, overflow, cap)
+        k = int(count)
+        walk = rescue_k.cell_walk(sel, count, scol)
+        assert walk.order is None and walk.rpos is sel
+        cols = scol[sel[:k].long()]
+        assert bool((cols[1:] >= cols[:-1]).all())
+        # particle order: the list is in row order, the copy by position
+        addr = sb._particle_addr(flat, order)
+        sel, _, count = rescue.rescue_selection(addr == PL, overflow, cap)
+        walk = rescue_k.cell_walk(sel, count, scol, order)
+        assert int(count) == k and walk.rpos.dtype == torch.int32
+        rpos = walk.rpos[:k].long()
+        assert bool((rpos[1:] > rpos[:-1]).all())
+        cols = scol[rpos]
+        assert bool((cols[1:] >= cols[:-1]).all())
+        np.testing.assert_array_equal(np.sort(order[rpos].numpy()),
+                                      np.sort(sel[:k].numpy()))
+
+
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_pairs_within_h_lie_in_the_runs(case):
+    """Every pair within h between a rescued row and any row (itself
+    included) is found by both parts of the walk: the row's position lies
+    in one of the rescued row's run ranges (two lower bounds of sorted_col
+    each, as part (a) finds them), and the rescued row's column in one of
+    the row's runs (part (b)). The ranges are disjoint and ascending, the
+    order the sweep's bits rely on."""
+    _, params, cfg, (_, _, flat, _, srows, overflow, scol) = _walk_case(case)
+    PL = sb._cap_pad(cfg.cell_capacity) * sb._geometry(cfg).L
+    sel, _, count = rescue.rescue_selection(flat == PL, overflow, cfg.n)
+    rows = sel[:int(count)].long()
+    pos = srows[:, :cfg.dim]                      # positions = sorted rows
+    h = float(params.smoothing_radius)
+    d = torch.sqrt(((pos[rows][:, None, :] - pos[None, :, :]) ** 2).sum(-1))
+    o_idx, k = torch.nonzero(d <= h, as_tuple=True)
+    o = rows[o_idx]
+    assert o.numel() > 10 * rows.numel()
+
+    lo, hi = rescue_k.neighbour_runs(scol[rows], cfg)
+    s64 = scol.long()
+    valid = lo <= hi                  # a run outside the grid is empty
+    b = torch.where(valid, torch.searchsorted(s64, lo), 0)
+    e = torch.where(valid, torch.searchsorted(s64, hi + 1), 0)
+    assert bool(valid.sum(dim=1).min() >= 2 ** (cfg.dim - 1))
+    for r in range(lo.shape[1]):                  # disjoint, ascending
+        for r2 in range(r + 1, lo.shape[1]):
+            both = valid[:, r] & valid[:, r2]
+            assert bool((e[both, r] <= b[both, r2]).all())
+    kk = k[:, None]
+    assert bool(((b[o_idx] <= kk) & (kk < e[o_idx])).any(dim=1).all())
+
+    lo_k, hi_k = rescue_k.neighbour_runs(scol[k], cfg)
+    co = s64[o][:, None]
+    assert bool(((lo_k <= co) & (co <= hi_k)).any(dim=1).all())

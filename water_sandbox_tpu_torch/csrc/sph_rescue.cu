@@ -13,38 +13,80 @@
 //
 // Contract (ops/rescue.py::density_rescue_count, force_rescue_count):
 //   slot[j] < 0: j is resident (in the bucket planes);
-//   0 <= slot[j] < count: j is rescued, sel[slot[j]] == j;
+//   0 <= slot[j] < count: j is rescued;
 //   slot[j] >= count: j is dropped beyond the budget, out of the physics.
 // R1 (in place on den, nden and the six density planes):
-//   (a) blocks [0, blocks_a): slot o = blockIdx.x, + blocks_a, ... < count
-//       sums w and wn over all n particles, self included, and writes
-//       den[sel[o]] = sum + DENSITY_PADDING (nden likewise);
-//   (b) the other blocks, one thread a row j: a resident adds the rescued
-//       rows' contributions (positions staged through shared memory a tile
-//       at a time) and writes its six derived rows (den, nden, EOS
-//       half-pressures, reciprocals) into the planes at addr[j], as
-//       ops/cuda/sph_bucket.py::derived_density_planes computes them.
-//       Dropped-but-unrescued rows keep their fill values.
-// R2 (in place on acc): the same two loops for the pair forces of every
+//   (a) the last blocks_a blocks: list entry o = their index, + blocks_a,
+//       ... < count sums w and wn over every row within h, self included,
+//       and writes den[i] = sum + DENSITY_PADDING (nden likewise);
+//   (b) the first ceil(n / kBlock) blocks, one thread a row: a resident
+//       adds the rescued rows' contributions and writes its six derived
+//       rows (den, nden, EOS half-pressures, reciprocals) into the planes
+//       at addr[j], as ops/cuda/sph_bucket.py::derived_density_planes
+//       computes them. Dropped-but-unrescued rows keep their fill values.
+// R2 (in place on acc): the same two parts for the pair forces of every
 // pair that touches a rescued row: (a) a rescued row's whole acceleration
-// over all j (self and beyond-budget rows excluded, +y at d == 0), (b) a
-// resident's correction from the rescued rows, divided by its own den.
+// (self and beyond-budget rows excluded, +y at d == 0), (b) a resident's
+// correction from the rescued rows, divided by its own den.
 //
-// No float atomics: every sum runs in a fixed order (a thread's strided
-// loop, then a fixed shuffle-and-shared-memory tree in (a); the rescued
-// list in order in (b)), so two launches on the same inputs give the same
-// bits. Built with nvcc's default -fmad=true: products and sums contract
-// into FMAs, one more reason besides the summation order why the plain
-// version agrees to a tolerance (RTOL in chip_smoke.py), not to the bit.
+// The walk: a cell list over the build's sorted rows. The build
+// (ops/cuda/sph_bucket.py::_build_core) sorts the rows by their clamped
+// column col = x * S_pad + y * gz + z, stably, so scol[k], the column of
+// the k-th row in that order, never decreases and a cell's rows are one
+// contiguous run of positions. The 3^DIM neighbour cells of a column are
+// 3^(DIM-1) runs of up to three adjacent columns along the innermost axis
+// (z in 3-D, y in 2-D; the runs K1 walks in sph_density.cu), each axis
+// clamped to the grid first (an unclamped y - 1 at a slab's edge would
+// alias into the neighbouring x slab where S_pad == gy * gz), so each run
+// is one range of positions, found by two lower-bound searches of scol.
+//   (a) one block a rescued row: groups of 8 lanes find the run ranges
+//       (group_lower_bound), then thread t takes the positions
+//       k = t (mod blockDim) in ascending k, over the ranges in ascending
+//       order, and the block joins the sums with block_sum's fixed tree;
+//   (b) one thread a position k: the block stages the part of the rescued
+//       list (kept in column order: rpos, the rescued rows' positions,
+//       ascending) that its positions' neighbourhoods can reach into
+//       shared memory (stage_slice); the resident at k finds there, for
+//       each of its runs, the slice whose columns fall in the run, and
+//       walks the slices in ascending list order. A block with no rescued
+//       row in reach returns after one search; a resident with nothing
+//       within h writes nothing (its rows would be rewritten unchanged).
+// On the sorted step (order == nullptr) row k sits at position k and the
+// rescued list, in row order, is already in column order: the walk visits
+// the pairs of the all-pairs sweep it replaced, in the sweep's order, and
+// skips only rows farther than h, for which the sweep added nothing, so
+// the bits equal that sweep's. Off it (bucket_sph in particle order, the
+// incremental step) order[k] names the row at position k and the wrapper
+// sorts the rescued list by position; the sums then run in another order.
 //
-// What bounds it on the H100: operations. The sweep tests count x n pairs
-// twice (once a side) and keeps the few within h; at the [rescue] phase's
-// ~5k rescued rows of 65,536 that is ~0.7 G pair tests, against bytes of a
-// few MB. (a) re-reads the positions once per rescued row from L2 and
-// reads the other fields of a j only when it lies within h; (b) reads the
-// rescued rows' fields once per block from shared memory. A cell-list
-// walk for the rescued rows would cut the pair tests by ~n / 30 and is
-// left for a later PR.
+// Exactness. A pair within h lies within one cell on each axis of the
+// unclamped keys, and clamping a key moves it by at most one cell in a
+// monotone way, so the pair's columns lie in each other's clamped
+// neighbourhoods: the walk finds every pair the sweep did. The one
+// exception is rounding: floor((p - origin) / h) is taken on rounded
+// coordinates (on grid_frame="container" after the box's pose), so a pair
+// at d = h - eps may sit two cells apart. K1, K2 and the JAX kernels skip
+// such a pair too; its terms are at most (h - d)^2 and (h - d), at
+// rounding scale.
+//
+// No float atomics: every sum runs in a fixed order, so two launches on
+// the same inputs give the same bits. Built with nvcc's default
+// -fmad=true: products and sums contract into FMAs, one more reason
+// besides the summation order why the plain version (the all-pairs sweep
+// of ops/rescue.py) agrees to a tolerance (RTOL in chip_smoke.py), not to
+// the bit.
+//
+// What bounds it on the H100: latency. The work is small, ~150 candidate
+// rows a rescued row at reference-cube, but each step is a chain of
+// dependent loads: a search, then the candidates, then the block's sum.
+// (a) searches with 8 lanes a bound, ~log8(n) steps of one load, and
+// overlaps the rescued rows of many blocks; (b) searches the block's
+// share of the list once and the runs in shared memory, all bounds at
+// once (lower_bounds). Timed on the H100 and left out (PERF.md):
+// each thread searching the whole list (slower at small counts, even at
+// thousands of rows), part (a)'s bounds by one lane each (R2 slower,
+// R1 even), and __launch_bounds__ minima of 6 or 8 blocks an SM (spills,
+// R2 slower).
 
 #include "sph_common.cuh"
 
@@ -76,7 +118,7 @@ __device__ __forceinline__ void block_sum(float (&v)[V], float* red) {
       v[k] = s;
     }
   }
-  __syncthreads();  // red is reused by the next slot
+  __syncthreads();  // red and the run ranges are reused by the next slot
 }
 
 template <int DIM>
@@ -90,41 +132,263 @@ __device__ __forceinline__ float dist2(const float* a, const float* b) {
   return d2;
 }
 
+// The column keys' grid: col = x * S_pad + m * gz + z with the run along
+// z. In 3-D m = y (n_mid = gy) and n_in = gz; in 2-D gz == 1, m = 0
+// (n_mid = 1) and the run is along y (n_in = gy).
+struct Cols {
+  int S_pad, gz, gx, n_mid, n_in;
+};
+
+template <int DIM>
+constexpr int kRuns = DIM == 3 ? 9 : 3;
+
+// Run r of column c's clamped neighbourhood as inclusive columns [lo, hi],
+// x outermost; lo > hi where the run's cell row lies outside the grid.
+template <int DIM>
+__device__ __forceinline__ void run_bounds(int c, const Cols& g, int r,
+                                           int& lo, int& hi) {
+  constexpr int MIDS = DIM == 3 ? 3 : 1;
+  const int x = c / g.S_pad;
+  const int rem = c - x * g.S_pad;
+  const int m = DIM == 3 ? rem / g.gz : 0;
+  const int z = rem - m * g.gz;
+  const int xx = x + r / MIDS - 1;
+  const int mm = m + r % MIDS - (DIM == 3 ? 1 : 0);
+  if (xx < 0 || xx >= g.gx || mm < 0 || mm >= g.n_mid) {
+    lo = 1;
+    hi = 0;
+    return;
+  }
+  const int base = xx * g.S_pad + mm * g.gz;
+  lo = base + max(z - 1, 0);
+  hi = base + min(z + 1, g.n_in - 1);
+}
+
+// The rescued list's columns, by list index o (ascending over [0, count)).
+struct ListCols {
+  const int* scol;
+  const int* rpos;
+  __device__ __forceinline__ int operator()(int o) const {
+    return scol[rpos[o]];
+  }
+};
+
+struct RowCols {
+  const int* scol;
+  __device__ __forceinline__ int operator()(int k) const { return scol[k]; }
+};
+
+// The lower bounds of K keys in [first, last) at once: pos[r] = the first
+// position whose column is >= key[r] (last if none). Branch-free halving
+// (Khuong and Morin's search): every key takes the same steps, so the K
+// chains of dependent loads overlap instead of running one after another.
+template <int K, typename Col>
+__device__ __forceinline__ void lower_bounds(Col col, int first, int last,
+                                             const int (&key)[K],
+                                             int (&pos)[K]) {
+#pragma unroll
+  for (int r = 0; r < K; ++r) pos[r] = first;
+  int len = last - first;
+  if (len <= 0) return;
+  while (len > 1) {
+    const int half = len >> 1;
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      pos[r] = col(pos[r] + half) < key[r] ? pos[r] + half : pos[r];
+    }
+    len -= half;
+  }
+#pragma unroll
+  for (int r = 0; r < K; ++r) pos[r] += col(pos[r]) < key[r];
+}
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// A search by a group of G lanes (G divides 32, groups aligned in the
+// warp): each group finds the lower bound of its key (uniform in the
+// group) in [first, last) (also uniform), the first position whose column
+// is >= key. Each step tests G evenly spread positions at once and keeps
+// the bracket between the last one below the key and the next, so a
+// search takes ~log_G(last - first) steps of one load a lane, not
+// log_2 of them one after another. Every lane of the warp must call it.
+template <int G, typename Col>
+__device__ __forceinline__ int group_lower_bound(Col col, int first,
+                                                 int last, int key) {
+  const int lane = threadIdx.x & 31;
+  const int i = lane & (G - 1);
+  const unsigned gmask =
+      (G == 32 ? kFull : ((1u << G) - 1u)) << (lane & ~(G - 1));
+  int lo = first, hi = last;  // the answer lies in [lo, hi]
+  while (__any_sync(kFull, lo < hi)) {
+    const int len = hi - lo;
+    const bool below = lo < hi && col(lo + i * len / G) < key;
+    const int cnt = __popc(__ballot_sync(kFull, below) & gmask);
+    if (lo < hi) {
+      // positions lo + m * len / G below the key for m < cnt only
+      const int next = cnt < G ? lo + cnt * len / G : hi;
+      lo = cnt == 0 ? lo : lo + (cnt - 1) * len / G + 1;
+      hi = cnt == 0 ? lo : next;
+    }
+  }
+  return lo;
+}
+
+// Part (a)'s ranges: rb[2r], rb[2r + 1] = the positions of run r of
+// column c, each bound found by a group of 8 lanes of the first warps; the
+// caller synchronises before reading rb.
+template <int DIM>
+__device__ __forceinline__ void find_run_rows(const int* __restrict__ scol,
+                                              int n, int c, const Cols& g,
+                                              int* rb) {
+  constexpr int G = 8;
+  constexpr int KEYS = 2 * kRuns<DIM>;
+  const int t = threadIdx.x;
+  if (t < 32 * ((KEYS * G + 31) / 32)) {  // whole warps
+    const int b = t / G;                  // this group's bound
+    int lo = 1, hi = 0;
+    if (b < KEYS) run_bounds<DIM>(c, g, b >> 1, lo, hi);
+    const bool valid = lo <= hi;          // else an empty range [0, 0)
+    const int pos = group_lower_bound<G>(RowCols{scol}, 0, valid ? n : 0,
+                                         (b & 1) ? hi + 1 : lo);
+    if (b < KEYS && t % G == 0) rb[b] = pos;
+  }
+}
+
+// Part (b)'s share of the rescued list, for a block of positions: the
+// entries whose columns can lie in the neighbourhood of one of the block's
+// columns. The positions are in column order, so that is the slice of the
+// list from the first position's column less the reach of a neighbour
+// (S_pad + gz + 1) to the last one's plus it; warp 0 finds it by two group
+// searches, and when it fits the block stages the entries' columns and
+// positions into shared memory, where the threads' own searches run.
+constexpr int kStage = 1024;
+
+struct Stage {
+  int first, last;   // the slice [first, last) of the rescued list
+  int col[kStage];   // scol[rpos[first + t]]
+  int pos[kStage];   // rpos[first + t]
+};
+
+struct StagedCols {
+  const int* col;
+  int first;
+  __device__ __forceinline__ int operator()(int o) const {
+    return col[o - first];
+  }
+};
+
+// Every thread of the block must call it; returns with st filled and
+// synchronised. An empty slice (first == last) means no resident of the
+// block has a rescued row nearby.
+__device__ __forceinline__ void stage_slice(const int* __restrict__ scol,
+                                            const int* __restrict__ rpos,
+                                            int count, int n, const Cols& g,
+                                            Stage& st) {
+  if (threadIdx.x < 32) {
+    const int k0 = blockIdx.x * kBlock;
+    const int k1 = min(n, k0 + kBlock) - 1;
+    const int reach = g.S_pad + g.gz + 1;
+    const int key = threadIdx.x < 16 ? scol[k0] - reach : scol[k1] + reach + 1;
+    const int at = group_lower_bound<16>(ListCols{scol, rpos}, 0, count, key);
+    if (threadIdx.x == 0) st.first = at;
+    if (threadIdx.x == 16) st.last = at;
+  }
+  __syncthreads();
+  const int first = st.first;
+  const int m = st.last - first;
+  if (m <= kStage) {
+    for (int t = threadIdx.x; t < m; t += kBlock) {
+      const int p = rpos[first + t];
+      st.pos[t] = p;
+      st.col[t] = scol[p];
+    }
+  }
+  __syncthreads();
+}
+
+// A resident's run slices [ob[r], oe[r]) of the rescued list (list
+// indices), searched all at once inside the block's slice (staged or not);
+// returns whether any is non-empty.
+template <int DIM>
+__device__ __forceinline__ bool find_run_slices(const Stage& st,
+                                                ListCols list, int c,
+                                                const Cols& g,
+                                                int (&ob)[kRuns<DIM>],
+                                                int (&oe)[kRuns<DIM>]) {
+  constexpr int R = kRuns<DIM>;
+  int lo[R], hi[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    run_bounds<DIM>(c, g, r, lo[r], hi[r]);
+    // a run outside the grid searches [c, c): an empty slice
+    const bool v = lo[r] <= hi[r];
+    hi[r] = v ? hi[r] + 1 : c;
+    lo[r] = v ? lo[r] : c;
+  }
+  if (st.last - st.first <= kStage) {
+    const StagedCols col{st.col, st.first};
+    lower_bounds<R>(col, st.first, st.last, lo, ob);
+    lower_bounds<R>(col, st.first, st.last, hi, oe);
+  } else {
+    lower_bounds<R>(list, st.first, st.last, lo, ob);
+    lower_bounds<R>(list, st.first, st.last, hi, oe);
+  }
+  bool any = false;
+#pragma unroll
+  for (int r = 0; r < R; ++r) any |= ob[r] < oe[r];
+  return any;
+}
+
 template <int DIM>
 __global__ void __launch_bounds__(kBlock)
 rescue_density_kernel(const float* __restrict__ pred, int n,
-                      const int* __restrict__ sel,
+                      const int* __restrict__ scol,
+                      const int* __restrict__ order,
+                      const int* __restrict__ rpos,
                       const int* __restrict__ slot,
                       const int* __restrict__ count_ptr,
                       const int* __restrict__ addr,
                       const float* __restrict__ prm, float* __restrict__ den,
                       float* __restrict__ nden, float* __restrict__ dens,
-                      long long PL, int blocks_a) {
+                      long long PL, Cols g, int blocks_a) {
   const int count = *count_ptr;
   if (count <= 0) return;  // the gate: nothing to rescue this step
   const float h = prm[P_H];
   const float pow2 = prm[P_POW2];
   const float pow3 = prm[P_POW3];
+  const int blocks_b = (n + kBlock - 1) / kBlock;
 
-  if (static_cast<int>(blockIdx.x) < blocks_a) {
-    // (a) a rescued row's exact sums over every particle, self included
+  if (static_cast<int>(blockIdx.x) >= blocks_b) {
+    // (a) a rescued row's exact sums over the rows of its runs, self
+    // included
     __shared__ float red[2 * kWarps];
-    for (int o = blockIdx.x; o < count; o += blocks_a) {
-      const int i = sel[o];
+    __shared__ int rb[2 * kRuns<DIM>];
+    for (int o = blockIdx.x - blocks_b; o < count; o += blocks_a) {
+      const int p = rpos[o];
+      const int i = order ? order[p] : p;
+      find_run_rows<DIM>(scol, n, scol[p], g, rb);
       float q[DIM];
 #pragma unroll
       for (int k = 0; k < DIM; ++k) q[k] = pred[i * DIM + k];
+      __syncthreads();
       float v[2] = {0.f, 0.f};
-      for (int j = threadIdx.x; j < n; j += blockDim.x) {
-        float p[DIM];
+      for (int r = 0; r < kRuns<DIM>; ++r) {
+        const int b = rb[2 * r];
+        const int e = rb[2 * r + 1];
+        // the positions = threadIdx.x (mod kBlock), as the sweep's j
+        for (int k = b + ((static_cast<int>(threadIdx.x) - b) & (kBlock - 1));
+             k < e; k += kBlock) {
+          const int j = order ? order[k] : k;
+          float pj[DIM];
 #pragma unroll
-        for (int k = 0; k < DIM; ++k) p[k] = pred[j * DIM + k];
-        const float d = sqrtf(dist2<DIM>(p, q));
-        if (d <= h) {
-          const float u = h - d;
-          const float u2 = u * u;
-          v[0] += u2 * pow2;
-          v[1] += u2 * u * pow3;
+          for (int a = 0; a < DIM; ++a) pj[a] = pred[j * DIM + a];
+          const float d = sqrtf(dist2<DIM>(pj, q));
+          if (d <= h) {
+            const float u = h - d;
+            const float u2 = u * u;
+            v[0] += u2 * pow2;
+            v[1] += u2 * u * pow3;
+          }
         }
       }
       block_sum<2>(v, red);
@@ -136,39 +400,45 @@ rescue_density_kernel(const float* __restrict__ pred, int n,
     return;
   }
 
-  // (b) a resident's gain from the rescued rows, then its six plane rows
-  __shared__ float sp[DIM][kBlock];
-  const int j = (blockIdx.x - blocks_a) * blockDim.x + threadIdx.x;
-  const bool live = j < n && slot[j] < 0;
+  // (b) a resident's gain from the rescued rows of its runs, then its six
+  // plane rows; one thread a position, a warp's lanes search together
+  __shared__ Stage st;
+  stage_slice(scol, rpos, count, n, g, st);
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n || st.first == st.last) return;
+  const int j = order ? order[k] : k;
+  if (slot[j] >= 0) return;  // rescued or dropped: not in the planes
+  int ob[kRuns<DIM>], oe[kRuns<DIM>];
+  if (!find_run_slices<DIM>(st, ListCols{scol, rpos}, scol[k], g, ob, oe)) {
+    return;  // no rescued row nearby: den, nden and the planes stay
+  }
+  const bool staged = st.last - st.first <= kStage;
   float q[DIM];
 #pragma unroll
-  for (int k = 0; k < DIM; ++k) q[k] = live ? pred[j * DIM + k] : 0.f;
+  for (int a = 0; a < DIM; ++a) q[a] = pred[j * DIM + a];
   float w = 0.f, wn = 0.f;
-  for (int base = 0; base < count; base += kBlock) {
-    const int m = min(kBlock, count - base);
-    if (static_cast<int>(threadIdx.x) < m) {
-      const int i = sel[base + threadIdx.x];
+  bool added = false;
 #pragma unroll
-      for (int k = 0; k < DIM; ++k) sp[k][threadIdx.x] = pred[i * DIM + k];
-    }
-    __syncthreads();
-    if (live) {
-      for (int t = 0; t < m; ++t) {
-        float p[DIM];
+  for (int r = 0; r < kRuns<DIM>; ++r) {
+    for (int o = ob[r]; o < oe[r]; ++o) {
+      const int p = staged ? st.pos[o - st.first] : rpos[o];
+      const int i = order ? order[p] : p;
+      float pi[DIM];
 #pragma unroll
-        for (int k = 0; k < DIM; ++k) p[k] = sp[k][t];
-        const float d = sqrtf(dist2<DIM>(p, q));
-        if (d <= h) {
-          const float u = h - d;
-          const float u2 = u * u;
-          w += u2 * pow2;
-          wn += u2 * u * pow3;
-        }
+      for (int a = 0; a < DIM; ++a) pi[a] = pred[i * DIM + a];
+      const float d = sqrtf(dist2<DIM>(pi, q));
+      if (d <= h) {
+        const float u = h - d;
+        const float u2 = u * u;
+        w += u2 * pow2;
+        wn += u2 * u * pow3;
+        added = true;
       }
     }
-    __syncthreads();
   }
-  if (!live) return;
+  // nothing added: the rows below would rewrite the values they hold (K1
+  // writes the planes from den and nden by the same expressions)
+  if (!added) return;
   const float dj = den[j] + w;
   const float nj = nden[j] + wn;
   den[j] = dj;
@@ -209,11 +479,13 @@ rescue_force_kernel(const float* __restrict__ pred,
                     const float* __restrict__ nden,
                     const float* __restrict__ prs,
                     const float* __restrict__ nprs, int n,
-                    const int* __restrict__ sel,
+                    const int* __restrict__ scol,
+                    const int* __restrict__ order,
+                    const int* __restrict__ rpos,
                     const int* __restrict__ slot,
                     const int* __restrict__ count_ptr,
                     const float* __restrict__ prm, float* __restrict__ acc,
-                    int blocks_a) {
+                    Cols g, int blocks_a) {
   const int count = *count_ptr;
   if (count <= 0) return;
   const float h = prm[P_H];
@@ -221,12 +493,16 @@ rescue_force_kernel(const float* __restrict__ pred,
   const float pow3_der = prm[P_POW3_DER];
   const float spikey = prm[P_SPIKEY];
   const float visc = prm[P_VISCOSITY];
+  const int blocks_b = (n + kBlock - 1) / kBlock;
 
-  if (static_cast<int>(blockIdx.x) < blocks_a) {
-    // (a) a rescued row's whole acceleration, over every particle j
+  if (static_cast<int>(blockIdx.x) >= blocks_b) {
+    // (a) a rescued row's whole acceleration, over the rows of its runs
     __shared__ float red[2 * DIM * kWarps];
-    for (int o = blockIdx.x; o < count; o += blocks_a) {
-      const int i = sel[o];
+    __shared__ int rb[2 * kRuns<DIM>];
+    for (int o = blockIdx.x - blocks_b; o < count; o += blocks_a) {
+      const int p = rpos[o];
+      const int i = order ? order[p] : p;
+      find_run_rows<DIM>(scol, n, scol[p], g, rb);
       float qp[DIM], qv[DIM];
 #pragma unroll
       for (int k = 0; k < DIM; ++k) {
@@ -235,27 +511,34 @@ rescue_force_kernel(const float* __restrict__ pred,
       }
       const float qprs = prs[i];
       const float qnprs = nprs[i];
+      __syncthreads();
       float f[2 * DIM];  // pressure force, then viscosity sum
 #pragma unroll
       for (int k = 0; k < 2 * DIM; ++k) f[k] = 0.f;
-      for (int j = threadIdx.x; j < n; j += blockDim.x) {
-        float disp[DIM];  // o -> j
+      for (int r = 0; r < kRuns<DIM>; ++r) {
+        const int b = rb[2 * r];
+        const int e = rb[2 * r + 1];
+        for (int kk = b + ((static_cast<int>(threadIdx.x) - b) & (kBlock - 1));
+             kk < e; kk += kBlock) {
+          const int j = order ? order[kk] : kk;
+          float disp[DIM];  // o -> j
 #pragma unroll
-        for (int k = 0; k < DIM; ++k) disp[k] = pred[j * DIM + k] - qp[k];
-        float d2 = 0.f;
+          for (int k = 0; k < DIM; ++k) disp[k] = pred[j * DIM + k] - qp[k];
+          float d2 = 0.f;
 #pragma unroll
-        for (int k = 0; k < DIM; ++k) d2 += disp[k] * disp[k];
-        const float d = sqrtf(d2);
-        if (d > h || j == i || slot[j] >= count) continue;
-        const PairTerms t = pair_terms(d, h, pow2_der, pow3_der, spikey);
-        const float sh_p = (qprs + prs[j]) * 0.5f;
-        const float sh_np = (qnprs + nprs[j]) * 0.5f;
-        const float scale = sh_p * t.dw / den[j] + sh_np * t.dwn / nden[j];
+          for (int k = 0; k < DIM; ++k) d2 += disp[k] * disp[k];
+          const float d = sqrtf(d2);
+          if (d > h || j == i || slot[j] >= count) continue;
+          const PairTerms t = pair_terms(d, h, pow2_der, pow3_der, spikey);
+          const float sh_p = (qprs + prs[j]) * 0.5f;
+          const float sh_np = (qnprs + nprs[j]) * 0.5f;
+          const float scale = sh_p * t.dw / den[j] + sh_np * t.dwn / nden[j];
 #pragma unroll
-        for (int k = 0; k < DIM; ++k) {
-          const float dir = d > 0.f ? disp[k] / d : (k == 1 ? 1.f : 0.f);
-          f[k] += dir * scale;
-          f[DIM + k] += (vel[j * DIM + k] - qv[k]) * t.wv;
+          for (int k = 0; k < DIM; ++k) {
+            const float dir = d > 0.f ? disp[k] / d : (k == 1 ? 1.f : 0.f);
+            f[k] += dir * scale;
+            f[DIM + k] += (vel[j * DIM + k] - qv[k]) * t.wv;
+          }
         }
       }
       block_sum<2 * DIM>(f, red);
@@ -270,64 +553,59 @@ rescue_force_kernel(const float* __restrict__ pred,
     return;
   }
 
-  // (b) a resident's correction from the rescued rows
-  constexpr int F = 2 * DIM + 4;  // pos, vel, den, nden, prs, nprs
-  __shared__ float so[F][kBlock];
-  const int j = (blockIdx.x - blocks_a) * blockDim.x + threadIdx.x;
-  const bool live = j < n && slot[j] < 0;
+  // (b) a resident's correction from the rescued rows of its runs
+  __shared__ Stage st;
+  stage_slice(scol, rpos, count, n, g, st);
+  const int kk = blockIdx.x * blockDim.x + threadIdx.x;
+  if (kk >= n || st.first == st.last) return;
+  const int j = order ? order[kk] : kk;
+  if (slot[j] >= 0) return;
+  int ob[kRuns<DIM>], oe[kRuns<DIM>];
+  if (!find_run_slices<DIM>(st, ListCols{scol, rpos}, scol[kk], g, ob,
+                            oe)) {
+    return;  // no rescued row nearby: acc stays
+  }
+  const bool staged = st.last - st.first <= kStage;
   float qp[DIM], qv[DIM];
 #pragma unroll
   for (int k = 0; k < DIM; ++k) {
-    qp[k] = live ? pred[j * DIM + k] : 0.f;
-    qv[k] = live ? vel[j * DIM + k] : 0.f;
+    qp[k] = pred[j * DIM + k];
+    qv[k] = vel[j * DIM + k];
   }
-  const float qprs = live ? prs[j] : 0.f;
-  const float qnprs = live ? nprs[j] : 0.f;
+  const float qprs = prs[j];
+  const float qnprs = nprs[j];
   float f[2 * DIM];
 #pragma unroll
   for (int k = 0; k < 2 * DIM; ++k) f[k] = 0.f;
-  for (int base = 0; base < count; base += kBlock) {
-    const int m = min(kBlock, count - base);
-    if (static_cast<int>(threadIdx.x) < m) {
-      const int i = sel[base + threadIdx.x];
+  bool added = false;
+#pragma unroll
+  for (int r = 0; r < kRuns<DIM>; ++r) {
+    for (int o = ob[r]; o < oe[r]; ++o) {
+      const int p = staged ? st.pos[o - st.first] : rpos[o];
+      const int i = order ? order[p] : p;
+      float disp[DIM];  // o -> j
+#pragma unroll
+      for (int k = 0; k < DIM; ++k) disp[k] = qp[k] - pred[i * DIM + k];
+      float d2 = 0.f;
+#pragma unroll
+      for (int k = 0; k < DIM; ++k) d2 += disp[k] * disp[k];
+      const float d = sqrtf(d2);
+      if (d > h) continue;
+      const PairTerms pt = pair_terms(d, h, pow2_der, pow3_der, spikey);
+      const float sh_p = (prs[i] + qprs) * 0.5f;
+      const float sh_np = (nprs[i] + qnprs) * 0.5f;
+      const float scale = sh_p * pt.dw / den[i] + sh_np * pt.dwn / nden[i];
 #pragma unroll
       for (int k = 0; k < DIM; ++k) {
-        so[k][threadIdx.x] = pred[i * DIM + k];
-        so[DIM + k][threadIdx.x] = vel[i * DIM + k];
+        // j's view: the direction flips, except the +y fallback at d == 0
+        const float dir = d > 0.f ? -(disp[k] / d) : (k == 1 ? 1.f : 0.f);
+        f[k] += dir * scale;
+        f[DIM + k] += (vel[i * DIM + k] - qv[k]) * pt.wv;
       }
-      so[2 * DIM][threadIdx.x] = den[i];
-      so[2 * DIM + 1][threadIdx.x] = nden[i];
-      so[2 * DIM + 2][threadIdx.x] = prs[i];
-      so[2 * DIM + 3][threadIdx.x] = nprs[i];
+      added = true;
     }
-    __syncthreads();
-    if (live) {
-      for (int t = 0; t < m; ++t) {
-        float disp[DIM];  // o -> j
-#pragma unroll
-        for (int k = 0; k < DIM; ++k) disp[k] = qp[k] - so[k][t];
-        float d2 = 0.f;
-#pragma unroll
-        for (int k = 0; k < DIM; ++k) d2 += disp[k] * disp[k];
-        const float d = sqrtf(d2);
-        if (d > h) continue;
-        const PairTerms pt = pair_terms(d, h, pow2_der, pow3_der, spikey);
-        const float sh_p = (so[2 * DIM + 2][t] + qprs) * 0.5f;
-        const float sh_np = (so[2 * DIM + 3][t] + qnprs) * 0.5f;
-        const float scale = sh_p * pt.dw / so[2 * DIM][t]
-                            + sh_np * pt.dwn / so[2 * DIM + 1][t];
-#pragma unroll
-        for (int k = 0; k < DIM; ++k) {
-          // j's view: the direction flips, except the +y fallback at d == 0
-          const float dir = d > 0.f ? -(disp[k] / d) : (k == 1 ? 1.f : 0.f);
-          f[k] += dir * scale;
-          f[DIM + k] += (so[DIM + k][t] - qv[k]) * pt.wv;
-        }
-      }
-    }
-    __syncthreads();
   }
-  if (!live) return;
+  if (!added) return;  // acc + 0 would be acc
   const float dj = den[j];
 #pragma unroll
   for (int k = 0; k < DIM; ++k) {
@@ -343,60 +621,77 @@ int rows_grid(int n, int blocks_a) {
   return blocks_a + (n + wst::kBlock - 1) / wst::kBlock;
 }
 
+wst::Cols cols(int dim, int S_pad, int gx, int gy, int gz) {
+  return dim == 3 ? wst::Cols{S_pad, gz, gx, gy, gz}
+                  : wst::Cols{S_pad, 1, gx, 1, gy};
+}
+
 }  // namespace
 
-// pred: (n, dim) f32 rows; sel: (cap,) i32; slot: (n,) i32; count: () i32
-// on the device; addr: (n,) i32 plane addresses; prm: (16,) f32; den, nden:
-// (n,) f32 and dens: (6, cap_p, L) f32, all three updated in place;
-// blocks_a: blocks of part (a). Launches on `stream` of `device` and
-// returns cudaGetLastError().
+// pred: (n, dim) f32 rows; scol: (n,) i32 the rows' columns in ascending
+// order; order: (n,) i32 the row at each position, or null when row k is
+// at position k; rpos: (cap,) i32 the rescued rows' positions, ascending
+// over [0, count); slot: (n,) i32; count: () i32 on the device; addr: (n,)
+// i32 plane addresses; prm: (16,) f32; den, nden: (n,) f32 and dens: (6,
+// cap_p, L) f32, all three updated in place; S_pad, gx, gy, gz: the column
+// keys' grid (gz unused in 2-D); blocks_a: blocks of part (a). Launches on
+// `stream` of `device` and returns cudaGetLastError().
 extern "C" int wst_sph_rescue_density(const float* pred, int n,
-                                      const int* sel, const int* slot,
+                                      const int* scol, const int* order,
+                                      const int* rpos, const int* slot,
                                       const int* count, const int* addr,
                                       const float* prm, float* den,
                                       float* nden, float* dens, int dim,
-                                      int cap_p, int L, int blocks_a,
+                                      int cap_p, int L, int S_pad, int gx,
+                                      int gy, int gz, int blocks_a,
                                       int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0 || blocks_a <= 0) return static_cast<int>(cudaGetLastError());
   const long long PL = static_cast<long long>(cap_p) * L;
+  const wst::Cols g = cols(dim, S_pad, gx, gy, gz);
   const dim3 grid(static_cast<unsigned>(rows_grid(n, blocks_a)));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dim == 3) {
     wst::rescue_density_kernel<3><<<grid, wst::kBlock, 0, s>>>(
-        pred, n, sel, slot, count, addr, prm, den, nden, dens, PL, blocks_a);
+        pred, n, scol, order, rpos, slot, count, addr, prm, den, nden, dens,
+        PL, g, blocks_a);
   } else if (dim == 2) {
     wst::rescue_density_kernel<2><<<grid, wst::kBlock, 0, s>>>(
-        pred, n, sel, slot, count, addr, prm, den, nden, dens, PL, blocks_a);
+        pred, n, scol, order, rpos, slot, count, addr, prm, den, nden, dens,
+        PL, g, blocks_a);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// pred, vel: (n, dim) f32; den, nden, prs, nprs: (n,) f32; sel, slot,
-// count as above; prm: (16,) f32; acc: (n, dim) f32 updated in place.
+// pred, vel: (n, dim) f32; den, nden, prs, nprs: (n,) f32; scol, order,
+// rpos, slot, count as above; prm: (16,) f32; acc: (n, dim) f32 updated in
+// place.
 extern "C" int wst_sph_rescue_force(const float* pred, const float* vel,
                                     const float* den, const float* nden,
                                     const float* prs, const float* nprs,
-                                    int n, const int* sel, const int* slot,
+                                    int n, const int* scol, const int* order,
+                                    const int* rpos, const int* slot,
                                     const int* count, const float* prm,
-                                    float* acc, int dim, int blocks_a,
-                                    int device, void* stream) {
+                                    float* acc, int dim, int S_pad, int gx,
+                                    int gy, int gz, int blocks_a, int device,
+                                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0 || blocks_a <= 0) return static_cast<int>(cudaGetLastError());
+  const wst::Cols g = cols(dim, S_pad, gx, gy, gz);
   const dim3 grid(static_cast<unsigned>(rows_grid(n, blocks_a)));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dim == 3) {
     wst::rescue_force_kernel<3><<<grid, wst::kBlock, 0, s>>>(
-        pred, vel, den, nden, prs, nprs, n, sel, slot, count, prm, acc,
-        blocks_a);
+        pred, vel, den, nden, prs, nprs, n, scol, order, rpos, slot, count,
+        prm, acc, g, blocks_a);
   } else if (dim == 2) {
     wst::rescue_force_kernel<2><<<grid, wst::kBlock, 0, s>>>(
-        pred, vel, den, nden, prs, nprs, n, sel, slot, count, prm, acc,
-        blocks_a);
+        pred, vel, den, nden, prs, nprs, n, scol, order, rpos, slot, count,
+        prm, acc, g, blocks_a);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

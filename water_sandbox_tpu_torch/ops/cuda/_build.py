@@ -43,9 +43,11 @@ _ENTRY_POINTS = {
     "bitonic_sort": ("wst_bitonic_sort", [_P, _P, _P, _P, _I, _I, _I, _P]),
     "sph_rescue": [
         ("wst_sph_rescue_density",
-         [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+         [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+          _I, _I, _I, _I, _I, _P]),
         ("wst_sph_rescue_force",
-         [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+         [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+          _I, _I, _I, _I, _I, _P]),
     ],
 }
 

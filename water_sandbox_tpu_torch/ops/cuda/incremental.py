@@ -297,9 +297,14 @@ def step_inc(state: FluidState, cache: BucketCache, params: SimParams,
     if rescue:
         # the kernels read rows through raw pointers
         pred_k, vel_k = pred_c.contiguous(), vel_c.contiguous()
-        den_r, nden_r, sel, slot, count = sb.rescue_density_planes(
+        # the cell order the rescue walks: the rows' keys against the
+        # anchor the planes now use, sorted (only on steps that drop)
+        col = _new_columns(pred_c, origin, params, cfg,
+                           sb._geometry(cfg).S_pad)
+        sorted_col, order = torch.sort(col, stable=True)
+        den_r, nden_r, sel, slot, count, walk = sb.rescue_density_planes(
             dens, addr_r, dropped, overflow, pred_k, params, coeffs, cfg,
-            params_vec)
+            params_vec, sorted_col, order.to(torch.int32))
         rescued = (slot >= 0) & (slot < count)
 
     out_c = sb.run_force(planes_r, dens, top, addr_r, params_vec, cfg)
@@ -322,7 +327,7 @@ def step_inc(state: FluidState, cache: BucketCache, params: SimParams,
             nprs = params.near_pressure_scalar * nden
             rescue_k.rescue_force(pred_k, vel_k, den, nden, prs, nprs, sel,
                                   slot, count, acc, params, coeffs,
-                                  params_vec, cfg)
+                                  params_vec, cfg, walk)
             keep = ~dropped
             out_c.view(2 + dim, -1)[2:, addr_r[keep].long()] = acc[keep].T
         # dropped particles integrate in particle order

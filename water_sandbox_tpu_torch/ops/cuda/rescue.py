@@ -7,14 +7,18 @@ under the JAX step's ``lax.cond`` (``ops/pallas/sph_bucket.py:1701``,
 Both work in place and read the rescued count from device memory, so the
 step launches them on every step and reads nothing on the host: with count
 0 they change nothing. The selection they take (``sel``, ``slot``,
-``count``) comes from ``ops/rescue.py::rescue_selection``. Each wrapper
-runs its plain version (``density_plain`` / ``force_plain``, the
+``count``) comes from ``ops/rescue.py::rescue_selection``; the cell order
+they walk (``Walk``: the build's sorted columns, the row at each position,
+the rescued list in column order) from ``cell_walk``. Each wrapper runs its
+plain version (``density_plain`` / ``force_plain``, the all-pairs
 device-count functions of ``ops/rescue.py``) for CPU tensors and launches
 its kernel for CUDA tensors — there is no fallback between the two — and
 counts its launches in ``LAUNCHES``.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -26,7 +30,7 @@ from . import sph_bucket as sb
 # reset it first).
 LAUNCHES = {"sph_rescue_density": 0, "sph_rescue_force": 0}
 
-# Blocks of part (a), which walk the rescued list with a stride of this
+# Blocks of part (a), one rescued row at a time, striding the list by this
 # many: enough to fill the card at thousands of rescued rows, few enough
 # that the empty launch of a step without overflow stays short.
 _BLOCKS_A = 1024
@@ -37,7 +41,63 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _check_inputs(rows, sel, slot, count, params_vec):
+class Walk(NamedTuple):
+    """The cell order the kernels walk (csrc/sph_rescue.cu)."""
+    scol: torch.Tensor           # (n,) i32: the rows' columns, ascending
+    order: torch.Tensor | None   # (n,) i32: the row at each position;
+    #                              None where row k is at position k
+    rpos: torch.Tensor           # (cap,) i32: the rescued rows' positions,
+    #                              ascending over [0, count)
+
+
+def cell_walk(sel, count, scol, order=None) -> Walk:
+    """The ``Walk`` of a rescue selection (``ops/rescue.py::
+    rescue_selection``) over rows whose columns, sorted, are ``scol``.
+
+    On the sorted step (``order`` None) the rows are in column order and
+    the list, in row order, is too: it is the walk's list as it is, and
+    nothing runs. Otherwise ``order[k]`` is the row at position k (the
+    build's sort permutation): one scatter inverts it and one sort of the
+    list's ``cap`` positions puts the list in column order, on the device
+    and with no host read."""
+    if order is None:
+        return Walk(scol, None, sel)
+    n, cap, dev = scol.shape[0], sel.shape[0], sel.device
+    pos = torch.empty_like(order)
+    pos[order.long()] = torch.arange(n, dtype=torch.int32, device=dev)
+    live = torch.arange(cap, device=dev) < count
+    keys = torch.where(live, pos[sel.long()], n)    # past count: sort last
+    return Walk(scol, order, torch.sort(keys).values)
+
+
+def neighbour_runs(col, cfg: SimConfig):
+    """The clamped 3^dim neighbourhood of each column of ``col`` (m,) as
+    3^(dim-1) runs of adjacent columns along the innermost axis, x
+    outermost: (lo, hi) (m, runs) i64, inclusive, lo > hi where the run's
+    cell row lies outside the grid — what the kernels walk, for the tests
+    and chip_smoke.py's bound."""
+    g = sb._geometry(cfg)
+    c = col.long()
+    x, rem = c // g.S_pad, c % g.S_pad
+    if cfg.dim == 3:
+        m, z, n_mid, n_in, moffs = rem // g.gz, rem % g.gz, g.gy, g.gz, (
+            -1, 0, 1)
+    else:
+        m, z, n_mid, n_in, moffs = torch.zeros_like(c), rem, 1, g.gy, (0,)
+    z_lo = torch.clamp_min(z - 1, 0)
+    z_hi = torch.clamp_max(z + 1, n_in - 1)
+    los, his = [], []
+    for ox in (-1, 0, 1):
+        for om in moffs:
+            xx, mm = x + ox, m + om
+            ok = (xx >= 0) & (xx < g.gx) & (mm >= 0) & (mm < n_mid)
+            base = xx * g.S_pad + mm * g.gz
+            los.append(torch.where(ok, base + z_lo, 1))
+            his.append(torch.where(ok, base + z_hi, 0))
+    return torch.stack(los, dim=1), torch.stack(his, dim=1)
+
+
+def _check_inputs(rows, sel, slot, count, params_vec, walk: Walk):
     """dtypes, shapes, contiguity and one device of what the kernels read
     through raw pointers: ``rows`` maps a name to (tensor, trailing
     shape)."""
@@ -48,7 +108,13 @@ def _check_inputs(rows, sel, slot, count, params_vec):
     sb._check(slot, "slot", torch.int32, (n,))
     sb._check(count, "count", torch.int32, ())
     sb._check(params_vec, "params_vec", torch.float32, (1, 16))
-    ts = [t for t, _ in rows.values()] + [sel, slot, count, params_vec]
+    sb._check(walk.scol, "walk.scol", torch.int32, (n,))
+    sb._check(walk.rpos, "walk.rpos", torch.int32, (sel.numel(),))
+    ts = [t for t, _ in rows.values()] + [sel, slot, count, params_vec,
+                                          walk.scol, walk.rpos]
+    if walk.order is not None:
+        sb._check(walk.order, "walk.order", torch.int32, (n,))
+        ts.append(walk.order)
     if any(t.device != slot.device for t in ts):
         raise ValueError("kernel inputs must share one device")
     if slot.device.type not in ("cpu", "cuda"):
@@ -69,17 +135,26 @@ def _blocks_a(sel) -> int:
     return min(sel.shape[0], _BLOCKS_A)
 
 
+def _walk_args(walk: Walk, cfg: SimConfig) -> tuple:
+    """The walk's pointers and the column keys' grid, as the kernels take
+    them (a null ``order`` where the rows are in column order)."""
+    g = sb._geometry(cfg)
+    order = None if walk.order is None else walk.order.data_ptr()
+    return ((walk.scol.data_ptr(), order, walk.rpos.data_ptr()),
+            (g.S_pad, g.gx, g.gy, g.gz))
+
+
 def rescue_density(predicted, sel, slot, count, addr, den, nden, dens,
                    params: SimParams, coeffs: KernelCoeffs, params_vec,
-                   cfg: SimConfig) -> None:
+                   cfg: SimConfig, walk: Walk) -> None:
     """R1 in place: rescued rows of ``den``/``nden`` (n,) take their exact
     sums; residents gain the rescued rows' contributions, in ``den``,
     ``nden`` and in their six rows of the density planes ``dens`` (6,
     cap_p, L) at ``addr``. Nothing changes when ``count`` is 0. Plain
-    version on the CPU, kernel on CUDA."""
+    version on the CPU, kernel (walking ``walk``) on CUDA."""
     dim = cfg.dim
     _check_inputs({"predicted": (predicted, (dim,)), "den": (den, ()),
-                   "nden": (nden, ())}, sel, slot, count, params_vec)
+                   "nden": (nden, ())}, sel, slot, count, params_vec, walk)
     g = sb._geometry(cfg)
     cap_p = sb._cap_pad(cfg.cell_capacity)
     sb._check(addr, "addr", torch.int32, (slot.shape[0],))
@@ -90,11 +165,12 @@ def rescue_density(predicted, sel, slot, count, addr, den, nden, dens,
         density_plain(predicted, sel, slot, count, addr, den, nden, dens,
                       params, coeffs, cfg)
         return
+    ptrs, grid = _walk_args(walk, cfg)
     _launch("sph_rescue_density", predicted.data_ptr(), slot.shape[0],
-            sel.data_ptr(), slot.data_ptr(), count.data_ptr(),
-            addr.data_ptr(), params_vec.data_ptr(), den.data_ptr(),
-            nden.data_ptr(), dens.data_ptr(), dim, cap_p, g.L,
-            _blocks_a(sel), slot.device.index or 0,
+            *ptrs, slot.data_ptr(), count.data_ptr(), addr.data_ptr(),
+            params_vec.data_ptr(), den.data_ptr(), nden.data_ptr(),
+            dens.data_ptr(), dim, cap_p, g.L, *grid, _blocks_a(sel),
+            slot.device.index or 0,
             torch.cuda.current_stream(slot.device).cuda_stream)
 
 
@@ -118,25 +194,26 @@ def density_plain(predicted, sel, slot, count, addr, den, nden, dens,
 
 def rescue_force(predicted, vel, den, nden, prs, nprs, sel, slot, count,
                  acc, params: SimParams, coeffs: KernelCoeffs, params_vec,
-                 cfg: SimConfig) -> None:
+                 cfg: SimConfig, walk: Walk) -> None:
     """R2 in place on ``acc`` (n, dim): rescued rows take their exact
     accelerations, residents add the pair forces of the rescued rows.
     Nothing changes when ``count`` is 0. Plain version on the CPU, kernel
-    on CUDA."""
+    (walking ``walk``) on CUDA."""
     dim = cfg.dim
     _check_inputs({"predicted": (predicted, (dim,)), "vel": (vel, (dim,)),
                    "den": (den, ()), "nden": (nden, ()), "prs": (prs, ()),
                    "nprs": (nprs, ()), "acc": (acc, (dim,))},
-                  sel, slot, count, params_vec)
+                  sel, slot, count, params_vec, walk)
     if slot.device.type == "cpu":
         force_plain(predicted, vel, den, nden, prs, nprs, sel, slot, count,
                     acc, params, coeffs, cfg)
         return
+    ptrs, grid = _walk_args(walk, cfg)
     _launch("sph_rescue_force", predicted.data_ptr(), vel.data_ptr(),
             den.data_ptr(), nden.data_ptr(), prs.data_ptr(), nprs.data_ptr(),
-            slot.shape[0], sel.data_ptr(), slot.data_ptr(), count.data_ptr(),
-            params_vec.data_ptr(), acc.data_ptr(), dim, _blocks_a(sel),
-            slot.device.index or 0,
+            slot.shape[0], *ptrs, slot.data_ptr(), count.data_ptr(),
+            params_vec.data_ptr(), acc.data_ptr(), dim, *grid,
+            _blocks_a(sel), slot.device.index or 0,
             torch.cuda.current_stream(slot.device).cuda_stream)
 
 

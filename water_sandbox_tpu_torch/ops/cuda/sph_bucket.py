@@ -163,7 +163,8 @@ def _build_core(predicted, vel, params, cfg: SimConfig, carry=None,
     Returns (planes (2·dim, cap_p, L), counts (1, L) f32, flat (n,) i32 each
     SORTED row's plane address — cap_p·L for capacity-overflow rows —,
     order (n,) i32 the sort permutation, srows (n, 2·dim + k), overflow ()
-    i32)."""
+    i32, sorted_col (n,) i32 each sorted row's column, non-decreasing: the
+    cell order the rescue's kernels walk)."""
     n, dim = predicted.shape
     h = params.smoothing_radius
     cap = cfg.cell_capacity
@@ -203,19 +204,24 @@ def _build_core(predicted, vel, params, cfg: SimConfig, carry=None,
     counts = (planes[0] < _FAR * 0.5).sum(
         dim=0, dtype=predicted.dtype)[None, :]
     overflow = (n - ok.sum()).to(torch.int32)
-    return planes, counts, flat, order.to(torch.int32), srows, overflow
+    return (planes, counts, flat, order.to(torch.int32), srows, overflow,
+            sorted_col)
+
+
+def _particle_addr(flat, order):
+    """The sorted rows' plane addresses ``flat`` back in particle order."""
+    addr = torch.empty_like(flat)
+    addr[order.long()] = flat
+    return addr
 
 
 def _build_slab_buckets(predicted, vel, params, cfg: SimConfig, origin=None,
                         time=None):
     """Particle-order build: ``addr`` maps PARTICLE i to its plane address
     (cap_p·L when it overflowed). Returns (planes, counts, addr, overflow)."""
-    n = predicted.shape[0]
-    planes, counts, flat, order, _, overflow = _build_core(
+    planes, counts, flat, order, _, overflow, _ = _build_core(
         predicted, vel, params, cfg, origin=origin, time=time)
-    addr = torch.empty(n, dtype=torch.int32, device=predicted.device)
-    addr[order.long()] = flat
-    return planes, counts, addr, overflow
+    return planes, counts, _particle_addr(flat, order), overflow
 
 
 def build_local_slab_buckets(pred, vel, active, origin, gx_loc: int,
@@ -517,34 +523,41 @@ def gather_density(dens, addr, dropped, params):
 
 def rescue_density_planes(dens, addr, dropped, overflow, predicted,
                           params: SimParams, coeffs: KernelCoeffs,
-                          cfg: SimConfig, params_vec):
+                          cfg: SimConfig, params_vec, sorted_col,
+                          order=None):
     """The rescue's density half, gated on the device: the selection
-    (``ops/rescue.py::rescue_selection``) and R1 (``ops/cuda/rescue.py``).
-    Exact densities with the dropped rows included (up to
+    (``ops/rescue.py::rescue_selection``), the cell order its kernels walk
+    (``ops/cuda/rescue.py::cell_walk`` over ``sorted_col`` and ``order``,
+    the build's sort; ``order`` None where the rows are in that order) and
+    R1. Exact densities with the dropped rows included (up to
     ``rescue_capacity``), and the residents' corrected rows written into
     all 6 density planes, so the force pass reads pressures and reciprocals
     consistent with them. Reads nothing on the host: with no overflow R1
-    changes nothing. Returns (den, nden, sel, slot, count) — the last three
-    for the force half."""
+    changes nothing. Returns (den, nden, sel, slot, count, walk) — the last
+    four for the force half."""
     from .. import rescue as rescue_mod
     from . import rescue as rescue_k
     den, nden = gather_density(dens, addr, dropped, params)
     sel, slot, count = rescue_mod.rescue_selection(
         dropped, overflow, min(cfg.rescue_capacity, dropped.shape[0]))
+    walk = rescue_k.cell_walk(sel, count, sorted_col, order)
     rescue_k.rescue_density(predicted, sel, slot, count, addr, den, nden,
-                            dens, params, coeffs, params_vec, cfg)
-    return den, nden, sel, slot, count
+                            dens, params, coeffs, params_vec, cfg, walk)
+    return den, nden, sel, slot, count, walk
 
 
 def sph_passes(planes, counts, addr, dropped, overflow, predicted, vel,
-               params: SimParams, coeffs: KernelCoeffs, cfg: SimConfig):
+               params: SimParams, coeffs: KernelCoeffs, cfg: SimConfig,
+               sorted_col, order=None):
     """Density + exact rescue + force + gather-back on built planes.
 
     With ``rescue_capacity > 0`` both rescue kernels run on every step and
     gate themselves on the device count (JAX's ``lax.cond``): the passes
     read nothing on the host, so the step can be captured as a CUDA graph.
-    Returns (den, nden, prs, nprs, acc, unrescued) in the row order of
-    ``addr``."""
+    ``sorted_col`` and ``order`` are the build's sort (``_build_core``),
+    which the rescue walks; ``order`` None where the rows are in that
+    order. Returns (den, nden, prs, nprs, acc, unrescued) in the row order
+    of ``addr``."""
     from . import rescue as rescue_k
 
     params_vec = _param_vector(params, coeffs)
@@ -554,9 +567,9 @@ def sph_passes(planes, counts, addr, dropped, overflow, predicted, vel,
         # the kernels read rows through raw pointers: the sorted step's
         # rows are column views of one gathered block
         predicted, vel = predicted.contiguous(), vel.contiguous()
-        den, nden, sel, slot, count = rescue_density_planes(
+        den, nden, sel, slot, count, walk = rescue_density_planes(
             dens, addr, dropped, overflow, predicted, params, coeffs, cfg,
-            params_vec)
+            params_vec, sorted_col, order)
         unrescued = overflow - count
     else:
         den, nden = gather_density(dens, addr, dropped, params)
@@ -569,7 +582,7 @@ def sph_passes(planes, counts, addr, dropped, overflow, predicted, vel,
     if rescue:
         rescue_k.rescue_force(predicted, vel, den, nden, prs, nprs, sel,
                               slot, count, acc, params, coeffs, params_vec,
-                              cfg)
+                              cfg, walk)
     return den, nden, prs, nprs, acc, unrescued
 
 
@@ -578,11 +591,12 @@ def bucket_sph(predicted, vel, params: SimParams, coeffs: KernelCoeffs,
     """Per-particle (den, nden, prs, nprs, acc, unrescued) in the caller's
     row order."""
     L = _geometry(cfg).L
-    planes, counts, addr, overflow = _build_slab_buckets(
+    planes, counts, flat, order, _, overflow, sorted_col = _build_core(
         predicted, vel, params, cfg, time=time)
+    addr = _particle_addr(flat, order)
     dropped = addr == _cap_pad(cfg.cell_capacity) * L
     return sph_passes(planes, counts, addr, dropped, overflow, predicted,
-                      vel, params, coeffs, cfg)
+                      vel, params, coeffs, cfg, sorted_col, order)
 
 
 def bucket_sph_sorted(pos, vel, predicted, ids, params: SimParams,
@@ -595,14 +609,15 @@ def bucket_sph_sorted(pos, vel, predicted, ids, params: SimParams,
     dim = cfg.dim
     L = _geometry(cfg).L
     carry = torch.cat([pos, ids.view(torch.float32)[:, None]], dim=1)
-    planes, counts, flat, _, srows, overflow = _build_core(
+    planes, counts, flat, _, srows, overflow, sorted_col = _build_core(
         predicted, vel, params, cfg, carry=carry, time=time)
     dropped = flat == _cap_pad(cfg.cell_capacity) * L
     s_pred = srows[:, :dim]
     s_vel = srows[:, dim:2 * dim]
     s_pos = srows[:, 2 * dim:3 * dim]
     s_ids = srows[:, 3 * dim].contiguous().view(torch.int32)
+    # the rows are in the build's order: the rescue walks them as they are
     den, nden, prs, nprs, acc, unrescued = sph_passes(
         planes, counts, flat, dropped, overflow, s_pred, s_vel, params,
-        coeffs, cfg)
+        coeffs, cfg, sorted_col)
     return den, nden, prs, nprs, acc, unrescued, s_pos, s_vel, s_ids
