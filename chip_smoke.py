@@ -36,12 +36,21 @@ planes with holes, keep-or-drop windows for k = 0, 4, 8, 16, and
 ``Simulation.from_scene(..., incremental_rebuild=8).run``). The
 domain-decomposed step runs next: 8 shards of a
 128-particle flow against the single-device step (migration and the
-cross-shard rescue included; once on the kernels, once on the plain
-pair-block passes), then ``DistributedSimulation`` on
-``sharded-1m`` (1,015,920 particles, 4 shards on the one card), with the
-kernels held against their plain versions on one shard's halo-filled
-planes. Then the bitonic sort against its plain version at every padded
-size class (bit-identical, one launch a call), beside ``torch.sort``. Last,
+cross-shard rescue included, also with one shard alone overflowing; once
+on the kernels, with the rescue's kernels D1 and D2 held against their
+plain versions, once on the plain pair-block passes), then
+``DistributedSimulation`` on ``sharded-1m`` (1,015,920 particles, 4
+shards on the one card) with its step captured as one CUDA graph: parity
+by id with the single device, the kernels held against their plain
+versions on one shard's halo-filled planes, captured against eager bit
+for bit over 20 steps, ms/step captured and eager alternated, kernels a
+replay and the busy share of 20 replays; then [domain-rescue], the same
+state at a cell capacity where every shard drops more rows than the
+rescue takes: D1 and D2 against their plain versions, timed beside the
+cell list's and the all-pairs sweep's bounds, at count 0 (bit for bit
+unchanged), and the rescue step's ms/step. Then the bitonic sort
+against its plain version at every padded size class (bit-identical, one
+launch a call), beside ``torch.sort``. Last,
 the front end: ``python -m water_sandbox_tpu_torch.cli`` as subprocesses
 (``scenes``; ``run`` at its default 2-D scene and at ``reference-cube``,
 each with a trajectory and a checkpoint; ``resume`` held by id against the
@@ -108,6 +117,10 @@ RESCUE_SWEEP = (64, 512, 2048)
 STEP_KERNELS = ("sph_density", "sph_force", "sph_rescue_density",
                 "sph_rescue_force")
 
+# The domain step's kernels beside K1 and K3: the cross-shard rescue's
+# halves, each once a shard a step.
+DOMAIN_KERNELS = ("sph_domain_rescue_density", "sph_domain_rescue_force")
+
 # The golden phase's runs of the picker's order (each counted from 0).
 GOLDEN_PATHS = tuple(f"golden {scene}" for scene in GOLDEN_1K)
 
@@ -164,6 +177,20 @@ KERNELS = {
         at="reference-cube cap 8 step 100",
         source="water_sandbox_tpu_torch/csrc/sph_rescue.cu",
         replaces="water_sandbox_tpu/ops/rescue.py:116"),
+    # the domain step's cross-shard rescue, launched once a shard on every
+    # domain step and gated on the device count of the shard's query rows:
+    # no pallas_call in the JAX package (XLA ops under lax.cond,
+    # parallel/domain.py:382, :421, :459)
+    "sph_domain_rescue_density": dict(
+        counter="sph_domain_rescue_density", path="sharded-1m",
+        paths=("sharded-1m",), at="sharded-1m forced rescue shard 1",
+        source="water_sandbox_tpu_torch/csrc/sph_domain_rescue.cu",
+        replaces="water_sandbox_tpu/parallel/domain.py:641"),
+    "sph_domain_rescue_force": dict(
+        counter="sph_domain_rescue_force", path="sharded-1m",
+        paths=("sharded-1m",), at="sharded-1m forced rescue shard 1",
+        source="water_sandbox_tpu_torch/csrc/sph_domain_rescue.cu",
+        replaces="water_sandbox_tpu/parallel/domain.py:689"),
     # on no step path, as in the JAX package: its launches a step are read
     # from every step path's run all the same
     "bitonic_sort": dict(
@@ -181,19 +208,22 @@ KERNELS = {
 def reset_launches() -> None:
     """Every kernel wrapper's launch count to 0."""
     from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
+    from water_sandbox_tpu_torch.ops.cuda import domain_rescue as dr
     from water_sandbox_tpu_torch.ops.cuda import rescue as rk
     from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
     sb.reset_launches()
     bs.reset_launches()
     rk.reset_launches()
+    dr.reset_launches()
 
 
 def launches_now() -> dict:
     """Every kernel wrapper's launch count."""
     from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
+    from water_sandbox_tpu_torch.ops.cuda import domain_rescue as dr
     from water_sandbox_tpu_torch.ops.cuda import rescue as rk
     from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
-    return {**sb.LAUNCHES, **bs.LAUNCHES, **rk.LAUNCHES}
+    return {**sb.LAUNCHES, **bs.LAUNCHES, **rk.LAUNCHES, **dr.LAUNCHES}
 
 
 def log(msg: str) -> None:
@@ -867,11 +897,12 @@ def hold(name, got, want, rtol=RTOL) -> float:
     """|got - want| <= rtol·|want| + rtol·max(1, max|want|) elementwise on
     two numpy arrays; returns the max error, raises past the bar."""
     err = np.abs(got - want)
-    bar = rtol * np.abs(want) + rtol * max(1.0, float(np.abs(want).max()))
+    bar = rtol * np.abs(want) + rtol * max(
+        1.0, float(np.abs(want).max(initial=0.0)))
     check(bool(np.isfinite(got).all()), f"{name}: non-finite")
     check(bool((err <= bar).all()),
-          f"{name}: max err {float(err.max()):.3e} past the bar")
-    return float(err.max())
+          f"{name}: max err {float(err.max(initial=0.0)):.3e} past the bar")
+    return float(err.max(initial=0.0))
 
 
 def phase_oracle(cfg, params, state) -> None:
@@ -998,18 +1029,23 @@ def busy_intervals(dev) -> tuple:
     return union + hi - lo, iv[-1][1] - iv[0][0]
 
 
-def profile_replays(g, steps: int = 20):
-    """torch.profiler over ``steps`` replays of StepGraph ``g``, launched
-    back to back: device ms a step (the device events' times summed),
-    kernels a step, how many times each of the four step kernels' names
-    appears (the kernels run inside the replays), and the busy share on
-    the trace's own clock: the union of the device events' intervals over
+STEP_KERNEL_NAMES = ("sph_density_kernel", "sph_force_kernel",
+                     "rescue_density_kernel", "rescue_force_kernel")
+DOMAIN_KERNEL_NAMES = ("sph_density_kernel", "sph_force_kernel",
+                       "domain_density_kernel", "domain_force_kernel")
+
+
+def profile_replays(g, steps: int = 20, names=STEP_KERNEL_NAMES):
+    """torch.profiler over ``steps`` replays of ``g`` (a StepGraph or a
+    DomainGraph), launched back to back: device ms a step (the device
+    events' times summed), kernels a step, how many times each kernel of
+    ``names`` appears (the kernels run inside the replays), the 8 largest
+    device times a step by name, and the busy share on the trace's own
+    clock: the union of the device events' intervals over
     the span from the first event's start to the last one's end (at most 1;
     gaps between kernels and between replays count as idle). Also the host
     clock a step of the traced replays and of as many replays run again
     without the profiler (launch to synchronisation)."""
-    names = ("sph_density_kernel", "sph_force_kernel",
-             "rescue_density_kernel", "rescue_force_kernel")
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1025,6 +1061,11 @@ def profile_replays(g, steps: int = 20):
     union_us, span_us = busy_intervals(dev) if dev else (0.0, 0.0)
     kernels = sum(1 for e in dev
                   if not e.name.lower().startswith(("memcpy", "memset")))
+    by_name: dict = {}
+    for e in dev:
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     t0 = time.perf_counter()
     g.run(steps)
     torch.cuda.synchronize()
@@ -1033,7 +1074,8 @@ def profile_replays(g, steps: int = 20):
                 found=found, busy=union_us / span_us if span_us else None,
                 union_ms=union_us / 1e3 / steps,
                 span_ms=span_us / 1e3 / steps, steps=steps,
-                wall_ms=alone_ms / steps, traced_ms=traced_ms / steps)
+                wall_ms=alone_ms / steps, traced_ms=traced_ms / steps,
+                top=[(name[:60], us / 1e3 / steps) for name, us in top])
 
 
 def same_bits(a, b) -> bool:
@@ -1517,13 +1559,114 @@ def sharded_by_id(states, active) -> np.ndarray:
     return out
 
 
+def cloned(x):
+    """A copy of a call's argument: tensors cloned, named tuples of tensors
+    (the domain rescue's Rows, Queries) rebuilt from clones, the rest as
+    it is."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(cloned(e) for e in x))
+    return x
+
+
+def clone_args(args) -> list:
+    return [cloned(a) for a in args]
+
+
+@contextlib.contextmanager
+def recording_domain_rescue():
+    """D1's and D2's wrappers patched to keep a copy of every call's inputs
+    before they run as before; yields {"density": [...], "force": [...]},
+    a list of argument lists each."""
+    from water_sandbox_tpu_torch.ops.cuda import domain_rescue as dr
+    calls = {"density": [], "force": []}
+    real = {"density": dr.rescue_density, "force": dr.rescue_force}
+
+    def recorder(half):
+        def rec(*args):
+            calls[half].append(clone_args(args))
+            real[half](*args)
+        return rec
+
+    dr.rescue_density = recorder("density")
+    dr.rescue_force = recorder("force")
+    try:
+        yield calls
+    finally:
+        dr.rescue_density = real["density"]
+        dr.rescue_force = real["force"]
+
+
+def hold_domain_rescue(label, calls, check_changed=True) -> dict:
+    """D1 and D2 against their plain versions on every recorded call (a
+    shard each): D1's density planes at the residents' addresses and its
+    rows' sums, D2's accelerations, rtol 2e-4 / atol 2e-4·max(1,
+    max|plain|); two launches bit-identical; at count 0 the kernel's
+    outputs bit for bit its inputs. Returns the worst |kernel - plain| of
+    each kernel."""
+    from water_sandbox_tpu_torch.ops.cuda import domain_rescue as dr
+    err = {k: 0.0 for k in DOMAIN_KERNELS}
+    for d, args in enumerate(calls["density"]):
+        pred, walk, addr, q, feats, dens, qden, qnden, p, c, pv, cl = args
+        k, again = clone_args(args), clone_args(args)
+        dr.rescue_density(*k)
+        dr.rescue_density(*again)
+        want = clone_args(args)
+        dr.density_plain(*want[:8], p, c, cl)
+        torch.cuda.synchronize()
+        check(all(same_bits(a, b) for a, b in zip(k[5:8], again[5:8])),
+              f"{label} shard {d}: two launches of D1 differ")
+        if int(q.count) == 0:
+            check(all(same_bits(a, b) for a, b in zip(k[5:8], args[5:8])),
+                  f"{label} shard {d}: D1 at count 0 changed its outputs")
+            continue
+        PL = dens[0].numel()
+        res = addr[addr < PL].long()
+        mine = q.valid[:qden.shape[0]]
+        e = max([hold(f"{label} shard {d} D1 plane {i}",
+                      k[5].view(6, -1)[i, res].cpu().numpy(),
+                      want[5].view(6, -1)[i, res].cpu().numpy())
+                 for i in range(6)]
+                + [hold(f"{label} shard {d} D1 {name}",
+                        k[j][mine].cpu().numpy(), want[j][mine].cpu().numpy())
+                   for j, name in ((6, "qden"), (7, "qnden"))])
+        err["sph_domain_rescue_density"] = max(
+            err["sph_domain_rescue_density"], e)
+    for d, args in enumerate(calls["force"]):
+        k, again, want = clone_args(args), clone_args(args), clone_args(args)
+        dr.rescue_force(*k)
+        dr.rescue_force(*again)
+        dr.force_plain(*want[:15], want[16])
+        torch.cuda.synchronize()
+        check(same_bits(k[12], again[12]),
+              f"{label} shard {d}: two launches of D2 differ")
+        if int(args[8].count) == 0:
+            check(same_bits(k[12], args[12]),
+                  f"{label} shard {d}: D2 at count 0 changed acc")
+            continue
+        e = hold(f"{label} shard {d} D2 acc", k[12].cpu().numpy(),
+                 want[12].cpu().numpy())
+        if check_changed:
+            check(not torch.equal(k[12], args[12]),
+                  f"{label} shard {d}: D2 changed nothing")
+        err["sph_domain_rescue_force"] = max(
+            err["sph_domain_rescue_force"], e)
+    return err
+
+
 def phase_domain_parity(dev, use_pallas=None) -> None:
     """__graft_entry__.py::dryrun_multichip on the port: 8 shards of a
     128-particle cube in rightward flow (real migration), then forced
-    overflow, each against the single-device step from the same state.
+    overflow at cell capacity 2 and 1, then at cell capacity 1 at rest with
+    the lattice shifted by 0.05 so that one shard alone overflows, each
+    against the single-device step from the same state. On the kernels
+    D1 and D2 launch once a shard a step where the rescue is on, and are
+    held against their plain versions on the first step's inputs (at cell
+    capacity 1 and in the one-shard case; there the overflowing shard's
+    neighbours open their gates with nothing of their own dropped).
     ``use_pallas=False`` runs the shards' plain pair-block passes
     (ops/grid.py) in place of the kernels, at the same bars."""
-    from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
     import dataclasses
     import water_sandbox_tpu_torch as wst
     from water_sandbox_tpu_torch.core.params import Container
@@ -1531,45 +1674,58 @@ def phase_domain_parity(dev, use_pallas=None) -> None:
     nsh = 8
     gx = 3 * nsh
     pts = wst.cube_fluid(8, 4, 4)
-    vel = np.zeros_like(pts)
-    vel[:, 0] = 3.0
+    flow = np.zeros_like(pts)
+    flow[:, 0] = 3.0
     params = wst.SimParams.create(
         dim=3, device=dev, container=Container.create(
             (0.0, 0.0, 0.0), (gx * 0.25 - 1.0, 1.8, 1.8), device=dev))
     cfg = wst.SimConfig(n=pts.shape[0], dim=3, grid_dims=(gx, 8, 8),
                         cell_capacity=16)
-    state0 = wst.init_state(pts, vel, device=dev)
+    cap1 = dataclasses.replace(cfg, cell_capacity=1, rescue_capacity=512)
     mesh = mesh_mod.make_mesh(nsh, dev)
-    cases = (("flow", cfg, 8),
+    cases = (("flow", cfg, 8, 0.0, flow),
              ("rescue cap 2", dataclasses.replace(
-                 cfg, cell_capacity=2, rescue_capacity=512), 6),
-             ("rescue cap 1", dataclasses.replace(
-                 cfg, cell_capacity=1, rescue_capacity=512), 6))
-    for label, c, steps in cases:
+                 cfg, cell_capacity=2, rescue_capacity=512), 6, 0.0, flow),
+             ("rescue cap 1", cap1, 6, 0.0, flow),
+             ("rescue one shard", cap1, 6, 0.05, np.zeros_like(pts)))
+    kernels = use_pallas is not False
+    for label, c, steps, shift, vel in cases:
+        state0 = wst.init_state(pts + np.float32(shift), vel, device=dev)
         states, active = domain.shard_state(state0, mesh, c, params,
                                             slack=float(nsh))
-        raw = sum(int(o) for o in domain.halo_planes(
+        raw = [int(o) for o in domain.halo_planes(
             [s.predicted for s in states], [s.vel for s in states], active,
-            [params] * nsh, c, gx // nsh, mesh)[3])
+            [params] * nsh, c, gx // nsh, mesh)[3]]
         step = domain.make_domain_step(mesh, c, use_pallas=use_pallas)
         before = [int(a.sum()) for a in active]
         lost = ovf = 0.0
-        sb.reset_launches()
-        for _ in range(steps):
+        reset_launches()
+        with recording_domain_rescue() as calls:
+            states, active, lost_step = step(states, active, params)
+        lost += float(lost_step)
+        ovf += float(states[0].overflow)
+        for _ in range(steps - 1):
             states, active, lost_step = step(states, active, params)
             lost += float(lost_step)
             ovf += float(states[0].overflow)
         after = [int(a.sum()) for a in active]
-        want = 0 if use_pallas is False else nsh * steps
-        check(all(v == want for v in sb.LAUNCHES.values()),
-              f"domain {label}: launches {sb.LAUNCHES}, expected {want}")
+        counted = launches_now()
+        want = {k: nsh * steps if kernels else 0
+                for k in ("sph_density", "sph_force")}
+        want.update({k: nsh * steps if kernels and c.rescue_capacity else 0
+                     for k in DOMAIN_KERNELS})
+        check(all(counted[k] == v for k, v in want.items()),
+              f"domain {label}: launches {counted}, expected {want}")
         single = wst.rollout(state0, params, c, steps)
         err = float(np.abs(sharded_by_id(states, active)
                            - by_id(single, "pos")).sum(axis=1).max())
         path = "plain passes" if use_pallas is False else "kernels"
+        gates = [int(a[3].count) for a in calls["density"]]
         log(f"[domain] parity {label} ({path}): {steps} steps, per-shard "
-            f"counts {before} -> {after}, overflowing at step 0 {raw}, lost "
-            f"{lost}, unrescued {ovf}, max |dpos| by id {err:.3e}")
+            f"counts {before} -> {after}, overflowing at step 0 by shard "
+            f"{raw}, query rows (gates) at step 0 {gates or 'none'}, lost "
+            f"{lost}, unrescued {ovf}, max |dpos| by id {err:.3e}, "
+            f"launches {counted}")
         check(lost == 0.0, f"domain {label}: lost {lost} particles")
         check(ovf == 0.0, f"domain {label}: {ovf} unrescued")
         check(float(single.overflow_total) == 0.0,
@@ -1578,7 +1734,21 @@ def phase_domain_parity(dev, use_pallas=None) -> None:
         if label == "flow":
             check(after != before, "domain flow: no shard crossing")
         if label.startswith("rescue"):
-            check(raw > 0, f"domain {label} must overflow")
+            check(sum(raw) > 0, f"domain {label} must overflow")
+        if label == "rescue one shard":
+            hot = [d for d, o in enumerate(raw) if o]
+            check(len(hot) == 1, f"domain {label}: overflowing {raw}")
+            if kernels:
+                nb = [d for d in (hot[0] - 1, hot[0] + 1) if 0 <= d < nsh]
+                check(all(gates[d] == raw[hot[0]] for d in nb),
+                      f"domain {label}: neighbours' gates {gates}")
+        if kernels and label in ("rescue cap 1", "rescue one shard"):
+            errs = hold_domain_rescue(f"domain {label}", calls,
+                                      check_changed=False)
+            log(f"[domain] parity {label}: D1 and D2 against their plain "
+                f"versions on step 1's inputs, every shard (count 0 "
+                f"unchanged bit for bit where the gate is 0): max_abs_err "
+                f"{errs}")
 
 
 def domain_kernels_vs_plain(sim, shard: int, record) -> None:
@@ -1612,42 +1782,127 @@ def domain_kernels_vs_plain(sim, shard: int, record) -> None:
     log(f"[kernels] {sim.name} shard {shard}: halo particles {halo}")
 
 
-def phase_domain_full(record, scene="sharded-1m", dev="cuda"):
-    """DistributedSimulation on ``scene``, 4 shards on the card: 10 steps
-    held by id against the single-device step from the same state, the
-    kernels against their plain versions on halo-filled planes, then 20
-    timed steps. Returns the kernel launches of the 30 steps and 30."""
+def phase_domain_full(record, scene="sharded-1m", dev="cuda",
+                      pairs: int = 10, window: int = 10):
+    """DistributedSimulation on ``scene``, 4 shards on the card, its step a
+    replayed CUDA graph: 10 steps held by id against the single-device step
+    from the same state (the first run warms up and captures), the kernels
+    against their plain versions on halo-filled planes, one eager step
+    under torch.cuda.set_sync_debug_mode("error"), 20 captured steps
+    against 20 eager ones from the same state bit for bit, ``pairs``
+    alternated windows of ``window`` eager and captured steps, and
+    torch.profiler over 20 replays (kernels a replay, busy share). Then the
+    forced rescue (phase_domain_rescue). Returns the kernel launches of the
+    30 captured steps and 30."""
     import water_sandbox_tpu_torch as wst
-    from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
-    from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
     from water_sandbox_tpu_torch.runtime.distributed import (
         DistributedSimulation)
-    nsh, warm, timed = 4, 10, 20
+    t_phase = time.perf_counter()
+    nsh, warm, same = 4, 10, 20
     cfg, params, state = wst.scenes.build(scene, device=dev)
     single = wst.rollout(state, params, cfg, warm)
     want = by_id(single, "pos")
     check(float(single.overflow_total) == 0.0,
           f"{scene}: the single-device reference overflowed")
     del single, state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     sim = DistributedSimulation.from_scene(scene, n_shards=nsh, device=dev)
+    check(sim.execution == "captured", f"{scene}: the step is not captured")
 
     reset_launches()
     sim.run(warm)
     launches = launches_now()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    g = sim.graph
     err = float(np.abs(sharded_by_id(sim.states, sim.active) - want)
                 .sum(axis=1).max())
     log(f"[domain] {scene}: n={sim.cfg.n}, {warm} steps on {nsh} shards "
         f"(gx_loc {sim.cfg.grid_dims[0] // nsh}), max |dpos| by id vs "
-        f"single device {err:.3e}")
+        f"single device {err:.3e}; captured in {g.capture_s:.2f} s "
+        f"(2 warm-up steps on a side stream, then one step), launches a "
+        f"replay {g.per_replay}, peak memory above the shards' tensors "
+        f"{peak:.1f} MiB (capture + {warm} replays)")
     check(err <= DOMAIN_TOL, f"{scene}: parity {err:.3e}")
+    check(g.per_replay == {k: nsh for k in ("sph_density", "sph_force")
+                           + DOMAIN_KERNELS},
+          f"{scene}: launches a replay {g.per_replay}")
     domain_kernels_vs_plain(sim, 1, record)
 
+    def eager_copy():
+        return ([s.clone() for s in sim.states],
+                [a.clone() for a in sim.active])
+
+    e_states, e_active = eager_copy()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g.step(*eager_copy(), sim.params)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for _ in range(same):
+        e_states, e_active, _ = g.step(e_states, e_active, sim.params)
     reset_launches()
-    t0 = time.perf_counter()
-    sim.run(timed)
-    ms = 1000.0 * (time.perf_counter() - t0) / timed
+    sim.run(same)
     for k, v in launches_now().items():
         launches[k] += v
+    check(all(same_state(a, b) and same_bits(a.acc, b.acc)
+              for a, b in zip(sim.states, e_states))
+          and all(torch.equal(a, b) for a, b in zip(sim.active, e_active)),
+          f"{scene}: {same} captured and eager steps differ")
+    log(f"[domain] {scene}: the eager step ran under "
+        f"torch.cuda.set_sync_debug_mode('error'); {same} captured steps "
+        f"from step {warm} equal {same} eager ones bit for bit (pos, vel, "
+        f"density, ids, acc, active)")
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    e_states, e_active = eager_copy()
+    for _ in range(window):
+        e_states, e_active, _ = g.step(e_states, e_active, sim.params)
+    torch.cuda.synchronize()
+    peak_eager = (torch.cuda.max_memory_allocated() - base) / 2**20
+    times = {"eager": [], "captured": []}
+    for i in range(pairs):
+        for mode in (("eager", "captured") if i % 2 == 0
+                     else ("captured", "eager")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "eager":
+                for _ in range(window):
+                    e_states, e_active, _ = g.step(e_states, e_active,
+                                                   sim.params)
+            else:
+                g.run(window)
+            torch.cuda.synchronize()
+            times[mode].append(1e3 * (time.perf_counter() - t0) / window)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    ratios = [a / b for a, b in zip(times["eager"], times["captured"])]
+    log(f"[main] {scene} on {nsh} shards, {pairs} pairs of {window}-step "
+        f"windows alternated (host clock, synced at each window's end): "
+        f"captured median {med['captured']:.4f} ms/step (windows "
+        f"{', '.join(f'{x:.4f}' for x in times['captured'])}); eager median "
+        f"{med['eager']:.4f} (windows "
+        f"{', '.join(f'{x:.4f}' for x in times['eager'])}); eager/captured "
+        f"median ratio {statistics.median(ratios):.3f}; peak memory of "
+        f"{window} eager steps above their state {peak_eager:.1f} MiB")
+    del e_states, e_active
+    prof = profile_replays(g, names=DOMAIN_KERNEL_NAMES)
+    log(f"[domain] {scene} torch.profiler over {prof['steps']} replays: "
+        f"device ms a step {prof['device_ms']:.4f} (events summed), "
+        f"kernels a step {prof['kernels']:.1f}, step kernels found "
+        f"{prof['found']}, busy share {fmt(prof['busy'])} on the trace's "
+        f"clock (device events' union {prof['union_ms']:.4f} over the span "
+        f"{prof['span_ms']:.4f} ms a step); host clock a step "
+        f"{prof['wall_ms']:.4f} without the profiler, "
+        f"{prof['traced_ms']:.4f} traced; the 8 largest by name, device ms "
+        f"a step: " + "; ".join(f"{n} {ms:.4f}" for n, ms in prof["top"]))
+    if prof["kernels"] > 0:
+        check(all(v == nsh * prof["steps"] for v in prof["found"].values()),
+              f"{scene}: the trace of {prof['steps']} replays holds the "
+              f"domain kernels {prof['found']} times")
+
     st = sim.stats()
     dense = sim.to_dense_state().to(dev)
     check(dense.n == sim.cfg.n, f"{scene}: lost slots")
@@ -1659,16 +1914,249 @@ def phase_domain_full(record, scene="sharded-1m", dev="cuda"):
           f"{scene}: particles outside the box")
     check(st["lost_particles"] == 0.0, f"{scene}: lost_total > 0")
     check(st["overflow_total"] == 0.0, f"{scene}: overflow_total > 0")
-    for k in sb.LAUNCHES:
-        check(launches[k] == nsh * (warm + timed),
+    for k in ("sph_density", "sph_force") + DOMAIN_KERNELS:
+        check(launches[k] == nsh * (warm + same),
               f"{scene}: {k} launched {launches[k]} times in "
-              f"{warm + timed} steps on {nsh} shards")
-    log(f"[main] {scene} on {nsh} shards: ms/step {ms:.3f} (host clock "
-        f"over {timed} synced steps after {warm} warm-up), lost_total "
+              f"{warm + same} steps on {nsh} shards")
+    log(f"[main] {scene} on {nsh} shards ({st['execution']}): "
+        f"DistributedSimulation ms/step {st['ms_per_step']:.3f} (host clock "
+        f"over the runs after the first), lost_total "
         f"{st['lost_particles']}, overflow_total {st['overflow_total']}, "
         f"per-shard counts {st['per_shard_counts']}, ke "
         f"{st['kinetic_energy']:.2f}, launches {launches}")
-    return launches, warm + timed
+    phase_domain_rescue(sim, record)
+    log(f"[domain] phase passed in {time.perf_counter() - t_phase:.1f} s")
+    return launches, warm + same
+
+
+def domain_rescue_bounds(args, cfg_loc, h):
+    """Both bounds of D1 and D2 at one shard's recorded D1 inputs, from
+    this run's data: (sweep, walk, facts).
+
+    sweep: the all-pairs sweep's work (the plain versions'): every valid
+    query row against every slot, the shard's own rows also against every
+    halo slot and the neighbours' rows, 3·dim - 1 flops a distance test;
+    bytes: every row's fields once. walk: the kernels' work: the rows in
+    the valid query rows' clamped neighbour runs, tested once a side, the
+    halo slots of the own rows' windows, the neighbours' rows; bytes: the
+    rows in those runs and the halo slots read, each once (the residents
+    among them written once), the query rows and their outputs. Both count
+    the pairs within h at 7 (density) and 20 + 5·dim (force) flops a
+    side."""
+    from water_sandbox_tpu_torch.ops.cuda import domain_rescue as dr
+    from water_sandbox_tpu_torch.ops.cuda import rescue as rk
+    from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
+    pred, walk, addr, q = args[:4]
+    n, dim = pred.shape
+    R = q.row.shape[0]
+    g = sb._geometry(cfg_loc)
+    cap_p = sb._cap_pad(cfg_loc.cell_capacity)
+    v = q.valid
+    nv, mine = int(v.sum()), int(v[:R].sum())
+    act = dr.active_rows(walk, cfg_loc)
+    rows = pred[act]
+    qp = q.pos[v]
+    p_h = sum(int((torch.cdist(
+        qp[i:i + 256], rows,
+        compute_mode="donot_use_mm_for_euclid_dist") <= h).sum())
+        for i in range(0, nv, 256))
+    cols = q.col[v]
+    lo, hi = rk.neighbour_runs(cols, cfg_loc)
+    s64 = walk.skey.long()
+    ok = lo <= hi
+    b = torch.where(ok, torch.searchsorted(s64, lo), 0)
+    e = torch.where(ok, torch.searchsorted(s64, hi + 1), 0)
+    cand = int((e - b).sum())
+    cand_mine = int((e - b)[:mine].sum())
+    delta = torch.zeros(n + 1, dtype=torch.int64, device=pred.device)
+    delta.index_add_(0, b.reshape(-1), torch.ones_like(b.reshape(-1)))
+    delta.index_add_(0, e.reshape(-1), -torch.ones_like(e.reshape(-1)))
+    covered = torch.cumsum(delta, 0)[:n] > 0             # by position
+    res_sorted = (addr < cap_p * g.L)[walk.order.long()]
+    u = int(covered.sum())
+    u_res = int((covered & res_sorted).sum())
+    # the own rows' halo lanes: the runs of their own x row, in the left
+    # halo at x = 0 and the right one at x = gx - 1
+    x = cols[:mine].long() // g.S_pad
+    mids = slice(3, 6) if dim == 3 else slice(1, 2)
+    width = torch.where(ok[:mine, mids], hi[:mine, mids] - lo[:mine, mids]
+                        + 1, 0).sum(dim=1)
+    sides = (x == 0).long() + (x == g.gx - 1).long()
+    halo_items = int((width * sides).sum()) * cap_p
+    lanes = []
+    for side, at in ((0, g.PAD - g.S_pad), (g.gx - 1, g.PAD + g.gx * g.S_pad)):
+        sel = x == side
+        for r in range(mids.start, mids.stop):
+            for o in range(3):
+                lane = lo[:mine, r] + o
+                keep = sel & ok[:mine, r] & (lane <= hi[:mine, r])
+                lanes.append(at + lane[keep] - x[keep] * g.S_pad)
+    halo_slots = (int(torch.unique(torch.cat(lanes)).numel()) * cap_p
+                  if lanes else 0)
+    Hn = 2 * cap_p * g.S_pad
+    nq = 3 * R
+    residents = int((addr < cap_p * g.L).sum())
+    tests = (nv * n + mine * (Hn + 2 * R)) * (3 * dim - 1)
+    walk_tests = (cand + cand_mine + halo_items + mine * 2 * R) * (
+        3 * dim - 1)
+    f_pair = 20 + 5 * dim
+    sweep = {
+        "sph_domain_rescue_density": bound(
+            tests + 2 * 7 * p_h,
+            n * (4 * dim + 4) + Hn * 4 * dim + nq * 4 * dim
+            + residents * (4 + 8 + 24) + mine * 8),
+        "sph_domain_rescue_force": bound(
+            tests + 2 * f_pair * p_h,
+            n * (8 * dim + 24) + Hn * (8 * dim + 8)
+            + nq * 4 * (2 * dim + 4) + residents * 8 * dim
+            + mine * 4 * dim),
+    }
+    walk_b = {
+        # a row in the runs: pred, its key and position; a resident among
+        # them: addr, den and nden read, 6 planes written; a halo slot:
+        # its position; a query row: pos, column, its list entry; an own
+        # row: den and nden written
+        "sph_domain_rescue_density": bound(
+            walk_tests + 2 * 7 * p_h,
+            u * (4 * dim + 8) + u_res * (4 + 8 + 24)
+            + halo_slots * 4 * dim + nq * (4 * dim + 12) + mine * 8),
+        # a row in the runs: pred, vel, den, nden, prs, nprs, slot, key,
+        # position; a resident: acc read and written; a halo slot: pos,
+        # vel, den, nden; a query row: its 2·dim + 4 fields, column, entry;
+        # an own row: its row index, acc written
+        "sph_domain_rescue_force": bound(
+            walk_tests + 2 * f_pair * p_h,
+            u * (8 * dim + 28) + u_res * 8 * dim
+            + halo_slots * (8 * dim + 8) + nq * (4 * (2 * dim + 4) + 12)
+            + mine * (4 + 4 * dim)),
+    }
+    facts = dict(p_h=p_h, tests=tests, cand=cand, walk_rows=u,
+                 halo_slots=halo_slots, query_rows=nv, own_rows=mine)
+    return sweep, walk_b, facts
+
+
+def phase_domain_rescue(sim, record, shard: int = 1) -> None:
+    """[domain-rescue]: ``sim``'s state (sharded-1m after its captured
+    steps), stepped once more with the rescue's inputs recorded: at the
+    scene's cell capacity (no overflow: every gate 0; D1 and D2 change
+    nothing, bit for bit, and are timed there), then at the highest cell
+    capacity of 16, 12, 8, 6, 4, 3, 2 at which every shard drops at least
+    R rows (every gate open). There D1 and D2 are held against their plain
+    versions on every shard and timed on shard ``shard`` (event ms,
+    profiler device ms, the plain versions' ms) beside both bounds
+    (domain_rescue_bounds), and the rescue step is timed, captured and
+    eager, from the same state."""
+    import dataclasses
+    from water_sandbox_tpu_torch.ops.cuda import domain_rescue as dr
+    from water_sandbox_tpu_torch.ops.cuda import graph as graph_mod
+    from water_sandbox_tpu_torch.parallel import domain
+    from water_sandbox_tpu_torch.core.params import _map_tensors
+    t_phase = time.perf_counter()
+    mesh, nsh = sim.mesh, sim.mesh.size
+    gx_loc = sim.cfg.grid_dims[0] // nsh
+    h = float(sim.params.smoothing_radius)
+    P = sim.states[0].n
+    R = min(256, sim.cfg.rescue_capacity, P)
+
+    def copies():
+        return ([s.clone() for s in sim.states],
+                [a.clone() for a in sim.active])
+
+    with recording_domain_rescue() as calls0:
+        sim.graph.step(*copies(), sim.params)
+    gates0 = [int(a[3].count) for a in calls0["density"]]
+    check(max(gates0) == 0, f"[domain-rescue] count 0: gates {gates0}")
+    hold_domain_rescue("[domain-rescue] count 0", calls0)
+    zero = {"sph_domain_rescue_density": clone_args(calls0["density"][shard]),
+            "sph_domain_rescue_force": clone_args(calls0["force"][shard])}
+
+    for cap in (16, 12, 8, 6, 4, 3, 2):
+        c = dataclasses.replace(sim.cfg, cell_capacity=cap)
+        raw = [int(o) for o in domain.halo_planes(
+            [s.predicted for s in sim.states], [s.vel for s in sim.states],
+            sim.active, [sim.params] * nsh, c, gx_loc, mesh)[3]]
+        if min(raw) >= R:
+            break
+    check(min(raw) >= R, f"[domain-rescue] no capacity drops {R} rows a "
+          f"shard: {raw}")
+    step = domain.make_domain_step(mesh, c, mig_cap=1024)
+    with recording_domain_rescue() as calls:
+        out, _, _ = step(*copies(), sim.params)
+    gates = [int(a[3].count) for a in calls["density"]]
+    errs = hold_domain_rescue(f"[domain-rescue] cap {cap}", calls)
+    log(f"[domain-rescue] {sim.name} step {int(sim.states[0].step_count)} "
+        f"at cell capacity {cap}: dropped rows by shard {raw}, R {R}, "
+        f"query rows (gates) {gates}, unrescued after the step "
+        f"{int(out[0].overflow)}; D1 and D2 against their plain versions "
+        f"on every shard: max_abs_err {errs}; at cell capacity "
+        f"{sim.cfg.cell_capacity} every gate 0 and both kernels left their "
+        f"outputs bit for bit")
+
+    cfg_loc = domain._local_cfg(c, gx_loc)
+    sweep, walk_b, facts = domain_rescue_bounds(calls["density"][shard],
+                                                cfg_loc, h)
+    for name, half, plain_fn in (
+            ("sph_domain_rescue_density", "density",
+             lambda a: dr.density_plain(*a[:8], a[8], a[9], a[11])),
+            ("sph_domain_rescue_force", "force",
+             lambda a: dr.force_plain(*a[:15], a[16]))):
+        args = calls[half][shard]
+        kernel = dr.rescue_density if half == "density" else dr.rescue_force
+        scratch, scratch0 = clone_args(args), zero[name]
+        kname = name.replace("sph_", "").replace("_rescue", "") + "_kernel"
+        rec = dict(max_abs_err=errs[name],
+                   ms=cuda_ms(lambda: kernel(*scratch)),
+                   device_ms=device_ms(lambda: kernel(*scratch), kname),
+                   plain_ms=cuda_ms(lambda: plain_fn(clone_args(args)),
+                                    reps=3),
+                   library_ms=None,
+                   ms_count0=cuda_ms(lambda: kernel(*scratch0)),
+                   device_ms_count0=device_ms(lambda: kernel(*scratch0),
+                                              kname),
+                   cell_capacity=cap, **facts)
+        rec["bound_ms"], rec["bound_by"] = walk_b[name]
+        rec["sweep_bound_ms"], rec["sweep_bound_by"] = sweep[name]
+        record.setdefault(name, {})[f"sharded-1m forced rescue shard "
+                                    f"{shard}"] = rec
+        log(f"[domain-rescue] {name} shard {shard} at cell capacity {cap}: "
+            f"{facts['own_rows']} own and {facts['query_rows']} query rows "
+            f"of {P} slots: kernel_ms={rec['ms']:.4f} device_ms="
+            f"{fmt(rec['device_ms'])} plain_ms={rec['plain_ms']:.4f} "
+            f"bound_ms={rec['bound_ms']:.3e} ({rec['bound_by']}; cell "
+            f"list: {facts['cand']} candidate rows, {facts['walk_rows']} "
+            f"rows in the runs, {facts['halo_slots']} halo slots) "
+            f"sweep_bound_ms={rec['sweep_bound_ms']:.3e} "
+            f"({rec['sweep_bound_by']}; {facts['tests']} distance-test "
+            f"flops) library_ms=none; at count 0 (cell capacity "
+            f"{sim.cfg.cell_capacity}): kernel_ms={rec['ms_count0']:.4f} "
+            f"device_ms={fmt(rec['device_ms_count0'])} (pairs within h of "
+            f"a query row {facts['p_h']})")
+
+    # the rescue step, captured and eager, from the same state
+    gr = graph_mod.DomainGraph(step, *copies(),
+                               _map_tensors(sim.params, torch.clone), mesh)
+    gr.run(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gr.run(5)
+    torch.cuda.synchronize()
+    ms_c = 1e3 * (time.perf_counter() - t0) / 5
+    e_states, e_active = copies()
+    step(e_states, e_active, sim.params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        e_states, e_active, _ = step(e_states, e_active, sim.params)
+    torch.cuda.synchronize()
+    ms_e = 1e3 * (time.perf_counter() - t0) / 5
+    log(f"[domain-rescue] {sim.name} at cell capacity {cap}, a rescue on "
+        f"every shard every step: captured {ms_c:.4f} ms/step (5 replays "
+        f"after the capture, {gr.capture_s:.2f} s), eager {ms_e:.4f} "
+        f"ms/step (5 steps after one), host clock, synced; launches a "
+        f"replay {gr.per_replay}")
+    del gr
+    log(f"[domain-rescue] phase passed in "
+        f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def sort_case(rng, n: int, kind: str):
@@ -1772,13 +2260,15 @@ import json, runpy, sys
 from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
 from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
 from water_sandbox_tpu_torch.ops.cuda import rescue as rk
+from water_sandbox_tpu_torch.ops.cuda import domain_rescue as dr
 sb.reset_launches()
 bs.reset_launches()
 rk.reset_launches()
+dr.reset_launches()
 sys.argv = sys.argv[1:]
 runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
 print("[launches] " + json.dumps({**sb.LAUNCHES, **bs.LAUNCHES,
-                                  **rk.LAUNCHES}))
+                                  **rk.LAUNCHES, **dr.LAUNCHES}))
 """
 
 ROOT = Path(__file__).resolve().parent
@@ -1821,6 +2311,8 @@ def check_launches(path: str, launches: dict, steps: int,
               f"{path}: {k} launched {launches[k]} times in {steps} steps "
               f"(expected {want})")
     check(launches["bitonic_sort"] == 0, f"{path}: the sort ran")
+    for k in DOMAIN_KERNELS:
+        check(launches.get(k, 0) == 0, f"{path}: {k} ran off the domain step")
 
 
 def check_final(label: str, state, params, n: int) -> None:
@@ -2128,6 +2620,33 @@ print(json.dumps({"mean": statistics.mean(t), "median": statistics.median(t),
                   "max": max(t)}))
 """
 
+# sharded-1m on 4 shards of the card in one tree, through the public
+# runtime only (so it runs in an older checkout too): ms/step of
+# DistributedSimulation.run over 20 steps after 10, and over 5 steps after
+# 3 at the cell capacity of argv[1], where every shard drops more rows than
+# the rescue takes (a rescue on every shard every step). Prints {label:
+# ms/step}.
+SHARDED = """
+import json, sys, time
+from water_sandbox_tpu_torch.runtime.distributed import DistributedSimulation
+out = {}
+for label, kw, warm, timed in (
+        ("sharded-1m", {}, 10, 20),
+        ("forced rescue", {"cell_capacity": int(sys.argv[1])}, 3, 5)):
+    sim = DistributedSimulation.from_scene("sharded-1m", n_shards=4, **kw)
+    sim.run(warm)
+    t0 = time.perf_counter()
+    sim.run(timed)
+    out[label] = 1e3 * (time.perf_counter() - t0) / timed
+    del sim
+print(json.dumps(out))
+"""
+
+# The cell capacity at which every shard of sharded-1m drops more rows than
+# the domain rescue takes a step (R = 256), from its first step on (its
+# lattice puts up to 8 particles in a cell; ~6,800 rows a shard drop at 4).
+FORCED_CAP = 4
+
 # R1 and R2 in one tree, through the public step only (so it runs in an
 # older checkout too): reference-cube at step 100 stepped once at cell
 # capacity 8 (its outputs saved to the npz of argv[1]) and timed by the
@@ -2192,11 +2711,12 @@ def compare(other: Path) -> int:
     this tree, this tree, DIR, each as subprocesses started in the tree
     they measure: ``python -m water_sandbox_tpu_torch.bench``,
     ``reference-cube`` steps 100-200 (TRANSIENT) at the scene's cell
-    capacity and at 8 (the rescue on every step), and R1/R2's device time
+    capacity and at 8 (the rescue on every step), R1/R2's device time
     a step (RESCUE) at cell capacity 8 and the budgets of COMPARE_BUDGETS,
-    at count 0 and at the flagship past its budget. Checks that the
-    sorted step's rescue at cell capacity 8 gives the same bits in every
-    run; reports whether the flagship's does."""
+    at count 0 and at the flagship past its budget, and sharded-1m's
+    ms/step on 4 shards at its cell capacity and at FORCED_CAP (SHARDED).
+    Checks that the sorted step's rescue at cell capacity 8 gives the same
+    bits in every run; reports whether the flagship's does."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2219,7 +2739,8 @@ def compare(other: Path) -> int:
                 ("bench", ["-m", "water_sandbox_tpu_torch.bench"]),
                 ("steps 100-200", ["-c", TRANSIENT, "{}"]),
                 ("steps 100-200 cap 8", ["-c", TRANSIENT, cap8]),
-                ("rescue", ["-c", RESCUE, str(npz)])):
+                ("rescue", ["-c", RESCUE, str(npz)]),
+                ("sharded", ["-c", SHARDED, str(FORCED_CAP)])):
             out = subprocess.run([sys.executable, *argv], cwd=tree,
                                  capture_output=True, text=True,
                                  env=_front_env(), timeout=900)
@@ -2246,6 +2767,12 @@ def compare(other: Path) -> int:
                 f"{fmt(r['rescue_density_kernel'])} R2 "
                 f"{fmt(r['rescue_force_kernel'])} (unrescued "
                 f"{r['unrescued']})")
+        sh = runs["sharded"]
+        log(f"[compare] {label}: sharded-1m on 4 shards, "
+            f"DistributedSimulation.run host clock (synced): "
+            f"{sh['sharded-1m']:.4f} ms/step over 20 steps after 10; at "
+            f"cell capacity {FORCED_CAP} (a rescue on every shard every "
+            f"step) {sh['forced rescue']:.4f} ms/step over 5 after 3")
         outs.append((label, np.load(npz)))
     base_label, base = outs[0]
     for label, got in outs[1:]:

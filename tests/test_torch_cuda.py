@@ -565,6 +565,178 @@ def test_captured_rollout_matches_eager(cuda_device):
     assert torch.equal(sim.state.pos, ref.pos)
 
 
+def _cloned(x):
+    """A copy of a call's argument: tensors cloned, named tuples of
+    tensors (the domain rescue's Rows, Queries) rebuilt from clones."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_cloned(e) for e in x))
+    return x
+
+
+def _record_domain_rescue(monkeypatch):
+    """Patch D1's and D2's wrappers to keep a copy of every call's inputs
+    (then run as before): {"density": [args...], "force": [args...]}."""
+    from water_sandbox_tpu_torch.ops.cuda import domain_rescue as dr
+    calls = {"density": [], "force": []}
+    for half, name in (("density", "rescue_density"),
+                       ("force", "rescue_force")):
+        real = getattr(dr, name)
+
+        def rec(*args, _real=real, _half=half):
+            calls[_half].append([_cloned(a) for a in args])
+            _real(*args)
+
+        monkeypatch.setattr(dr, name, rec)
+    return calls
+
+
+def _domain_cloud(dev, dim, cap):
+    """A random cloud on 4 shards of ``dev`` at cell capacity ``cap`` and
+    a rescue budget of 64 rows a shard: it reaches past the grid in y (and
+    z), so keys clamp at both ends, and every shard has a slab edge."""
+    from water_sandbox_tpu_torch.core.params import Container
+    from water_sandbox_tpu_torch.parallel import domain, mesh as mesh_mod
+    rng = np.random.default_rng(40 + dim)
+    n, size, grid = ((3000, (2.5, 1.5, 1.5), (12, 8, 8)) if dim == 3
+                     else (1500, (2.5, 1.5), (12, 8)))
+    params = wt.SimParams.create(dim=dim, device=dev, container=(
+        Container.create((0.0,) * dim, size, device=dev)))
+    cfg = SimConfig(n=n, dim=dim, grid_dims=grid, cell_capacity=cap,
+                    rescue_capacity=64)
+    origin = domain._grid_origin_static(params, cfg).cpu().numpy()
+    h = float(params.smoothing_radius)
+    spill = np.r_[0.0, [0.2] * (dim - 1)]          # past the grid in y, z
+    pts = (origin - spill + rng.random((n, dim))
+           * (np.asarray(grid) * h + 2 * spill)).astype(np.float32)
+    mesh = mesh_mod.make_mesh(4, dev)
+    states, active = domain.shard_state(wt.init_state(pts, device="cpu"),
+                                        mesh, cfg, params, slack=2.0)
+    return params, cfg, mesh, states, active
+
+
+def _hold(got, want):
+    """rtol 2e-4, atol 2e-4·max(1, max|plain|)."""
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_allclose(
+        got, want, rtol=2e-4,
+        atol=2e-4 * max(1.0, float(np.abs(want).max(initial=0.0))))
+
+
+@pytest.mark.parametrize("case", ["overflow", "count 0"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_domain_rescue_kernels_match_plain(cuda_device, monkeypatch, dim,
+                                           case):
+    """D1 and D2 (csrc/sph_domain_rescue.cu) against their plain versions
+    on the inputs one domain step on the card gives them, shard by shard:
+    a cloud whose keys clamp at the grid's y (and z) ends, past the
+    rescue's budget (cell capacity 2), and with no overflow at all (cell
+    capacity 64: every gate 0, and the kernels change nothing, bit for
+    bit)."""
+    from water_sandbox_tpu_torch.ops.cuda import domain_rescue as dr
+    from water_sandbox_tpu_torch.parallel import domain
+    params, cfg, mesh, states, active = _domain_cloud(
+        cuda_device, dim, 2 if case == "overflow" else 64)
+    calls = _record_domain_rescue(monkeypatch)
+    dr.reset_launches()
+    domain.make_domain_step(mesh, cfg)(states, active, params)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert dr.LAUNCHES == {"sph_domain_rescue_density": 4,
+                           "sph_domain_rescue_force": 4}
+    gates = [int(a[3].count) for a in calls["density"]]
+    assert (min(gates) > 0) if case == "overflow" else (max(gates) == 0)
+    for args in calls["density"]:
+        pred, walk, addr, q, feats, dens, qden, qnden, p, c, pv, cl = args
+        k = [_cloned(a) for a in args]
+        dr.rescue_density(*k)
+        dr.density_plain(pred, walk, addr, q, feats, dens, qden, qnden, p,
+                         c, cl)
+        torch.cuda.synchronize()
+        if case == "count 0":
+            assert _same_bits(k[5], args[5]) and _same_bits(k[6], qden)
+            continue
+        PL = dens[0].numel()
+        res = addr[addr < PL].long()
+        for plane in range(6):
+            _hold(k[5].view(6, -1)[plane, res], dens.view(6, -1)[plane, res])
+        mine = q.valid[:qden.shape[0]]
+        _hold(k[6][mine], qden[mine])
+        _hold(k[7][mine], qnden[mine])
+    for args in calls["force"]:
+        k = [_cloned(a) for a in args]
+        acc0 = args[12].clone()
+        dr.rescue_force(*k)
+        dr.force_plain(*args[:15], args[16])
+        torch.cuda.synchronize()
+        if case == "count 0":
+            assert _same_bits(k[12], acc0)
+            continue
+        _hold(k[12], args[12])
+        assert not torch.equal(k[12], acc0)
+
+
+def test_domain_graph_replays_the_eager_step(cuda_device):
+    """The domain step captured as one CUDA graph (ops/cuda/graph.py::
+    DomainGraph) on 8 shards of one card, with the cross-shard rescue on
+    every step (cell capacity 1), against the eager step: bit for bit
+    over 6 steps; a replay counts one launch of K1, K3, D1 and D2 a shard;
+    DistributedSimulation replays, and tune needs no recapture."""
+    from water_sandbox_tpu_torch.core.params import Container, _map_tensors
+    from water_sandbox_tpu_torch.ops.cuda import domain_rescue as dr
+    from water_sandbox_tpu_torch.ops.cuda import graph
+    from water_sandbox_tpu_torch.parallel import domain, mesh as mesh_mod
+    from water_sandbox_tpu_torch.runtime.distributed import (
+        DistributedSimulation)
+    pts = wt.cube_fluid(8, 4, 4)
+    vel = np.zeros_like(pts)
+    vel[:, 0] = 3.0
+    cfg = SimConfig(n=pts.shape[0], dim=3, grid_dims=(24, 8, 8),
+                    cell_capacity=1, rescue_capacity=512)
+    params = wt.SimParams.create(dim=3, device=cuda_device, container=(
+        Container.create((0.0, 0.0, 0.0), (5.0, 1.8, 1.8),
+                         device=cuda_device)))
+    state = wt.init_state(pts, vel, device="cpu")
+    mesh = mesh_mod.make_mesh(8, cuda_device)
+    states, active = domain.shard_state(state, mesh, cfg, params, slack=8.0)
+    step = domain.make_domain_step(mesh, cfg)
+    e_states, e_active = states, active
+    for _ in range(6):
+        e_states, e_active, _ = step(e_states, e_active, params)
+    g = graph.DomainGraph(step, [s.clone() for s in states],
+                          [a.clone() for a in active],
+                          _map_tensors(params, torch.clone), mesh)
+    assert g.captures
+    sb.reset_launches()
+    dr.reset_launches()
+    g.run(6)
+    torch.cuda.synchronize()
+    assert g.per_replay == {"sph_density": 8, "sph_force": 8,
+                            "sph_domain_rescue_density": 8,
+                            "sph_domain_rescue_force": 8}
+    assert dr.LAUNCHES["sph_domain_rescue_density"] == 48
+    for a, b in zip(g.states, e_states):
+        for f in ("pos", "vel", "density", "ids", "acc"):
+            assert _same_bits(getattr(a, f), getattr(b, f)), f
+    for a, b in zip(g.active, e_active):
+        assert torch.equal(a, b)
+    assert float(e_states[0].overflow_total) == 0.0
+
+    sim = DistributedSimulation(cfg, params, state, mesh=mesh, slack=8.0)
+    assert sim.execution == "captured"
+    sim.run(3)
+    sim.tune(viscosity_strength=0.5)
+    sim.run(3)
+    ref, ref_act = [s.clone() for s in states], [a.clone() for a in active]
+    for i in range(6):
+        ps = params if i < 3 else params.replace(viscosity_strength=0.5)
+        ref, ref_act, _ = step(ref, ref_act, ps)
+    for a, b in zip(sim.states, ref):
+        assert _same_bits(a.pos, b.pos)
+    assert sim.stats()["execution"] == "captured"
+
+
 def test_a_host_read_in_the_step_fails_the_capture(cuda_device, monkeypatch):
     """A step that reads the device on the host cannot be captured, and the
     capture raises: nothing falls back to the eager loop. (Last in the

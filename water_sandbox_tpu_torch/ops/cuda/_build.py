@@ -49,6 +49,14 @@ _ENTRY_POINTS = {
          [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
           _I, _I, _I, _I, _I, _P]),
     ],
+    "sph_domain_rescue": [
+        ("wst_sph_domain_rescue_density",
+         [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+          _P] + [_I] * 10 + [_P]),
+        ("wst_sph_domain_rescue_force",
+         [_P] * 6 + [_I] + [_P] * 8 + [_I, _I] + [_P] * 5 + [_I] * 10
+         + [_P]),
+    ],
 }
 
 

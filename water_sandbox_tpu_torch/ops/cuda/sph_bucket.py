@@ -224,29 +224,43 @@ def _build_slab_buckets(predicted, vel, params, cfg: SimConfig, origin=None,
     return planes, counts, _particle_addr(flat, order), overflow
 
 
-def build_local_slab_buckets(pred, vel, active, origin, gx_loc: int,
-                             my_dev: int, params, cfg_loc: SimConfig):
-    """Per-shard build of the domain-decomposed step: like
-    ``_build_slab_buckets`` over the shard's slab range of the global grid
-    (x clamps into the local range — stragglers between migrations; the
-    distance test keeps their pairs exact), with inactive slots sorting last
-    and dropped. The halo exchange writes the neighbours' boundary slabs
-    into the lanes just inside the pads (``parallel/domain.py``).
-
-    Returns (planes, counts (1, L) local only, addr (n,) i32 — cap_p·L for
-    inactive and capacity-overflow rows —, overflow () i32)."""
-    n, dim = pred.shape
-    h = params.smoothing_radius
-    cap = cfg_loc.cell_capacity
+def local_columns(pred, origin, gx_loc: int, my_dev: int, params,
+                  cfg_loc: SimConfig) -> torch.Tensor:
+    """(n,) i32 each row's column in shard ``my_dev``'s slab of the global
+    grid: x clamps into the local range (stragglers between migrations), y
+    and z into the grid. The key the shard's build sorts by, and the key of
+    the domain rescue's query rows."""
+    dim = pred.shape[1]
     g = _geometry(cfg_loc)
-
-    cell = torch.floor((pred - origin) / h).to(torch.int32)
+    cell = torch.floor((pred - origin) / params.smoothing_radius).to(
+        torch.int32)
     cell_x = torch.clamp(cell[:, 0] - my_dev * gx_loc, 0, gx_loc - 1)
     r = torch.clamp(cell[:, 1], 0, g.gy - 1)
     if dim == 3:
         r = r * g.gz + torch.clamp(cell[:, 2], 0, g.gz - 1)
-    col = cell_x * g.S_pad + r
+    return cell_x * g.S_pad + r
 
+
+def build_local_slab_buckets(pred, vel, active, origin, gx_loc: int,
+                             my_dev: int, params, cfg_loc: SimConfig):
+    """Per-shard build of the domain-decomposed step: like
+    ``_build_slab_buckets`` over the shard's slab range of the global grid
+    (``local_columns``; the distance test keeps the stragglers' pairs
+    exact), with inactive slots sorting last and dropped. The halo exchange
+    writes the neighbours' boundary slabs into the lanes just inside the
+    pads (``parallel/domain.py``).
+
+    Returns (planes, counts (1, L) local only, addr (n,) i32 — cap_p·L for
+    inactive and capacity-overflow rows —, overflow () i32, sorted_key (n,)
+    i32 the rows' columns ascending — gx_loc·S_pad for inactive rows, which
+    sort last —, order (n,) i32 the row at each position): the last two are
+    the order the domain rescue's kernels walk, as ``_build_core``'s
+    ``sorted_col`` is the single-device rescue's."""
+    n, dim = pred.shape
+    cap = cfg_loc.cell_capacity
+    g = _geometry(cfg_loc)
+
+    col = local_columns(pred, origin, gx_loc, my_dev, params, cfg_loc)
     end = gx_loc * g.S_pad
     key = torch.where(active > 0, col, end)          # inactive sort last
     sorted_key, order = torch.sort(key, stable=True)
@@ -265,7 +279,8 @@ def build_local_slab_buckets(pred, vel, active, origin, gx_loc: int,
     addr = torch.empty(n, dtype=torch.int32, device=pred.device)
     addr[order] = flat.to(torch.int32)
     overflow = (active.sum() - ok.sum()).to(torch.int32)
-    return planes, counts, addr, overflow
+    return (planes, counts, addr, overflow, sorted_key,
+            order.to(torch.int32))
 
 
 def _param_vector(params: SimParams, coeffs: KernelCoeffs) -> torch.Tensor:

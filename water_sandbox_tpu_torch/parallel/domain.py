@@ -24,8 +24,14 @@ Scheme (1-D mesh of shards over the container's x axis, ``parallel/mesh.py``):
 A sharded state is a list of per-shard ``FluidState``s (P rows each, the
 scalars replicated) and a list of per-shard ``active`` masks (P,) f32.
 Shards run one phase after another in one process; the collectives are the
-mesh's. The JAX package's ``lax.scan`` over rescue chunks is a Python loop,
-and its ``lax.cond`` on ``pmax(overflow) > 0`` one host read per step.
+mesh's. The step reads nothing on the host, as JAX's ``jit(shard_map)``
+does not: the cross-shard rescue's kernels (``ops/cuda/domain_rescue.py``)
+gate themselves on a device count where JAX has ``lax.cond`` on
+``pmax(overflow) > 0``, and the plain pair-block path computes its rescue
+and selects it with ``torch.where``. So ``ops/cuda/graph.py::DomainGraph``
+captures the step as one CUDA graph when every shard sits on one CUDA
+device (``make_domain_rollout``, ``DistributedSimulation.run``), the
+counterpart of JAX's ``lax.scan`` over the jitted step.
 """
 
 from __future__ import annotations
@@ -35,11 +41,13 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..core.params import DENSITY_PADDING, KernelCoeffs, SimConfig, SimParams
+from ..core.params import (DENSITY_PADDING, KernelCoeffs, SimConfig,
+                           SimParams, _map_tensors)
 from ..core.state import FluidState
-from ..ops import grid as grid_mod, integrate as integrate_mod, kernels
+from ..ops import grid as grid_mod, integrate as integrate_mod
+from ..ops import rescue as rescue_mod
+from ..ops.cuda import domain_rescue as dr, graph as graph_mod
 from ..ops.cuda import sph_bucket as sb
-from ..ops.rescue import _chunks
 from .mesh import Mesh
 
 _FAR = sb._FAR
@@ -130,6 +138,28 @@ def _local_cfg(cfg: SimConfig, gx_loc: int) -> SimConfig:
     return dataclasses.replace(cfg, grid_dims=(gx_loc,) + cfg.grid_dims[1:])
 
 
+def _halo_build(pred, vel, active, params, cfg: SimConfig, gx_loc: int,
+                mesh: Mesh):
+    """``halo_planes`` and each shard's rows in its build's column order
+    (``domain_rescue.Rows``, the order the rescue's kernels walk)."""
+    cfg_loc = _local_cfg(cfg, gx_loc)
+    planes, addr, overflow, walks = [], [], [], []
+    for d in range(mesh.size):
+        origin = _grid_origin_static(params[d], cfg)
+        p, _, a, o, skey, order = sb.build_local_slab_buckets(
+            pred[d], vel[d], active[d], origin, gx_loc, d, params[d],
+            cfg_loc)
+        planes.append(p)
+        addr.append(a)
+        overflow.append(o)
+        walks.append(dr.Rows(skey, order))
+    g = sb._geometry(cfg_loc)
+    feats = _exchange_halo_slabs(planes, gx_loc, g.S_pad, g.PAD, mesh)
+    counts = [(f[0] < _FAR * 0.5).sum(dim=0, dtype=f.dtype)[None, :]
+              for f in feats]
+    return feats, counts, addr, overflow, walks
+
+
 def halo_planes(pred, vel, active, params, cfg: SimConfig, gx_loc: int,
                 mesh: Mesh):
     """Each shard's local build, then the exchange of the position and
@@ -138,21 +168,7 @@ def halo_planes(pred, vel, active, params, cfg: SimConfig, gx_loc: int,
 
     Returns lists (feats, counts, addr, overflow); ``addr`` addresses the
     local rows only, the halo lanes are read as candidates."""
-    cfg_loc = _local_cfg(cfg, gx_loc)
-    planes, addr, overflow = [], [], []
-    for d in range(mesh.size):
-        origin = _grid_origin_static(params[d], cfg)
-        p, _, a, o = sb.build_local_slab_buckets(
-            pred[d], vel[d], active[d], origin, gx_loc, d, params[d],
-            cfg_loc)
-        planes.append(p)
-        addr.append(a)
-        overflow.append(o)
-    g = sb._geometry(cfg_loc)
-    feats = _exchange_halo_slabs(planes, gx_loc, g.S_pad, g.PAD, mesh)
-    counts = [(f[0] < _FAR * 0.5).sum(dim=0, dtype=f.dtype)[None, :]
-              for f in feats]
-    return feats, counts, addr, overflow
+    return _halo_build(pred, vel, active, params, cfg, gx_loc, mesh)[:4]
 
 
 def _sph_local_pallas(pred, vel, active, params, coeffs, cfg: SimConfig,
@@ -162,54 +178,43 @@ def _sph_local_pallas(pred, vel, active, params, coeffs, cfg: SimConfig,
 
     With cfg.rescue_capacity > 0, capacity-overflow particles get the exact
     rescue, up to ``rescue_cap`` a shard a step, with dropped rows sent to
-    both neighbours so cross-shard pairs are exact too. Whether any shard
-    overflowed is read on the host (one sync per step).
+    both neighbours so cross-shard pairs are exact too: the kernels D1 and
+    D2 (``ops/cuda/domain_rescue.py``) run on every step, each shard's
+    launches gated on the device count of its valid query rows.
 
     All arguments but cfg, gx_loc, mesh and rescue_cap are per-shard lists.
     Returns lists (den, nden, prs, nprs, acc, overflow)."""
     nsh = mesh.size
-    dim = cfg.dim
     cfg_loc = _local_cfg(cfg, gx_loc)
     g = sb._geometry(cfg_loc)
     sentinel = sb._cap_pad(cfg.cell_capacity) * g.L
-    Pn = pred[0].shape[0]
 
-    feats, counts, addr, overflow = halo_planes(pred, vel, active, params,
-                                                cfg, gx_loc, mesh)
+    feats, counts, addr, overflow, walks = _halo_build(
+        pred, vel, active, params, cfg, gx_loc, mesh)
     pv = [sb._param_vector(p, c) for p, c in zip(params, coeffs)]
     dens = [sb.run_density(feats[d], counts[d], addr[d], pv[d], cfg_loc)
             for d in range(nsh)]
 
-    dropped = [(addr[d] == sentinel) & (active[d] > 0) for d in range(nsh)]
-    R = min(rescue_cap, cfg.rescue_capacity or 1, Pn)
-    rescue = (cfg.rescue_capacity > 0
-              and int(mesh.pmax(overflow)[0]) > 0)
+    rescue = cfg.rescue_capacity > 0
     unres = overflow
-
-    def halo(planes):
-        return [_halo_pseudo(p, gx_loc, g.S_pad, g.PAD) for p in planes]
-
     if rescue:
-        halo_pos = [hp.T for hp in halo([f[:dim] for f in feats])]
-        den_p, nden_p = [], []
+        # the kernels read rows through raw pointers
+        pred = [x.contiguous() for x in pred]
+        vel = [x.contiguous() for x in vel]
+        dropped = [(addr[d] == sentinel) & (active[d] > 0)
+                   for d in range(nsh)]
+        qs, slots, R = _rescue_queries(pred, vel, dropped, overflow, params,
+                                       cfg, gx_loc, mesh, rescue_cap)
+        qden = [torch.zeros(R, device=x.device) for x in pred]
+        qnden = [torch.zeros_like(x) for x in qden]
+        # corrected resident rows, with consistent derived planes, go into
+        # the planes before the exchange so the neighbours' force passes
+        # see them too
         for d in range(nsh):
-            invalid = addr[d] == sentinel            # dropped or inactive
-            safe = torch.clamp_max(addr[d], sentinel - 1).long()
-            dflat = dens[d][:2].reshape(2, -1)
-            den_p.append(torch.where(invalid, params[d].target_density,
-                                     dflat[0, safe]))
-            nden_p.append(torch.where(invalid, DENSITY_PADDING,
-                                      dflat[1, safe]))
-        den_p, nden_p, odata, rescued, unres = _rescue_density_common(
-            pred, vel, active, dropped, den_p, nden_p, halo_pos, params,
-            coeffs, R, mesh, cfg.chunk)
-        # corrected resident rows, with consistent derived planes, before
-        # the exchange so the neighbours' force passes see them too
-        for d in range(nsh):
-            keep = addr[d] != sentinel
-            dens[d].view(6, -1)[:, addr[d][keep].long()] = (
-                sb.derived_density_planes(den_p[d], nden_p[d],
-                                          params[d])[:, keep])
+            dr.rescue_density(pred[d], walks[d], addr[d], qs[d], feats[d],
+                              dens[d], qden[d], qnden[d], params[d],
+                              coeffs[d], pv[d], cfg_loc)
+        unres = [o - torch.clamp_max(o, R) for o in overflow]
 
     # halo densities are the neighbours' exact local results
     dens = _exchange_halo_slabs(dens, gx_loc, g.S_pad, g.PAD, mesh)
@@ -223,23 +228,18 @@ def _sph_local_pallas(pred, vel, active, params, coeffs, cfg: SimConfig,
     den, nden, acc = (list(x) for x in zip(*res))
 
     if rescue:
-        den = [torch.where(r, a, b) for r, a, b in zip(rescued, den_p, den)]
-        nden = [torch.where(r, a, b)
-                for r, a, b in zip(rescued, nden_p, nden)]
-        hvel = [hv.T for hv in halo([f[dim:2 * dim] for f in feats])]
-        hdens = halo([x[:2] for x in dens])
-        halo_rows = []
+        den = [_rescued(s, a, b, R) for s, a, b in zip(slots, qden, den)]
+        nden = [_rescued(s, a, b, R) for s, a, b in zip(slots, qnden, nden)]
+        qfs = _force_queries(qs, qden, qnden, params, mesh)
         for d in range(nsh):
-            # empty halo slots hold no density (the kernel leaves them
-            # unwritten): a finite fill keeps the sweep's masked terms 0
-            occ = halo_pos[d][:, 0] < _FAR * 0.5
-            halo_rows.append({
-                "pos": halo_pos[d], "vel": hvel[d],
-                "den": torch.where(occ, hdens[d][0], 1.0),
-                "nden": torch.where(occ, hdens[d][1], 1.0)})
-        acc = _rescue_force_common(acc, pred, vel, active, dropped, den,
-                                   nden, odata, rescued, halo_rows, params,
-                                   coeffs, mesh, cfg.chunk)
+            p = params[d]
+            acc[d] = acc[d].contiguous()
+            dr.rescue_force(
+                pred[d], vel[d], den[d], nden[d],
+                p.pressure_scalar * (den[d] - p.target_density),
+                p.near_pressure_scalar * nden[d], walks[d], slots[d], qs[d],
+                qfs[d], feats[d], dens[d], acc[d], p, coeffs[d], pv[d],
+                cfg_loc)
 
     prs = [p.pressure_scalar * (x - p.target_density)
            for p, x in zip(params, den)]
@@ -265,15 +265,14 @@ def _local_buckets(pred, vel, active, origin, params, cfg: SimConfig,
     for d in dims[1:]:
         S *= d
     nc_loc = gx_loc * S
-    dev = pred.device
 
     cell = torch.floor((pred - origin) / h).to(torch.int32)
-    hi = torch.tensor(dims, dtype=torch.int32, device=dev) - 1
-    cell = torch.minimum(torch.clamp_min(cell, 0), hi)
-    cx_local = torch.clamp(cell[:, 0] - my_dev * gx_loc, 0, gx_loc - 1)
-    rest = cell[:, 1]
+    # clamped axis by axis with Python bounds: no host-to-device copy
+    ax = [torch.clamp(cell[:, a], 0, dims[a] - 1) for a in range(len(dims))]
+    cx_local = torch.clamp(ax[0] - my_dev * gx_loc, 0, gx_loc - 1)
+    rest = ax[1]
     for a in range(2, len(dims)):
-        rest = rest * dims[a] + cell[:, a]
+        rest = rest * dims[a] + ax[a]
     cid = cx_local * S + rest
     cell_pos, cell_vel, cell_mask, addr, kept = grid_mod._scatter_buckets(
         cid, active, pred, vel, cfg.cell_capacity, nc_loc)
@@ -291,8 +290,10 @@ def _pad_slabs(planes: list[torch.Tensor], S: int,
     sweep finds no phantom particle at the world origin there."""
     out = []
     for p in planes:
-        slab = torch.tensor(fill, dtype=p.dtype, device=p.device)[
-            :, None, None].expand(p.shape[0], p.shape[1], S)
+        slab = torch.empty((p.shape[0], p.shape[1], S), dtype=p.dtype,
+                           device=p.device)
+        for f, v in enumerate(fill):
+            slab[f].fill_(v)
         out.append(torch.cat([slab, p, slab], dim=-1))
     return out
 
@@ -304,14 +305,15 @@ def _sph_local(pred, vel, active, params, coeffs, cfg: SimConfig,
     (the JAX package's ``_sph_local``). Only the middle slabs' densities
     are right after the first pass (the halo slabs lack their own outer
     neighbours), so the computed density planes are exchanged again before
-    the force pass. The rescue is ``_sph_local_pallas``'s.
+    the force pass. The rescue is the plain one of the kernels' path (the
+    sweeps of ``ops/cuda/domain_rescue.py``), computed on every step and
+    selected by ``pmax(overflow) > 0`` on the device (JAX's ``lax.cond``).
 
     All arguments but cfg, gx_loc, mesh and rescue_cap are per-shard lists.
     Returns lists (den, nden, prs, nprs, acc, overflow)."""
     nsh = mesh.size
     dim = cfg.dim
     cap = cfg.cell_capacity
-    Pn = pred[0].shape[0]
     ext_cfg = _local_cfg(cfg, gx_loc + 2)
 
     cell_vel, addr, overflow, pm = [], [], [], []
@@ -341,11 +343,7 @@ def _sph_local(pred, vel, active, params, coeffs, cfg: SimConfig,
         den_c.append(den_e[:, local])
         nden_c.append(nden_e[:, local])
 
-    dropped = [(addr[d] == cap * nc_loc) & (active[d] > 0)
-               for d in range(nsh)]
-    R = min(rescue_cap, cfg.rescue_capacity or 1, Pn)
-    rescue = (cfg.rescue_capacity > 0
-              and int(mesh.pmax(overflow)[0]) > 0)
+    rescue = cfg.rescue_capacity > 0
     unres = overflow
 
     def halo(planes):
@@ -353,21 +351,36 @@ def _sph_local(pred, vel, active, params, coeffs, cfg: SimConfig,
             p.shape[0], -1) for p in planes]
 
     if rescue:
+        on = [m > 0 for m in mesh.pmax(overflow)]
+        dropped = [(addr[d] == cap * nc_loc) & (active[d] > 0)
+                   for d in range(nsh)]
+        qs, slots, R = _rescue_queries(pred, vel, dropped, overflow, params,
+                                       cfg, gx_loc, mesh, rescue_cap)
         halo_pos = [hp.T for hp in halo([p[:dim] for p in pm_ext])]
-        den_p = [grid_mod._from_cells(den_c[d], addr[d],
-                                      params[d].target_density)
-                 for d in range(nsh)]
-        nden_p = [grid_mod._from_cells(nden_c[d], addr[d], DENSITY_PADDING)
-                  for d in range(nsh)]
-        den_p, nden_p, odata, rescued, unres = _rescue_density_common(
-            pred, vel, active, dropped, den_p, nden_p, halo_pos, params,
-            coeffs, R, mesh, cfg.chunk)
+        den_p, nden_p, qden, qnden = [], [], [], []
+        for d in range(nsh):
+            my_den, my_nden, cw, cwn = dr.density_sums(
+                qs[d].pos, qs[d].valid, R,
+                torch.where((active[d] > 0)[:, None], pred[d], _FAR),
+                halo_pos[d], params[d], coeffs[d], cfg.chunk)
+            # residents gain the dropped contributions; rescued rows take
+            # their exact sums; beyond-budget rows keep their fills
+            for cells, fill, mine, gain, out in (
+                    (den_c, params[d].target_density, my_den, cw, den_p),
+                    (nden_c, DENSITY_PADDING, my_nden, cwn, nden_p)):
+                x = grid_mod._from_cells(cells[d], addr[d], fill)
+                out.append(_rescued(slots[d], mine, torch.where(
+                    dropped[d], x, x + gain), R))
+            qden.append(my_den)
+            qnden.append(my_nden)
         # corrected resident rows into the planes before the exchange, so
         # the neighbours' force passes see them too
-        den_c = [grid_mod._to_cells(den_c[d], addr[d], den_p[d])
-                 for d in range(nsh)]
-        nden_c = [grid_mod._to_cells(nden_c[d], addr[d], nden_p[d])
-                  for d in range(nsh)]
+        den_c = [torch.where(on[d], grid_mod._to_cells(
+            den_c[d], addr[d], den_p[d]), den_c[d]) for d in range(nsh)]
+        nden_c = [torch.where(on[d], grid_mod._to_cells(
+            nden_c[d], addr[d], nden_p[d]), nden_c[d]) for d in range(nsh)]
+        unres = [torch.where(on[d], o - torch.clamp_max(o, R), o)
+                 for d, o in enumerate(overflow)]
 
     dfields = [torch.stack([
         den_c[d], nden_c[d],
@@ -393,17 +406,23 @@ def _sph_local(pred, vel, active, params, coeffs, cfg: SimConfig,
         acc.append(grid_mod._from_cells(acc_e[:, :, local], addr[d], 0.0))
 
     if rescue:
-        den = [torch.where(r, a, b) for r, a, b in zip(rescued, den_p, den)]
-        nden = [torch.where(r, a, b)
-                for r, a, b in zip(rescued, nden_p, nden)]
+        den = [torch.where(on[d], _rescued(slots[d], qden[d], den[d], R),
+                           den[d]) for d in range(nsh)]
+        nden = [torch.where(on[d], _rescued(slots[d], qnden[d], nden[d], R),
+                            nden[d]) for d in range(nsh)]
+        qfs = _force_queries(qs, qden, qnden, params, mesh)
         hvel = [hv.T for hv in halo(v_ext)]
         hdens = halo([x[:2] for x in dfields_e])
-        halo_rows = [{"pos": halo_pos[d], "vel": hvel[d],
-                      "den": hdens[d][0], "nden": hdens[d][1]}
-                     for d in range(nsh)]
-        acc = _rescue_force_common(acc, pred, vel, active, dropped, den,
-                                   nden, odata, rescued, halo_rows, params,
-                                   coeffs, mesh, cfg.chunk)
+        for d in range(nsh):
+            p = params[d]
+            halo_grp = dr.halo_group(halo_pos[d], hvel[d], hdens[d][0],
+                                     hdens[d][1], p)
+            new = dr.rescued_forces(
+                acc[d], pred[d], vel[d], den[d], nden[d],
+                p.pressure_scalar * (den[d] - p.target_density),
+                p.near_pressure_scalar * nden[d], active[d] > 0, slots[d],
+                qs[d], qfs[d], halo_grp, p, coeffs[d], cfg.chunk)
+            acc[d] = torch.where(on[d], new, acc[d])
 
     prs = [p.pressure_scalar * (x - p.target_density)
            for p, x in zip(params, den)]
@@ -415,272 +434,75 @@ def _sph_local(pred, vel, active, params, coeffs, cfg: SimConfig,
 # exact capacity-overflow rescue across shards
 # --------------------------------------------------------------------------
 #
-# 1. each shard packs up to R dropped rows (pos, vel) and sends them to both
-#    neighbours;
-# 2. density: one sweep of [mine + from-left + from-right] dropped queries
-#    against the LOCAL particles (query-side sums for my rows, candidate-side
-#    corrections for local residents), plus a sweep of my dropped rows
-#    against the halo pseudo-particles and the neighbours' dropped rows;
-#    corrected densities go into the planes BEFORE the density exchange;
-# 3. force: the same sweeps with the pair-force formulas, adding corrections
-#    to my residents from mine and the neighbours' dropped rows.
+# 1. each shard picks its first R dropped rows in row order
+#    (ops/rescue.py::rescue_selection: one cumsum, no sort, no host read)
+#    and sends them to both neighbours;
+# 2. density (D1): [mine + neighbours'] dropped rows against the LOCAL
+#    particles (their sums for my rows, their contributions for local
+#    residents), my rows also against the halo pseudo-particles and the
+#    neighbours' rows; corrected densities go into the planes BEFORE the
+#    density exchange;
+# 3. force (D2): my rows' densities go to the neighbours, then the same
+#    pairs with the pair-force formulas, adding corrections to my residents
+#    from mine and the neighbours' dropped rows.
 # Beyond-budget overflow stays dropped and is counted. A dropped particle at
 # the far edge of the halo window misses neighbours deeper than one slab —
 # the one-slab locality the whole step rests on.
 
-def _pack_dropped(pred, vel, dropped, R: int):
-    """First R dropped rows (stable order): local indices, validity and
-    _FAR-padded feature rows."""
-    prio = torch.where(dropped, 0, 1).to(torch.int32)
-    order = torch.sort(prio, stable=True).indices[:R]
-    valid = dropped[order]
-    opos = torch.where(valid[:, None], pred[order], _FAR)
-    ovel = torch.where(valid[:, None], vel[order], 0.0)
-    return order, valid, opos, ovel
+def _neighbours(xs: list[torch.Tensor], mesh: Mesh) -> list[torch.Tensor]:
+    """Each shard's own tensor, its left neighbour's and its right
+    neighbour's, concatenated (``lax.ppermute`` both ways; the rows that
+    came across the wrapped edges are masked by the callers)."""
+    return [torch.cat([x, l, r]) for x, l, r in
+            zip(xs, mesh.shift_right(xs), mesh.shift_left(xs))]
 
 
-def _both_ways(trees: list[dict], mesh: Mesh):
-    """Each shard's dict to its right and left neighbours. Returns
-    (from_left, from_right) lists; the wrapped edges' 'valid' is False."""
-    keys = list(trees[0])
-    from_left = [dict() for _ in trees]
-    from_right = [dict() for _ in trees]
-    for k in keys:
-        xs = [t[k] for t in trees]
-        for d, x in enumerate(mesh.shift_right(xs)):
-            from_left[d][k] = x
-        for d, x in enumerate(mesh.shift_left(xs)):
-            from_right[d][k] = x
-    from_left[0]["valid"] = torch.zeros_like(from_left[0]["valid"])
-    from_right[-1]["valid"] = torch.zeros_like(from_right[-1]["valid"])
-    return from_left, from_right
-
-
-def _halo_pseudo(planes, gx_loc: int, S_pad: int, PAD: int):
-    """The two halo-slab regions of (F, cap, L) planes as (F, 2·cap·S_pad)
-    pseudo-particle feature rows (empty slots _FAR in position planes)."""
-    F = planes.shape[0]
-    lo = planes[:, :, PAD - S_pad:PAD]
-    hi = planes[:, :, PAD + gx_loc * S_pad:PAD + (gx_loc + 1) * S_pad]
-    return torch.cat([lo.reshape(F, -1), hi.reshape(F, -1)], dim=-1)
-
-
-def _density_sweep(opos, cand_groups, params: SimParams,
-                   coeffs: KernelCoeffs, chunk: int,
-                   want_corrections: bool = False):
-    """Chunked dense density sweep: queries (O, dim) against each candidate
-    group (C, dim) of positions. Returns query-side (den_o, nden_o) sums
-    and, for the FIRST group when asked, per-candidate corrections (all
-    queries' contributions to each candidate)."""
-    h = params.smoothing_radius
-    den_o = torch.zeros(opos.shape[0], dtype=opos.dtype, device=opos.device)
-    nden_o = torch.zeros_like(den_o)
-    corrections = None
-    for gi, cpos_all in enumerate(cand_groups):
-        cw, cwn = [], []
-        for sl in _chunks(cpos_all.shape[0], chunk):
-            cpos = cpos_all[sl]
-            d2 = ((opos[:, None, :] - cpos[None, :, :]) ** 2).sum(dim=-1)
-            dist = torch.sqrt(torch.clamp_max(d2, _FAR))
-            m = torch.where(dist <= h, 1.0, 0.0)
-            dc = torch.minimum(dist, h)
-            w = m * kernels.w_density(dc, h, coeffs)
-            wn = m * kernels.w_near(dc, h, coeffs)
-            den_o = den_o + w.sum(dim=1)
-            nden_o = nden_o + wn.sum(dim=1)
-            if gi == 0 and want_corrections:
-                cw.append(w.sum(dim=0))
-                cwn.append(wn.sum(dim=0))
-        if gi == 0 and want_corrections:
-            corrections = (torch.cat(cw), torch.cat(cwn))
-    return den_o, nden_o, corrections
-
-
-def _force_sweep(q: dict, cand_groups: list[dict], params: SimParams,
-                 coeffs: KernelCoeffs, chunk: int,
-                 want_corrections: bool = False):
-    """Chunked dense pair-force sweep (the formulas of ops/rescue.py::
-    force_rescue). q: query rows (pos, vel, den, nden, prs, nprs, id).
-    Candidate groups: dicts of the same rows (id -2 padding, -3 excluded
-    beyond-budget rows). Returns query-side (pf_o, vf_o) and, for the first
-    group when asked, per-candidate (pf_j, vf_j) corrections."""
-    h = params.smoothing_radius
-    O, dim = q["pos"].shape
-    dev = q["pos"].device
-    up = torch.zeros(dim, dtype=q["pos"].dtype, device=dev)
-    up[1] = 1.0
-    pf_o = torch.zeros((O, dim), dtype=q["pos"].dtype, device=dev)
-    vf_o = torch.zeros_like(pf_o)
-    corrections = None
-    for gi, grp in enumerate(cand_groups):
-        pf_j, vf_j = [], []
-        for sl in _chunks(grp["pos"].shape[0], chunk):
-            ch = {k: v[sl] for k, v in grp.items()}
-            disp = ch["pos"][None, :, :] - q["pos"][:, None, :]    # o -> j
-            d2 = (disp * disp).sum(dim=-1)
-            dist = torch.sqrt(torch.clamp_max(d2, _FAR))
-            m = torch.where((dist <= h)
-                            & (q["id"][:, None] != ch["id"][None])
-                            & (ch["id"][None] != -3), 1.0, 0.0)
-            dc = torch.minimum(dist, h)
-            safe = torch.where(dist > 0.0, dist, 1.0)
-            dir_oj = torch.where((dist > 0.0)[..., None],
-                                 disp / safe[..., None], up)
-            shared_p = (q["prs"][:, None] + ch["prs"][None]) * 0.5
-            shared_np = (q["nprs"][:, None] + ch["nprs"][None]) * 0.5
-            dw = kernels.dw_density(dc, h, coeffs)
-            dwn = kernels.dw_near(dc, h, coeffs)
-            wv = m * kernels.w_viscosity(dc, h, coeffs)
-
-            scale_o = m * (shared_p * dw / ch["den"][None]
-                           + shared_np * dwn / ch["nden"][None])
-            pf_o = pf_o + (dir_oj * scale_o[..., None]).sum(dim=1)
-            vf_o = vf_o + ((ch["vel"][None] - q["vel"][:, None])
-                           * wv[..., None]).sum(dim=1)
-            if gi == 0 and want_corrections:
-                # force ON the candidate: the direction flips except for
-                # the +y fallback at d == 0, which both sides take
-                dir_jo = torch.where((dist > 0.0)[..., None], -dir_oj, up)
-                scale_j = m * (shared_p * dw / q["den"][:, None]
-                               + shared_np * dwn / q["nden"][:, None])
-                pf_j.append((dir_jo * scale_j[..., None]).sum(dim=0))
-                vf_j.append(((q["vel"][:, None] - ch["vel"][None])
-                             * wv[..., None]).sum(dim=0))
-        if gi == 0 and want_corrections:
-            corrections = (torch.cat(pf_j), torch.cat(vf_j))
-    return pf_o, vf_o, corrections
-
-
-def _rescue_density_common(pred, vel, active, dropped, den_p, nden_p,
-                           halo_pos, params, coeffs, R: int, mesh: Mesh,
-                           chunk: int):
-    """Phase-1 rescue over all shards (per-shard lists): pack and exchange
-    the dropped rows, sweep [mine + neighbours'] against the locals and mine
-    against the halo pseudo-particles and the neighbours' dropped rows.
-
-    Returns lists (den_p, nden_p, odata, rescued, unres): fully corrected
-    per-slot densities, the data phase 2 needs, the rescued mask and the
-    beyond-budget count."""
-    packs = [_pack_dropped(pred[d], vel[d], dropped[d], R)
-             for d in range(mesh.size)]
-    fl, fr = _both_ways([{"pos": opos, "vel": ovel, "valid": valid}
-                         for _, valid, opos, ovel in packs], mesh)
-    out = ([], [], [], [], [])
-    for d, (order, valid, opos, ovel) in enumerate(packs):
-        p, c = params[d], coeffs[d]
-        vall = torch.cat([valid, fl[d]["valid"], fr[d]["valid"]])
-        opos_all = torch.where(
-            vall[:, None],
-            torch.cat([opos, fl[d]["pos"], fr[d]["pos"]]), _FAR)
-        local_pos = torch.where((active[d] > 0)[:, None], pred[d], _FAR)
-        den_all, nden_all, (cw, cwn) = _density_sweep(
-            opos_all, [local_pos], p, c, chunk, want_corrections=True)
-        nbr_pos = [torch.where(x["valid"][:, None], x["pos"], _FAR)
-                   for x in (fl[d], fr[d])]
-        den_h, nden_h, _ = _density_sweep(opos, [halo_pos[d]] + nbr_pos, p,
-                                          c, chunk)
-        my_den = den_all[:R] + den_h + DENSITY_PADDING
-        my_nden = nden_all[:R] + nden_h + DENSITY_PADDING
-
-        rescued = torch.zeros_like(dropped[d])
-        rescued[order] = valid
-        den_full = torch.zeros_like(den_p[d])
-        den_full[order] = torch.where(valid, my_den, 0.0)
-        nden_full = torch.zeros_like(nden_p[d])
-        nden_full[order] = torch.where(valid, my_nden, 0.0)
-        # residents gain the dropped contributions; rescued rows take their
-        # exact sums; beyond-budget rows keep their fills
-        out[0].append(torch.where(
-            rescued, den_full,
-            torch.where(dropped[d], den_p[d], den_p[d] + cw)))
-        out[1].append(torch.where(
-            rescued, nden_full,
-            torch.where(dropped[d], nden_p[d], nden_p[d] + cwn)))
-        out[2].append({"order": order, "valid": valid, "pos": opos,
-                       "vel": ovel, "den": my_den, "nden": my_nden})
-        out[3].append(rescued)
-        out[4].append((dropped[d].sum() - valid.sum()).to(torch.int32))
-    return out
-
-
-def _rescue_force_common(acc, pred, vel, active, dropped, den, nden, odata,
-                         rescued, halo, params, coeffs, mesh: Mesh,
-                         chunk: int):
-    """Phase-2 rescue over all shards: pair forces for every pair that
-    involves a dropped particle, both sides. ``den``/``nden`` are the
-    corrected per-slot densities; ``halo`` the per-shard pseudo-particle
-    dicts (pos, vel, den, nden). Returns the corrected accelerations."""
-    fl, fr = _both_ways([{k: o[k] for k in ("pos", "vel", "den", "nden",
-                                            "valid")} for o in odata], mesh)
-    out = []
+def _rescue_queries(pred, vel, dropped, overflow, params, cfg: SimConfig,
+                    gx_loc: int, mesh: Mesh, rescue_cap: int):
+    """Each shard's first R = min(rescue_cap, rescue_capacity, P) dropped
+    rows, sent to both neighbours. Returns (per-shard
+    ``domain_rescue.Queries``, per-shard ``slot`` (P,) i32 — a dropped
+    row's rank, -1 otherwise —, R)."""
+    cfg_loc = _local_cfg(cfg, gx_loc)
+    R = min(rescue_cap, cfg.rescue_capacity, pred[0].shape[0])
+    sel, slots, valid, pos, vel_q = [], [], [], [], []
     for d in range(mesh.size):
-        p, c = params[d], coeffs[d]
-        Pn = pred[d].shape[0]
-        R = odata[d]["order"].shape[0]
-        dev = pred[d].device
+        s, slot, count = rescue_mod.rescue_selection(dropped[d], overflow[d],
+                                                     R)
+        v = torch.arange(R, device=s.device) < count
+        sel.append(s)
+        slots.append(slot)
+        valid.append(v)
+        pos.append(torch.where(v[:, None], pred[d][s.long()], _FAR))
+        vel_q.append(torch.where(v[:, None], vel[d][s.long()], 0.0))
+    valid = _neighbours(valid, mesh)
+    valid[0][R:2 * R] = False                     # the wrapped edges
+    valid[-1][2 * R:] = False
+    qs = []
+    for d, (v, p, u) in enumerate(zip(valid, _neighbours(pos, mesh),
+                                      _neighbours(vel_q, mesh))):
+        p = torch.where(v[:, None], p, _FAR)
+        col, scol, qord = dr.query_walk(
+            p, v, _grid_origin_static(params[d], cfg), gx_loc, d, params[d],
+            cfg_loc)
+        qs.append(dr.Queries(p, u, v, sel[d], col, scol, qord,
+                             v.sum(dtype=torch.int32)))
+    return qs, slots, R
 
-        def eos(dn, ndn):
-            return (p.pressure_scalar * (dn - p.target_density),
-                    p.near_pressure_scalar * ndn)
 
-        def qrows(x, ids):
-            prs, nprs = eos(x["den"], x["nden"])
-            v = x["valid"]
-            return {"pos": torch.where(v[:, None], x["pos"], _FAR),
-                    "vel": x["vel"],
-                    "den": torch.where(v, x["den"], 1.0),
-                    "nden": torch.where(v, x["nden"], 1.0),
-                    "prs": torch.where(v, prs, 0.0),
-                    "nprs": torch.where(v, nprs, 0.0),
-                    "id": ids}
+def _force_queries(qs, qden, qnden, params, mesh: Mesh) -> list:
+    """D2's query rows (``domain_rescue.force_rows``): each shard's rows
+    with the densities D1 gave them, sent to both neighbours."""
+    return [dr.force_rows(q, den, nden, p) for q, den, nden, p in
+            zip(qs, _neighbours(qden, mesh), _neighbours(qnden, mesh),
+                params)]
 
-        mine = odata[d]
-        my_ids = torch.where(mine["valid"], mine["order"], -1)
-        neg = torch.full((R,), -1, dtype=my_ids.dtype, device=dev)
-        parts = [qrows(mine, my_ids), qrows(fl[d], neg), qrows(fr[d], neg)]
-        q_all = {k: torch.cat([x[k] for x in parts]) for k in parts[0]}
 
-        iota = torch.arange(Pn, device=dev)
-        unres = dropped[d] & ~rescued[d]
-        prs, nprs = eos(den[d], nden[d])
-        act = active[d] > 0
-        locals_grp = {
-            "pos": torch.where(act[:, None], pred[d], _FAR),
-            "vel": vel[d],
-            "den": torch.where(den[d] > 0, den[d], 1.0),
-            "nden": torch.where(nden[d] > 0, nden[d], 1.0),
-            "prs": prs, "nprs": nprs,
-            # beyond-budget rows carry fill densities: out of the physics
-            # this step (counted)
-            "id": torch.where(act, torch.where(unres, -3, iota), -2),
-        }
-        pf_all, vf_all, (pf_j, vf_j) = _force_sweep(
-            q_all, [locals_grp], p, c, chunk, want_corrections=True)
-
-        h = halo[d]
-        hprs, hnprs = eos(h["den"], h["nden"])
-        halo_grp = {"pos": h["pos"], "vel": h["vel"],
-                    "den": torch.where(h["den"] > 0, h["den"], 1.0),
-                    "nden": torch.where(h["nden"] > 0, h["nden"], 1.0),
-                    "prs": hprs, "nprs": hnprs,
-                    "id": torch.full((h["pos"].shape[0],), -1,
-                                     dtype=my_ids.dtype, device=dev)}
-        q_mine = {k: v[:R] for k, v in q_all.items()}
-        pf_h, vf_h, _ = _force_sweep(q_mine, [halo_grp] + parts[1:], p, c,
-                                     chunk)
-
-        valid = mine["valid"]
-        my_den_safe = torch.where(valid, mine["den"], 1.0)
-        acc_o = ((pf_all[:R] + pf_h) / my_den_safe[:, None]
-                 + p.viscosity_strength * (vf_all[:R] + vf_h))
-        acc_full = torch.zeros_like(acc[d])
-        acc_full[mine["order"]] = torch.where(valid[:, None], acc_o, 0.0)
-        den_safe = torch.where(den[d] > 0, den[d], 1.0)
-        acc_corr = pf_j / den_safe[:, None] + p.viscosity_strength * vf_j
-        out.append(torch.where(
-            rescued[d][:, None], acc_full,
-            torch.where(dropped[d][:, None], acc[d], acc[d] + acc_corr)))
-    return out
+def _rescued(slot, mine, x, R: int):
+    """``x`` (P,) with each rescued row's value of ``mine`` (R,), the list
+    in row order (row ``sel[k]`` has slot k)."""
+    at = torch.clamp(slot, 0, R - 1).long()
+    return torch.where((slot >= 0) & (slot < R), mine[at], x)
 
 
 def _migrate(states, active, params, cfg: SimConfig, gx_loc: int,
@@ -807,17 +629,24 @@ def make_domain_rollout(mesh: Mesh, cfg: SimConfig, mig_cap: int = 256,
                         use_pallas: bool | None = None,
                         rescue_cap: int = 256):
     """``rollout(states, active, params, num_steps) -> (states, active,
-    lost_sum)``: a loop over the domain step, losses summed on the
-    device."""
+    lost_sum)``: ``num_steps`` domain steps, the migration losses summed
+    on the device (the JAX package's ``lax.scan`` over the step). Each call
+    steps a ``DomainGraph`` (``ops/cuda/graph.py``) over copies of its
+    inputs: on a mesh whose shards share one CUDA device it warms up and
+    captures, then replays one graph a step (keep a
+    ``DistributedSimulation`` for repeated windows); elsewhere, and on the
+    plain pair-block path (``use_pallas=False``: its occupied-cell walk,
+    ``ops/grid.py::_occupied_cells``, syncs), it steps eagerly."""
     step = make_domain_step(mesh, cfg, mig_cap=mig_cap,
                             use_pallas=use_pallas, rescue_cap=rescue_cap)
 
     def rollout(states, active, params, num_steps: int):
-        lost = torch.zeros((), device=mesh.devices[0])
-        for _ in range(num_steps):
-            states, active, lost_step = step(states, active, params)
-            lost = lost + lost_step
-        return states, active, lost
+        g = graph_mod.DomainGraph(
+            step, [s.clone() for s in states], [a.clone() for a in active],
+            _map_tensors(params, torch.clone), mesh,
+            capture=use_pallas is not False)
+        g.run(num_steps)
+        return g.states, g.active, g.lost
 
     return rollout
 

@@ -7,20 +7,28 @@ mesh in one process.
                                            device="cuda")
     sim.run(100)
     pos, vel = sim.particles()
+
+It owns a ``DomainGraph`` (``ops/cuda/graph.py``): with every shard on one
+CUDA device the first ``run`` warms the step up and captures it, and every
+step after is one replay of that graph; a mesh over several devices (or
+the CPU) steps eagerly into the same buffers.
 """
 
 from __future__ import annotations
 
+import threading
 import time as _time
 
 import torch
 
 from ..core import device as device_mod
-from ..core.params import SimConfig, SimParams
+from ..core.params import SimConfig, SimParams, _map_tensors
 from ..core.state import FluidState
 from ..models import scenes as scene_registry
+from ..ops.cuda import graph as graph_mod
 from ..parallel import domain, mesh as mesh_mod
 from . import metrics as metrics_mod
+from .runner import tune_buffers
 
 
 def _shard_count(n_shards: int | None, n_devices: int | None) -> int:
@@ -39,8 +47,15 @@ class DistributedSimulation:
     between the shards of ``mesh`` (default: ``n_shards`` shards on
     ``device``, CUDA unless the caller names the CPU; raises without a CUDA
     device). ``n_devices``, the JAX package's name for the shard count, is
-    taken as ``n_shards``. The first ``run`` is recorded as warm-up, as in
-    ``Simulation``."""
+    taken as ``n_shards``.
+
+    The state and parameters live in buffers of its own, stepped by its
+    ``DomainGraph``: ``states``, ``active`` and ``params`` are those
+    buffers (clone them to keep a snapshot). ``tune`` copies into the
+    parameter buffers, so a change takes effect on the next step with no
+    recapture. The first ``run`` is recorded as warm-up, as in
+    ``Simulation`` (it builds the kernels and captures the graph). ``run``
+    and ``tune`` hold ``lock`` (reentrant), as ``Simulation``'s do."""
 
     def __init__(self, cfg: SimConfig, params: SimParams, state: FluidState,
                  mesh: mesh_mod.Mesh | None = None,
@@ -51,16 +66,18 @@ class DistributedSimulation:
         n_shards = _shard_count(n_shards, n_devices)
         self.mesh = mesh or mesh_mod.make_mesh(n_shards, device)
         self.cfg = cfg.resolved()
-        self.params = params.to(self.mesh.devices[0])
+        dev = self.mesh.devices[0]
+        self.params = _map_tensors(params, lambda t: t.to(dev).clone())
         self.name = name
-        self.states, self.active = domain.shard_state(
+        states, active = domain.shard_state(
             state, self.mesh, self.cfg, self.params, slack=slack)
-        self._rollout = domain.make_domain_rollout(self.mesh, self.cfg,
-                                                   mig_cap=mig_cap)
+        self.graph = graph_mod.DomainGraph(
+            domain.make_domain_step(self.mesh, self.cfg, mig_cap=mig_cap),
+            states, active, self.params, self.mesh)
         self.lost_total = 0.0
-        self._lost_acc = torch.zeros((), device=self.mesh.devices[0])
         self.metrics = metrics_mod.MetricsRecorder()
         self._warm = False
+        self.lock = threading.RLock()
 
     @classmethod
     def from_scene(cls, name: str, n_shards: int | None = None,
@@ -72,6 +89,20 @@ class DistributedSimulation:
             name, device=mesh.devices[0], **cfg_overrides)
         return cls(cfg, params, state, mesh=mesh, slack=slack, name=name)
 
+    @property
+    def states(self) -> list[FluidState]:
+        return self.graph.states
+
+    @property
+    def active(self) -> list[torch.Tensor]:
+        return self.graph.active
+
+    @property
+    def execution(self) -> str:
+        """How ``run`` steps: "captured" (a replay of one CUDA graph a
+        step) or "eager"."""
+        return "captured" if self.graph.captures else "eager"
+
     def _sync(self):
         for dev in set(self.mesh.devices):
             if dev.type == "cuda":
@@ -82,22 +113,23 @@ class DistributedSimulation:
         device-side sum, read back when ``block`` (and by ``stats``)."""
         if num_steps <= 0:
             return self
-        t0 = _time.perf_counter()
-        self.states, self.active, lost = self._rollout(
-            self.states, self.active, self.params, num_steps)
-        self._lost_acc = self._lost_acc + lost
-        if block:
-            self._sync()
-            self.lost_total = float(self._lost_acc)
-            self.metrics.record_steps(num_steps, self.cfg.n,
-                                      _time.perf_counter() - t0,
-                                      compiled=not self._warm)
-            self._warm = True
+        with self.lock:
+            t0 = _time.perf_counter()
+            self.graph.run(num_steps)
+            if block:
+                self._sync()
+                self.lost_total = float(self.graph.lost)
+                self.metrics.record_steps(num_steps, self.cfg.n,
+                                          _time.perf_counter() - t0,
+                                          compiled=not self._warm)
+                self._warm = True
         return self
 
     def tune(self, **kw):
-        """Set scalar or vector SimParams fields by name."""
-        self.params = self.params.replace(**kw)
+        """Set any SimParams field by name (``Simulation.tune``): the values
+        are copied into the parameter buffers the step reads."""
+        with self.lock:
+            tune_buffers(self.params, kw)
         return self
 
     def particles(self):
@@ -121,7 +153,7 @@ class DistributedSimulation:
 
     def stats(self) -> dict:
         pos, vel = self.particles()
-        self.lost_total = float(self._lost_acc)
+        self.lost_total = float(self.graph.lost)
         s0 = self.states[0]
         out = {
             "step": int(s0.step_count),
@@ -130,6 +162,7 @@ class DistributedSimulation:
             "overflow_total": float(s0.overflow_total),
             "kinetic_energy": float(0.5 * (vel ** 2).sum()),
             "per_shard_counts": [int(a.sum()) for a in self.active],
+            "execution": self.execution,
         }
         out.update(self.metrics.summary())
         return out

@@ -131,16 +131,7 @@ class Simulation:
         ``sim.tune(field={'strength': -20, 'radius': 3})``. The values are
         copied into the parameter buffers the step reads."""
         with self.lock:
-            for k, v in kw.items():
-                target = _field(self.params, k)
-                if dataclasses.is_dataclass(target):
-                    items = (v.items() if isinstance(v, dict) else
-                             ((f.name, getattr(v, f.name))
-                              for f in dataclasses.fields(v)))
-                    for kk, vv in items:
-                        _set(_field(target, kk), vv, f"{k}.{kk}")
-                else:
-                    _set(target, v, k)
+            tune_buffers(self.params, kw)
         return self
 
     def gravity_off(self):
@@ -185,6 +176,21 @@ class Simulation:
         }
         out.update(self.metrics.summary())
         return out
+
+
+def tune_buffers(params: SimParams, kw: dict) -> None:
+    """Copy each ``name=value`` of ``kw`` into the parameter buffer of that
+    SimParams field (container/field take a dict or a dataclass)."""
+    for k, v in kw.items():
+        target = _field(params, k)
+        if dataclasses.is_dataclass(target):
+            items = (v.items() if isinstance(v, dict) else
+                     ((f.name, getattr(v, f.name))
+                      for f in dataclasses.fields(v)))
+            for kk, vv in items:
+                _set(_field(target, kk), vv, f"{k}.{kk}")
+        else:
+            _set(target, v, k)
 
 
 def _field(obj, name: str):
