@@ -32,8 +32,10 @@ must trip a pin. Then it drives the single-device path through ``Simulation.from
 (266,112 particles), then the incremental plane-resident mode on
 ``reference-cube`` in particle order (parity with the rebuild path at the
 JAX package's bars, the cache invariants, both kernels on re-inserted
-planes with holes, keep-or-drop windows for k = 0, 4, 8, 16, and
-``Simulation.from_scene(..., incremental_rebuild=8).run``). The
+planes with holes, the step captured with its rebuild, drop-step and
+materialize branches as CUDA graph IF conditional nodes against the eager
+step bit for bit, keep-or-drop windows of replayed graphs for k = 0, 4, 8,
+16, and ``Simulation.from_scene(..., incremental_rebuild=8).run``). The
 domain-decomposed step runs next: 8 shards of a
 128-particle flow against the single-device step (migration and the
 cross-shard rescue included, also with one shard alone overflowing; once
@@ -1272,29 +1274,6 @@ def inc_consistency(label, state, cache, cfg) -> None:
           f"{label}: non-finite state")
 
 
-def device_profile(fn):
-    """(device ms, kernel launches, the largest device times by event name
-    as a text) of ``fn()`` from torch.profiler: every device event's time,
-    and the kernels among them (copies and fills not counted)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_name: dict = {}
-    for e in dev:
-        by_name[e.name] = (by_name.get(e.name, 0.0)
-                           + e.time_range.end - e.time_range.start)
-    kernels = sum(1 for e in dev
-                  if not e.name.lower().startswith(("memcpy", "memset")))
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return (sum(by_name.values()) / 1e3, kernels,
-            "; ".join(f"{name[:70]} {us / 1e3:.4f} ms" for name, us in top))
-
-
 def phase_incremental(record, paths) -> None:
     """The incremental plane-resident path (ops/cuda/incremental.py) at
     reference-cube's full width, 65,536 particles, in particle order (the
@@ -1302,13 +1281,19 @@ def phase_incremental(record, paths) -> None:
     From one state settled 600 steps on the rebuild path: JAX's parity bars
     against the rebuild path; the cache invariants over 20 materialized
     steps; K1 and K2 against their plain versions on the next step's
-    re-inserted planes, which have holes (counts = top); keep-or-drop
-    windows of 50 steps for k = 0 (the rebuild path), 4, 8, 16 and the
-    scene's own sorted rebuild step, alternating, three rounds, with what
-    each k did (rescue steps, rebuilds, movers, hole debt) from one untimed
-    window each; device ms and kernel launches a step from torch.profiler
-    for k = 0 and 8. Last, Simulation.from_scene with incremental_rebuild=8
-    with its launches counted."""
+    re-inserted planes, which have holes (counts = top); the captured step
+    (IncrementalGraph, its branches IF conditional nodes) against the eager
+    one bit for bit over 20 steps with rebuilds and drop steps
+    (``capture_vs_eager``); keep-or-drop windows of 50 steps for k = 0
+    (the rebuild path), 4, 8, 16 and the scene's own sorted rebuild step,
+    every one a replayed graph, alternating, three rounds, with what each k
+    did (rescue steps, rebuilds, movers, hole debt) from one untimed eager
+    window each; for each, capture seconds, peak memory, kernels a replay
+    (the branches' apart) and torch.profiler's device ms, kernels and busy
+    share of a 20-step run. Last, Simulation.from_scene with cell capacity
+    8 and with incremental_rebuild=8, replaying one capture, with their
+    launches counted and the drop steps read from the graph's device
+    counts."""
     import dataclasses
     import water_sandbox_tpu_torch as wst
     from water_sandbox_tpu_torch.core.params import KernelCoeffs, _map_tensors
@@ -1383,40 +1368,40 @@ def phase_incremental(record, paths) -> None:
         f"{int((addr_r < cap_p * g.L).sum())}")
     del planes_r, dens_k, dens_p
 
+    capture_vs_eager(settled, params, dataclasses.replace(
+        cfg_k(4), cell_capacity=8))
+
     variants = {"k=0": cfg0, "k=4": cfg_k(4), "k=8": cfg8,
                 "k=16": cfg_k(16), "sorted rebuild": cfg_sorted}
 
-    # the rebuild steps (k = 0, sorted) replay one captured step each, as
-    # Simulation.run does; each window starts from the settled state
-    graphs = {name: graph_mod.StepGraph(settled.clone(), _map_tensors(
-        params, torch.clone), c) for name, c in variants.items()
-        if not c.incremental_rebuild}
-
-    def window(name, c, steps=50):
-        g = graphs.get(name)
-        if g is not None:
-            graph_mod.copy_state(g.state, settled)
-        s = settled.clone()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        if g is not None:
-            g.run(steps)
-        else:
-            wst.rollout(s, params, c, steps)
-        torch.cuda.synchronize()
-        return 1e3 * (time.perf_counter() - t) / steps
-
+    # every variant replays one captured step, as Simulation.run does: the
+    # rebuild steps (k = 0, sorted) a StepGraph, k = 4, 8, 16 an
+    # IncrementalGraph, whose run builds the cache on entry and
+    # materializes its last step (as rollout_inc); each window starts from
+    # the settled state. Captured on their first (5-step) window, with the
+    # memory that capture and window take above the tensors already there.
+    graphs, peak = {}, {}
     for name, c in variants.items():
-        window(name, c, 5)
+        kind = (graph_mod.IncrementalGraph if c.incremental_rebuild
+                else graph_mod.StepGraph)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        graphs[name] = kind(settled.clone(), _map_tensors(params, torch.clone),
+                            c)
+        window(graphs[name], 5)
+        torch.cuda.synchronize()
+        peak[name] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        check(graphs[name].graph is not None, f"{name}: not captured")
     times = {name: [] for name in variants}
     for r in range(3):
-        order = list(variants.items())
-        for name, c in (order if r % 2 == 0 else order[::-1]):
-            times[name].append(window(name, c))
+        order = list(variants)
+        for name in (order if r % 2 == 0 else order[::-1]):
+            times[name].append(window(graphs[name]))
 
     def what_it_did(name, c, steps=50):
         """Untimed: steps that rescued, rebuilds, mean movers a step and the
-        final hole debt over one window from the settled state."""
+        final hole debt over one window from the settled state (eager)."""
         s = settled
         if not c.incremental_rebuild:
             over = []
@@ -1441,6 +1426,7 @@ def phase_incremental(record, paths) -> None:
             movers=float(torch.stack(movers).float().mean()),
             debt=float(top.sum()) - int(occ))
 
+    med = {name: statistics.median(t) for name, t in times.items()}
     for name, c in variants.items():
         t = times[name]
         did = what_it_did(name, c)
@@ -1449,65 +1435,65 @@ def phase_incremental(record, paths) -> None:
             extra = (f", rebuilds {did['rebuilds']}, mean movers a step "
                      f"{did['movers']:.1f}, final hole debt "
                      f"{did['debt']:.0f} slots")
-        log(f"[incremental] {name}: median ms/step {statistics.median(t):.4f}"
-            f" (rounds {', '.join(f'{x:.4f}' for x in t)}; host clock over 50"
-            f" synced steps from the settled state; k=0 and the sorted "
-            f"step replay their captured step), rescue steps "
-            f"{did['rescued']} of 50{extra}")
+        log(f"[incremental] {name}: median ms/step {med[name]:.4f} (rounds "
+            f"{', '.join(f'{x:.4f}' for x in t)}; host clock over 50 synced "
+            f"replays of its captured step from the settled state; k > 0: "
+            f"the cache built on entry, the last step materializing), "
+            f"{med[name] / med['k=0']:.3f} of k=0 and "
+            f"{med[name] / med['sorted rebuild']:.3f} of the sorted step; "
+            f"rescue steps {did['rescued']} of 50{extra} (eager, untimed)")
 
-    for name in ("k=0", "k=8"):
-        c = variants[name]
-        s = settled
-        if c.incremental_rebuild:
-            cache = inc.build_cache(s.predicted, s.vel, params, c)
-            for _ in range(5):
-                s, cache = inc.step_inc(s, cache, params, c)
+    for name in variants:
+        gr = graphs[name]
+        graph_mod.copy_state(gr.state, settled)
+        fired0 = gr.fired() if name in ("k=4", "k=8", "k=16") else None
+        prof = profile_replays(gr)
+        branch = ""
+        if fired0 is not None:
+            fired = gr.fired()
+            ran = {k: fired[k] - fired0[k] for k in fired}
+            branch = (f"; branch bodies over the {2 * prof['steps']} steps "
+                      f"(traced and untraced runs) {ran}, their launches "
+                      f"a run {gr.branches.launches}")
+            check(prof["found"]["sph_density_kernel"] == prof["steps"]
+                  and prof["found"]["sph_force_kernel"] == prof["steps"]
+                  or prof["kernels"] == 0,
+                  f"incremental {name}: K1/K2 not once a replay in the "
+                  f"trace: {prof['found']}")
+        log(f"[incremental] {name} captured: capture {gr.capture_s:.3f} s "
+            f"({graph_mod.WARMUP_STEPS} warm-up steps, every branch forced, "
+            f"then one step), peak memory above the state "
+            f"{peak[name]:.1f} MiB (capture and a 5-step window), kernels "
+            f"a replay outside the branches {gr.per_replay}{branch}; "
+            f"torch.profiler over a {prof['steps']}-step run: device ms a "
+            f"step {prof['device_ms']:.4f}, kernels a step "
+            f"{prof['kernels']:.1f}, step kernels found {prof['found']}, "
+            f"busy share {fmt(prof['busy'])} (union {prof['union_ms']:.4f} "
+            f"over span {prof['span_ms']:.4f} ms a step), host clock a step "
+            f"{prof['wall_ms']:.4f} untraced; largest device ms a step "
+            f"{prof['top'][:5]}")
+    del graphs
 
-            def steps5():
-                nonlocal s, cache
-                for _ in range(5):
-                    s, cache = inc.step_inc(s, cache, params, c)
-        else:
-            s = wst.rollout(s, params, c, 5)
-
-            def steps5():
-                nonlocal s
-                for _ in range(5):
-                    s = wst.step(s, params, c)
-        dev_ms, launches, top = device_profile(steps5)
-        log(f"[incremental] {name}: torch.profiler over steps 6-10 from the "
-            f"settled state: device ms a step {dev_ms / 5:.4f}, kernel "
-            f"launches a step {launches / 5:.1f}; largest over the 5 steps: "
-            f"{top}")
-
-    def run_counting_rescues(sim, steps):
+    def run_counting_drops(sim, steps):
         """sim.run(steps) with the launches counted from 0, and the steps
-        whose overflow was above 0 (those whose rescue ran) read from each
-        step_inc the rollout makes."""
-        rescue_steps = 0
-        step_inc = inc.step_inc
-
-        def counting(*a, **k):
-            nonlocal rescue_steps
-            out = step_inc(*a, **k)
-            rescue_steps += int(out[0].overflow) > 0
-            return out
-
-        inc.step_inc = counting
-        try:
-            reset_launches()
-            sim.run(steps)
-            launches = launches_now()
-        finally:
-            inc.step_inc = step_inc
-        return launches, rescue_steps
+        whose drop-step branch ran, from the graph's device counts."""
+        fired0 = sim.graph.fired()
+        reset_launches()
+        sim.run(steps)
+        launches = launches_now()
+        fired = sim.graph.fired()
+        return launches, fired["drop"] - fired0["drop"], (
+            fired["rebuild"] - fired0["rebuild"])
 
     # the rescue on the incremental path: cell capacity 8 from the settled
     # state drops thousands of particles a step
     sim8 = wst.Simulation(dataclasses.replace(cfg8, cell_capacity=8),
                           params, settled)
     sim8.run(2)
-    launches, rescued8 = run_counting_rescues(sim8, 10)
+    graph8 = sim8.graph.graph
+    launches, rescued8, rebuilt8 = run_counting_drops(sim8, 10)
+    check(sim8.graph.graph is graph8 is not None,
+          "incremental cap 8: recaptured on a second run")
     check(rescued8 == 10, f"incremental cap 8: the rescue ran on {rescued8} "
           "of 10 steps")
     check_launches("reference-cube incremental cap 8", launches, 10,
@@ -1515,16 +1501,22 @@ def phase_incremental(record, paths) -> None:
     check(bool(torch.isfinite(sim8.state.pos).all()),
           "incremental cap 8: non-finite")
     paths["reference-cube incremental cap 8"] = (launches, 10)
-    log(f"[incremental] cell capacity 8: 10 steps after 2 from the settled "
-        f"state, the rescue on {rescued8} (overflow {int(sim8.state.overflow)}"
-        f" on the last), launches {launches}")
+    log(f"[incremental] cell capacity 8: 10 replays after a 2-step run from "
+        f"the settled state, the drop-step branch on {rescued8} (overflow "
+        f"{int(sim8.state.overflow)} on the last), rebuilds {rebuilt8}, "
+        f"launches {launches}")
     del sim8
 
     sim = wst.Simulation.from_scene("reference-cube", device="cuda",
                                     sorted_state=False, incremental_rebuild=8)
+    check(isinstance(sim.graph, graph_mod.IncrementalGraph),
+          "incremental: Simulation owns no IncrementalGraph")
     sim.run(5)
+    captured = sim.graph.graph
     steps = 50
-    launches, rescue_steps = run_counting_rescues(sim, steps)
+    launches, rescue_steps, rebuilt = run_counting_drops(sim, steps)
+    check(captured is not None and sim.graph.graph is captured,
+          "incremental: Simulation.run did not replay its first capture")
     check_launches("reference-cube incremental", launches, steps,
                    rescue_steps)
     paths["reference-cube incremental"] = (launches, steps)
@@ -1540,11 +1532,71 @@ def phase_incremental(record, paths) -> None:
           "incremental: more dropped particles than the rescue takes")
     st = sim.stats()
     log(f"[main] reference-cube incremental (Simulation.from_scene, "
-        f"sorted_state=False, incremental_rebuild=8): {steps} steps after 5, "
-        f"ms/step {st['ms_per_step']:.3f}, steps with dropped particles "
-        f"{rescue_steps}, ke {st['kinetic_energy']:.2f}, "
-        f"launches {launches}")
+        f"sorted_state=False, incremental_rebuild=8): {steps} replays after "
+        f"5, one capture, ms/step {st['ms_per_step']:.3f}, steps with "
+        f"dropped particles {rescue_steps}, rebuilds {rebuilt}, ke "
+        f"{st['kinetic_energy']:.2f}, launches {launches}")
     log(f"[incremental] phase passed in {time.perf_counter() - t_phase:.1f} s")
+
+
+def window(gr, steps: int = 50) -> float:
+    """ms/step of ``steps`` steps of graph ``gr`` from the state in its
+    buffers at call time, copied back after (host clock, synced)."""
+    from water_sandbox_tpu_torch.ops.cuda import graph as graph_mod
+    start = gr.state.clone()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    gr.run(steps)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t) / steps
+    graph_mod.copy_state(gr.state, start)
+    return ms
+
+
+def capture_vs_eager(settled, params, cfg, steps: int = 20) -> None:
+    """The captured incremental step (IncrementalGraph) against the eager
+    one bit for bit over ``steps`` steps from ``settled`` (cell capacity 8:
+    drop steps; k = 4: rebuilds), the eager steps under
+    torch.cuda.set_sync_debug_mode("error") except device_if's own read of
+    each branch's predicate; both runs' rebuild and drop steps from their
+    device counts."""
+    from water_sandbox_tpu_torch.core.params import _map_tensors
+    from water_sandbox_tpu_torch.ops.cuda import graph as graph_mod
+    from water_sandbox_tpu_torch.ops.cuda import incremental as inc
+    names = graph_mod.IncrementalGraph.BRANCHES
+    br = graph_mod.Branches(settled.device, names)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        e = settled
+        cache = inc.build_cache(e.predicted, e.vel, params, cfg)
+        for i in range(steps):
+            e, cache = inc.step_inc(e, cache, params, cfg, i == steps - 1, br)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    eager_fired = {k: int(v) for k, v in br.fired.items()}
+    gr = graph_mod.IncrementalGraph(settled.clone(),
+                                    _map_tensors(params, torch.clone), cfg)
+    gr.run(steps)
+    torch.cuda.synchronize()
+    fired = gr.fired()
+    check(gr.graph is not None, "incremental: no graph captured")
+    same = same_state(gr.state, e) and all(
+        same_bits(a, b) for a, b in zip(gr.cache, cache))
+    check(same, "incremental: captured and eager steps differ")
+    check(fired == eager_fired, f"incremental: captured branches {fired} "
+          f"against eager {eager_fired}")
+    check(fired["rebuild"] >= 1 and fired["drop"] >= 1,
+          f"incremental: the {steps} steps need a rebuild and a drop step: "
+          f"{fired}")
+    log(f"[incremental] captured against eager, k={cfg.incremental_rebuild} "
+        f"cell capacity {cfg.cell_capacity}, {steps} steps from the settled "
+        f"state: bit-identical (pos, vel, density, ids, and the cache's "
+        f"planes, addr, origin, ticks); branches ran {fired} (eager: the "
+        f"same); the eager steps ran under set_sync_debug_mode('error') "
+        f"with only device_if's reads of the predicates; IF nodes captured "
+        f"in {gr.capture_s:.3f} s, launches a replay outside the branches "
+        f"{gr.per_replay}, inside them a run {gr.branches.launches}")
 
 
 def sharded_by_id(states, active) -> np.ndarray:
@@ -2300,9 +2352,9 @@ def check_launches(path: str, launches: dict, steps: int,
                    rescue_steps: int | None = None) -> None:
     """The four main-path kernels once a step (the density and force
     kernels and both halves of the rescue, which gate themselves on the
-    device), the sort never. The incremental path reads the overflow on
-    the host and launches the rescue's two only on the ``rescue_steps``
-    steps that have dropped particles."""
+    device), the sort never. The incremental path launches the rescue's
+    two only inside its drop-step branch, on the ``rescue_steps`` steps
+    that have dropped particles (the graph's device counts)."""
     for k in STEP_KERNELS:
         want = (steps if rescue_steps is None or k in ("sph_density",
                                                        "sph_force")
@@ -2624,12 +2676,13 @@ print(json.dumps({"mean": statistics.mean(t), "median": statistics.median(t),
 # runtime only (so it runs in an older checkout too): ms/step of
 # DistributedSimulation.run over 20 steps after 10, and over 5 steps after
 # 3 at the cell capacity of argv[1], where every shard drops more rows than
-# the rescue takes (a rescue on every shard every step). Prints {label:
-# ms/step}.
+# the rescue takes (a rescue on every shard every step); each run's final
+# shard states saved to the npz of argv[2]. Prints {label: ms/step}.
 SHARDED = """
 import json, sys, time
+import numpy as np
 from water_sandbox_tpu_torch.runtime.distributed import DistributedSimulation
-out = {}
+out, saved = {}, {}
 for label, kw, warm, timed in (
         ("sharded-1m", {}, 10, 20),
         ("forced rescue", {"cell_capacity": int(sys.argv[1])}, 3, 5)):
@@ -2638,7 +2691,39 @@ for label, kw, warm, timed in (
     t0 = time.perf_counter()
     sim.run(timed)
     out[label] = 1e3 * (time.perf_counter() - t0) / timed
+    for i, (s, a) in enumerate(zip(sim.states, sim.active)):
+        for f in ("pos", "vel", "density", "ids"):
+            saved[f"{label}_{i}_{f}"] = getattr(s, f).cpu().numpy()
+        saved[f"{label}_{i}_active"] = a.cpu().numpy()
     del sim
+np.savez(sys.argv[2], **saved)
+print(json.dumps(out))
+"""
+
+# The incremental step in one tree, through the public runtime only (so it
+# runs in an older checkout too): reference-cube in particle order at
+# incremental_rebuild 8, at its cell capacity and at 8 (a drop step every
+# step), Simulation.run(50) after run(20) (each run builds the cache on
+# entry), its final state saved to the npz of argv[1]. Prints {label:
+# ms/step}.
+INCREMENTAL = """
+import json, sys, time
+import numpy as np, torch
+import water_sandbox_tpu_torch as wst
+out, saved = {}, {}
+for label, kw in (("k=8", {}), ("k=8 cap 8", {"cell_capacity": 8})):
+    sim = wst.Simulation.from_scene("reference-cube", sorted_state=False,
+                                    incremental_rebuild=8, **kw)
+    sim.run(20)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(50)
+    torch.cuda.synchronize()
+    out[label] = 1e3 * (time.perf_counter() - t0) / 50
+    for f in ("pos", "vel", "density", "ids"):
+        saved[f"{label}_{f}"] = getattr(sim.state, f).cpu().numpy()
+    del sim
+np.savez(sys.argv[1], **saved)
 print(json.dumps(out))
 """
 
@@ -2714,9 +2799,11 @@ def compare(other: Path) -> int:
     capacity and at 8 (the rescue on every step), R1/R2's device time
     a step (RESCUE) at cell capacity 8 and the budgets of COMPARE_BUDGETS,
     at count 0 and at the flagship past its budget, and sharded-1m's
-    ms/step on 4 shards at its cell capacity and at FORCED_CAP (SHARDED).
-    Checks that the sorted step's rescue at cell capacity 8 gives the same
-    bits in every run; reports whether the flagship's does."""
+    ms/step on 4 shards at its cell capacity and at FORCED_CAP (SHARDED),
+    and the incremental step's ms/step at k = 8 (INCREMENTAL). Checks that
+    the sorted step's rescue at cell capacity 8 gives the same bits in
+    every run; reports whether the flagship's, the domain step's and the
+    incremental step's do."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2735,12 +2822,15 @@ def compare(other: Path) -> int:
                                        ("change", ROOT), ("parent", other))):
         runs = {}
         npz = FRONT_OUT / f"compare_{i}_{label}.npz"
+        npz_sh = FRONT_OUT / f"compare_{i}_{label}_sharded.npz"
+        npz_inc = FRONT_OUT / f"compare_{i}_{label}_incremental.npz"
         for name, argv in (
                 ("bench", ["-m", "water_sandbox_tpu_torch.bench"]),
                 ("steps 100-200", ["-c", TRANSIENT, "{}"]),
                 ("steps 100-200 cap 8", ["-c", TRANSIENT, cap8]),
                 ("rescue", ["-c", RESCUE, str(npz)]),
-                ("sharded", ["-c", SHARDED, str(FORCED_CAP)])):
+                ("sharded", ["-c", SHARDED, str(FORCED_CAP), str(npz_sh)]),
+                ("incremental", ["-c", INCREMENTAL, str(npz_inc)])):
             out = subprocess.run([sys.executable, *argv], cwd=tree,
                                  capture_output=True, text=True,
                                  env=_front_env(), timeout=900)
@@ -2773,11 +2863,23 @@ def compare(other: Path) -> int:
             f"{sh['sharded-1m']:.4f} ms/step over 20 steps after 10; at "
             f"cell capacity {FORCED_CAP} (a rescue on every shard every "
             f"step) {sh['forced rescue']:.4f} ms/step over 5 after 3")
-        outs.append((label, np.load(npz)))
+        inc_ms = runs["incremental"]
+        log(f"[compare] {label}: reference-cube incremental (particle "
+            f"order, k=8), Simulation.run(50) after run(20), host clock "
+            f"(synced): {inc_ms['k=8']:.4f} ms/step; at cell capacity 8 "
+            f"(a drop step every step) {inc_ms['k=8 cap 8']:.4f}")
+        outs.append((label, {**{k: v for k, v in np.load(npz).items()},
+                             **{"sharded_" + k: v
+                                for k, v in np.load(npz_sh).items()},
+                             **{"incremental_" + k: v
+                                for k, v in np.load(npz_inc).items()}}))
     base_label, base = outs[0]
     for label, got in outs[1:]:
-        for scene in ("cube", "flagship"):
-            keys = [k for k in base.files if k.startswith(scene + "_")]
+        for scene, what in (("cube", "rescue step"),
+                            ("flagship", "rescue step"),
+                            ("sharded", "domain step (both runs)"),
+                            ("incremental", "incremental step (both runs)")):
+            keys = [k for k in base if k.startswith(scene + "_")]
             same = all(base[k].dtype == got[k].dtype
                        and base[k].tobytes() == got[k].tobytes()
                        for k in keys)
@@ -2785,7 +2887,7 @@ def compare(other: Path) -> int:
                                      - got[k].astype(np.float64)).max())
                         for k in keys)
             log(f"[compare] {label} against the first {base_label}: "
-                f"{scene} rescue step {'bit for bit' if same else 'differs'}"
+                f"{scene} {what} {'bit for bit' if same else 'differs'}"
                 f" (max |diff| {worst:.3e})")
             if scene == "cube":
                 check(same, f"--compare: {label}'s rescue step at cell "

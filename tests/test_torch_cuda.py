@@ -737,6 +737,106 @@ def test_domain_graph_replays_the_eager_step(cuda_device):
     assert sim.stats()["execution"] == "captured"
 
 
+def test_device_if_node_runs_its_body_only_where_pred_holds(cuda_device):
+    """graph.device_if under capture: an IF conditional node
+    (csrc/graph_if.cu) whose body (a sort, a tensor allocated inside it,
+    copies) runs on the replays where the () bool predicate holds and is
+    skipped where it is 0; the rest of the graph runs on every replay; the
+    body's runs are counted on the device; outside a capture the predicate
+    is read on the host. The capture runs on the stream the branches were
+    given (torch's streams come round robin from a pool, so the two can
+    meet): the body must move to another."""
+    from water_sandbox_tpu_torch.ops.cuda import graph
+    keys = torch.randint(0, 1 << 20, (4096,), dtype=torch.int32,
+                         device=cuda_device)
+    out = torch.zeros_like(keys)
+    x = torch.zeros(8, device=cuda_device)
+    pred = torch.zeros((), dtype=torch.bool, device=cuda_device)
+    br = graph.Branches(cuda_device, ("body",))
+
+    def body():
+        s = torch.sort(keys).values          # allocated inside the body
+        out.copy_(s)
+        x.add_(1.0)
+
+    def step():
+        x.add_(0.5)
+        graph.device_if(pred, body, br, "body")
+
+    br.force = True
+    step()                                   # warm-up: the body runs
+    br.force = False
+    torch.cuda.synchronize()
+    x.zero_()
+    out.zero_()
+    br.fired["body"].zero_()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=br.stream):
+        step()
+    for p in (False, False, True, False, True):
+        pred.fill_(p)
+        g.replay()
+    torch.cuda.synchronize()
+    assert int(br.fired["body"]) == 2
+    assert float(x[0]) == 5 * 0.5 + 2
+    assert torch.equal(out, torch.sort(keys).values)
+    out.zero_()
+    pred.fill_(False)
+    g.replay()
+    torch.cuda.synchronize()
+    assert int(out.abs().sum()) == 0 and int(br.fired["body"]) == 2
+    step()                                   # eager: pred read, 0
+    pred.fill_(True)
+    step()                                   # eager: runs
+    torch.cuda.synchronize()
+    assert int(br.fired["body"]) == 3
+
+
+def test_captured_incremental_step_equals_eager(cuda_device):
+    """IncrementalGraph on the card against the eager incremental steps, bit
+    for bit over two runs (7 and 3 steps) at k = 3 and cell capacity 4
+    (rebuild and drop steps); the eager steps synchronise nowhere but in
+    device_if's reads; K1/K2 launch once a replay, R1/R2 once a drop step
+    (the branch's device count)."""
+    from water_sandbox_tpu_torch.ops.cuda import graph
+    from water_sandbox_tpu_torch.ops.cuda import incremental as inc
+    from water_sandbox_tpu_torch.ops.cuda import rescue as rk
+    cfg, params, state = wt.scenes.build(
+        "mini-3d", device=cuda_device, neighbor_mode="pallas",
+        incremental_rebuild=3, cell_capacity=4, rescue_capacity=64)
+    cfg = cfg.resolved()
+    br = graph.Branches(cuda_device, graph.IncrementalGraph.BRANCHES)
+    e = state
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for steps in (7, 3):
+            cache = inc.build_cache(e.predicted, e.vel, params, cfg)
+            for i in range(steps):
+                e, cache = inc.step_inc(e, cache, params, cfg,
+                                        i == steps - 1, br)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    g = graph.IncrementalGraph(state.clone(), params, cfg)
+    sb.reset_launches()
+    rk.reset_launches()
+    g.run(7)
+    g.run(3)
+    torch.cuda.synchronize()
+    for f in ("pos", "vel", "predicted", "acc", "density", "ids",
+              "overflow_total"):
+        assert _same_bits(getattr(g.state, f), getattr(e, f)), f
+    for a, b in zip(g.cache, cache):
+        assert _same_bits(a, b)
+    fired = g.fired()
+    assert fired == {k: int(v) for k, v in br.fired.items()}
+    assert fired["rebuild"] >= 2 and fired["drop"] >= 5
+    assert g.per_replay == {"sph_density": 1, "sph_force": 1}
+    assert sb.LAUNCHES == {"sph_density": 10, "sph_force": 10}
+    assert rk.LAUNCHES == {"sph_rescue_density": fired["drop"],
+                           "sph_rescue_force": fired["drop"]}
+
+
 def test_a_host_read_in_the_step_fails_the_capture(cuda_device, monkeypatch):
     """A step that reads the device on the host cannot be captured, and the
     capture raises: nothing falls back to the eager loop. (Last in the

@@ -286,31 +286,36 @@ def test_incremental_matches_rebuild_path(k, steps, tol):
 
 
 def test_rollout_and_run_reach_the_incremental_path(monkeypatch):
-    """rollout and Simulation.run take rollout_inc in the kernel pipeline
+    """rollout (through rollout_inc) and Simulation.run run the incremental
+    steps of an IncrementalGraph (ops/cuda/graph.py) in the kernel pipeline
     ("auto" or "pallas") with incremental_rebuild > 0; step, trajectory and
     the plain modes keep the rebuild step, as in the JAX package."""
+    from water_sandbox_tpu_torch.ops.cuda import graph as graph_mod
     calls = []
-    real = inc.rollout_inc
+    real = graph_mod.IncrementalGraph.run
 
-    def counted(state, params, cfg, num_steps):
+    def counted(self, num_steps):
         calls.append(num_steps)
-        return real(state, params, cfg, num_steps)
+        return real(self, num_steps)
 
-    monkeypatch.setattr(inc, "rollout_inc", counted)
+    monkeypatch.setattr(graph_mod.IncrementalGraph, "run", counted)
     for mode in ("auto", "pallas"):
         sim = wt.Simulation.from_scene("mini-3d", device="cpu",
                                        neighbor_mode=mode,
                                        incremental_rebuild=4)
+        assert isinstance(sim.graph, graph_mod.IncrementalGraph)
         sim.run(2)
         assert int(sim.state.step_count) == 2
     assert calls == [2, 2]
     cfg, params, state = wt.scenes.build("mini-3d", device="cpu",
                                          incremental_rebuild=4)
+    assert int(wt.rollout(state, params, cfg, 3).step_count) == 3
+    assert calls == [2, 2, 3]
     wt.step(state, params, cfg)
     wt.trajectory(state, params, cfg, 2, 1)
     wt.rollout(state, params, dataclasses.replace(cfg, neighbor_mode="dense"),
                1)
-    assert calls == [2, 2]
+    assert calls == [2, 2, 3]
 
 
 # ------------------------------------------------------ (d) the port alone --

@@ -57,6 +57,9 @@ _ENTRY_POINTS = {
          [_P] * 6 + [_I] + [_P] * 8 + [_I, _I] + [_P] * 5 + [_I] * 10
          + [_P]),
     ],
+    # not a kernel port: the IF conditional node of graph.py::device_if
+    "graph_if": [("wst_if_begin", [_P, _P, _I, _P]),
+                 ("wst_if_end", [_I, _P])],
 }
 
 

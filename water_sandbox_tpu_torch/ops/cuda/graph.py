@@ -31,6 +31,17 @@ Kernel launches are counted as the eager step counts them: the wrappers'
 counters (``LAUNCHES`` of ``sph_bucket``, ``rescue``, ``bitonic_sort``,
 ``domain_rescue``) move only while the step is captured, and each replay
 adds what the capture counted; warm-up launches are not counted.
+
+``IncrementalGraph`` captures the incremental step
+(``ops/cuda/incremental.py``), whose branches the JAX package takes with
+``lax.cond`` on the device. ``device_if`` is that ``lax.cond`` with an
+empty else branch: under capture it records its body into a CUDA graph IF
+conditional node (``csrc/graph_if.cu``) on a () bool device tensor, which
+each replay evaluates on the device; outside a capture it reads the
+tensor on the host once and runs the body when it holds. A body's
+launches are counted apart from the rest of the step (``Branches``): each
+body keeps a device count of the replays where it ran, read once after
+``run``, and adds its captured launches that many times.
 """
 
 from __future__ import annotations
@@ -62,6 +73,22 @@ def _set_counters(values: list) -> None:
         c.update(v)
 
 
+def _launches_since(before: list) -> dict:
+    """The launches counted since ``before`` (``_read_counters``), by
+    kernel; the counters are put back to ``before``."""
+    after = _read_counters()
+    _set_counters(before)
+    return {k: v - b[k] for a, b in zip(after, before) for k, v in a.items()
+            if v != b[k]}
+
+
+def _add_launches(launches: dict, times: int) -> None:
+    """``launches`` (by kernel) added ``times`` times to the counters."""
+    for c in _counters():
+        for k in c:
+            c[k] += times * launches.get(k, 0)
+
+
 def copy_state(dst: FluidState, src: FluidState) -> None:
     """Copy every field of ``src`` into the buffers of ``dst``."""
     for f in dataclasses.fields(FluidState):
@@ -89,8 +116,7 @@ class _Graph:
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            for _ in range(WARMUP_STEPS):
-                self._advance()
+            self._warm_up()
         torch.cuda.current_stream(dev).wait_stream(side)
         self._restore(saved)
         del saved
@@ -98,12 +124,13 @@ class _Graph:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             self._advance()
-        after = _read_counters()
-        _set_counters(before)
-        self.per_replay = {k: v - b[k] for a, b in zip(after, before)
-                           for k, v in a.items() if v != b[k]}
+        self.per_replay = _launches_since(before)
         self.graph = graph
         self.capture_s = time.perf_counter() - t0
+
+    def _warm_up(self) -> None:
+        for _ in range(WARMUP_STEPS):
+            self._advance()
 
     def run(self, num_steps: int) -> None:
         if num_steps <= 0:
@@ -116,9 +143,7 @@ class _Graph:
             self.capture()
         for _ in range(num_steps):
             self.graph.replay()
-        for c in _counters():
-            for k in c:
-                c[k] += num_steps * self.per_replay.get(k, 0)
+        _add_launches(self.per_replay, num_steps)
 
 
 class StepGraph(_Graph):
@@ -209,3 +234,213 @@ class DomainGraph(_Graph):
         for dst, src in zip(self.active, active):
             dst.copy_(src)
         self.lost.copy_(lost)
+
+
+# ------------------------------------------------- device-side branches --
+
+def _eager_read(pred: torch.Tensor) -> bool:
+    """The host read of a device-side branch outside a capture: whether
+    ``pred`` holds. Allowed under ``torch.cuda.set_sync_debug_mode``."""
+    if pred.device.type != "cuda":
+        return bool(pred)
+    mode = torch.cuda.get_sync_debug_mode()
+    if mode:
+        torch.cuda.set_sync_debug_mode(0)
+    try:
+        return bool(pred)
+    finally:
+        if mode:
+            torch.cuda.set_sync_debug_mode(mode)
+
+
+class Branches:
+    """The device-side branches of one captured step, by name: ``fired``,
+    a () i64 device count of the runs of each body; ``launches``, the
+    kernel launches one run of it makes (counted at capture, apart from the
+    step's); ``pool``, the memory pool of the bodies' tensors in the graph,
+    and ``stream``, the stream they are captured on (on CUDA). With
+    ``force`` set, eager steps run every body without reading its
+    predicate (the warm-up: each body's kernels load, and its allocations
+    are made once, before the capture)."""
+
+    def __init__(self, device: torch.device, names):
+        self.fired = {k: torch.zeros((), dtype=torch.int64, device=device)
+                      for k in names}
+        self.launches: dict = {k: {} for k in names}
+        self.force = False
+        cuda = device.type == "cuda"
+        self.pool = torch.cuda.MemPool() if cuda else None
+        self.stream = torch.cuda.Stream(device) if cuda else None
+
+
+def device_if(pred, body, branches: Branches | None = None,
+              name: str = "") -> None:
+    """``body()`` where ``pred`` holds: the counterpart of ``lax.cond``
+    with an empty else branch.
+
+    ``pred`` a Python bool: a Python ``if``. A () bool tensor outside a
+    capture: one host read of it (``_eager_read``), or none when
+    ``branches.force``. While a CUDA graph is captured: ``body`` is
+    captured into an IF conditional node on ``pred`` (``csrc/graph_if.cu``)
+    on ``branches.stream``, its tensors in ``branches.pool``, and each
+    replay runs it or skips it on the device, with no host read; its
+    launches go to ``branches.launches[name]``, not to the step's count.
+
+    What the body writes and the rest of the step reads must be allocated
+    before the call and preset to the else branch's value: a tensor
+    allocated inside the body holds a value only on the replays where the
+    body ran. Each run of the body adds one to ``branches.fired[name]``."""
+    capturing = (isinstance(pred, torch.Tensor) and pred.device.type == "cuda"
+                 and torch.cuda.is_current_stream_capturing())
+    if not capturing:
+        if isinstance(pred, bool):
+            run = pred
+        else:
+            run = (branches is not None and branches.force) or _eager_read(
+                pred)
+        if run:
+            body()
+            if branches is not None:
+                branches.fired[name].add_(1)
+        return
+    if branches is None:
+        raise ValueError("device_if under capture needs a Branches")
+    if pred.dtype != torch.bool or pred.dim() != 0:
+        raise ValueError(f"{name}: the predicate must be a () bool tensor")
+    from . import _build
+    dev = pred.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    parent = torch.cuda.current_stream(dev)
+    child = branches.stream
+    while child.cuda_stream == parent.cuda_stream:
+        # torch hands its streams out round robin from a pool, so the
+        # body's may be the capturing one: take the next
+        child = branches.stream = torch.cuda.Stream(dev)
+    before = _read_counters()
+    err = _build.entry("wst_if_begin")(
+        pred.data_ptr(), child.cuda_stream, index, parent.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: IF node not added: CUDA error {err}")
+    try:
+        with torch.cuda.stream(child), torch.cuda.use_mem_pool(
+                branches.pool, dev):
+            body()
+            branches.fired[name].add_(1)
+    finally:
+        err = _build.entry("wst_if_end")(index, child.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: IF body not captured: CUDA error {err}")
+    counted = branches.launches[name]
+    for k, v in _launches_since(before).items():
+        counted[k] = counted.get(k, 0) + v
+
+
+class IncrementalGraph(_Graph):
+    """``run(n)`` is ``rollout_inc``: the bucket cache built from ``state``
+    on entry, then n incremental steps (``ops/cuda/incremental.py::
+    step_inc``) in place, the last one gathering the per-particle results
+    (``materialize``), reading ``params`` in place — the counterpart of
+    JAX's ``lax.scan`` over ``step_inc`` (``ops/pallas/incremental.py
+    :470``). On CUDA each step is one replay of a captured step whose
+    rebuild, drop-step and materialize branches are IF conditional nodes
+    (``device_if``); the materialize node reads ``materialize``, a device
+    flag the host fills (no sync) before the last replay. One graph over
+    one set of buffers, where a second graph for the last step would hold
+    a second copy of the step's memory and take a second capture. On the
+    CPU the same buffers step eagerly, each branch read on the host.
+
+    The buffers are the caller's state and params and the graph's own
+    cache (``cache``: planes, addr, origin, ticks) and flag. ``branches``
+    counts the replays where each branch ran; ``run`` reads the counts once
+    at its end and adds each body's launches that many times."""
+
+    BRANCHES = ("rebuild", "drop", "drop_force", "materialize")
+
+    def __init__(self, state: FluidState, params: SimParams,
+                 cfg: SimConfig):
+        self.cfg = cfg.resolved()
+        if (self.cfg.neighbor_mode != "pallas"
+                or self.cfg.incremental_rebuild <= 0):
+            raise ValueError("IncrementalGraph runs the incremental step "
+                             "(neighbor_mode 'pallas', incremental_rebuild "
+                             "> 0)")
+        super().__init__()
+        self.state = state
+        self.params = params
+        self.cache = None
+        self.materialize = torch.zeros((), dtype=torch.bool,
+                                       device=state.device)
+        self.branches = Branches(state.device, self.BRANCHES)
+        self._seen = {k: 0 for k in self.BRANCHES}
+
+    @property
+    def device(self) -> torch.device:
+        return self.state.device
+
+    @property
+    def captures(self) -> bool:
+        return self.state.device.type == "cuda"
+
+    def _copy_cache(self, cache) -> None:
+        for dst, src in zip(self.cache, cache):
+            dst.copy_(src)
+
+    def build(self) -> None:
+        """The cache rebuilt from the state, into the cache buffers."""
+        from . import incremental
+        cache = incremental.build_cache(self.state.predicted, self.state.vel,
+                                        self.params, self.cfg)
+        if self.cache is None:
+            self.cache = cache
+        else:
+            self._copy_cache(cache)
+
+    def _advance(self) -> None:
+        from . import incremental
+        state, cache = incremental.step_inc(
+            self.state, self.cache, self.params, self.cfg,
+            materialize=self.materialize, branches=self.branches)
+        copy_state(self.state, state)
+        self._copy_cache(cache)
+
+    def _warm_up(self) -> None:
+        self.branches.force = True
+        try:
+            super()._warm_up()
+        finally:
+            self.branches.force = False
+
+    def capture(self) -> None:
+        self.branches.launches = {k: {} for k in self.BRANCHES}
+        super().capture()
+
+    def _save(self):
+        return (self.state.clone(), [t.clone() for t in self.cache],
+                {k: v.clone() for k, v in self.branches.fired.items()})
+
+    def _restore(self, saved) -> None:
+        state, cache, fired = saved
+        copy_state(self.state, state)
+        self._copy_cache(cache)
+        for k, v in fired.items():
+            self.branches.fired[k].copy_(v)
+
+    def fired(self) -> dict:
+        """The runs of each branch so far (one host read)."""
+        names = list(self.branches.fired)
+        values = torch.stack([self.branches.fired[k] for k in names])
+        return dict(zip(names, values.tolist()))
+
+    def run(self, num_steps: int) -> None:
+        if num_steps <= 0:
+            return
+        self.build()
+        self.materialize.fill_(False)
+        super().run(num_steps - 1)
+        self.materialize.fill_(True)
+        super().run(1)
+        if self.captures:
+            fired = self.fired()
+            for name, launches in self.branches.launches.items():
+                _add_launches(launches, fired[name] - self._seen[name])
+            self._seen = fired

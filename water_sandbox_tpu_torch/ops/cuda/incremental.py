@@ -28,11 +28,7 @@ step is ordered
 * A full rebuild (``build_cache``) replaces the re-inserted planes every
   ``cfg.incremental_rebuild`` steps, and whenever the mover budget
   overflows, the anchor drifts by more than 3/4 h from where a fresh build
-  would put it, or the hole debt ``sum(top) - occupied`` passes n/2. The
-  decision is read on the host (one device sync a step, besides the read
-  of ``overflow`` that decides the rescue and the dropped rows'
-  integration below): PyTorch runs eagerly, so the branch is a Python
-  ``if``.
+  would put it, or the hole debt ``sum(top) - occupied`` passes n/2.
 * A mover whose column is full is dropped (address ``cap_p·L``): the same
   step's rescue (the kernels of ``ops/cuda/rescue.py``, launched only on
   steps with dropped particles) computes it exactly, it integrates in
@@ -42,6 +38,15 @@ step is ordered
 * Per-particle densities and accelerations are gathered only when
   ``materialize`` (the rollout's last step); earlier steps carry
   one-step-stale shadows, and the planes are the state.
+
+The rebuild, the drop step (the rescue's density half before the force
+kernel, its force half, the residents' patch and the dropped rows'
+integration after it) and the materializing gather are branches decided on
+the device, as JAX's ``lax.cond``s are (``incremental.py:308``, ``:355``,
+``:385``, ``:401``, ``:437``): ``graph.device_if``. Under CUDA-graph
+capture each is an IF conditional node, so the step reads nothing on the
+host and ``rollout_inc`` (``graph.IncrementalGraph``) replays one captured
+step a step; eagerly each predicate is read on the host once.
 
 Pair sets equal the rebuild path's; only the slot order within a column
 differs, so trajectories differ from it by float reassociation.
@@ -53,9 +58,10 @@ from typing import NamedTuple
 
 import torch
 
-from ...core.params import DENSITY_PADDING, KernelCoeffs, SimConfig, SimParams
+from ...core.params import KernelCoeffs, SimConfig, SimParams, _map_tensors
 from ...core.state import FluidState
 from .. import hashing, integrate as integrate_mod
+from . import graph as graph_mod
 from . import rescue as rescue_k
 from . import sph_bucket as sb
 
@@ -151,16 +157,16 @@ def _new_columns(predicted, origin, params: SimParams, cfg: SimConfig,
     """Slab-strided column key per particle against the frozen anchor (the
     build's derivation, ``sph_bucket._build_core``)."""
     dims = cfg.grid_dims
-    gz = dims[2] if cfg.dim == 3 else 1
     # a true division, not a multiply by 1/h: keys must match the build's
     cell = torch.floor((predicted - origin)
                        / params.smoothing_radius).to(torch.int32)
-    hi = torch.tensor(dims, dtype=torch.int32, device=predicted.device) - 1
-    cell = torch.minimum(torch.clamp_min(cell, 0), hi)
-    r = cell[:, 1]
+    # clamped axis by axis with Python bounds, as the build: no
+    # host-to-device copy, so the step runs under CUDA-graph capture
+    ax = [torch.clamp(cell[:, a], 0, dims[a] - 1) for a in range(cfg.dim)]
+    r = ax[1]
     if cfg.dim == 3:
-        r = r * gz + cell[:, 2]
-    return cell[:, 0] * S_pad + r
+        r = r * dims[2] + ax[2]
+    return ax[0] * S_pad + r
 
 
 def _scatter_dropping(flat, idx, vals):
@@ -170,6 +176,19 @@ def _scatter_dropping(flat, idx, vals):
     buf[:-1] = flat
     buf[idx.long()] = vals
     return buf[:-1]
+
+
+def _patch_acc(out_c, addr, dropped, acc) -> None:
+    """The residents' accelerations ``acc`` (n, dim) into the force planes
+    ``out_c`` (2 + dim, cap_p, L) at ``addr``, in place: one scatter on the
+    flat planes, dropped rows sent to the one dropped index (JAX
+    ``incremental.py:389-394``), so no mask index and no host read."""
+    dim = acc.shape[1]
+    PL = out_c.shape[1] * out_c.shape[2]
+    idx = torch.cat([torch.where(dropped, (2 + dim) * PL,
+                                 (2 + a) * PL + addr) for a in range(dim)])
+    out_c.copy_(_scatter_dropping(out_c.reshape(-1), idx,
+                                  acc.T.reshape(-1)).view(out_c.shape))
 
 
 def read_state(state: FluidState, cache: BucketCache, params: SimParams,
@@ -252,87 +271,113 @@ def reinsert(pred_c, vel_c, cache: BucketCache, params: SimParams,
 
 
 def step_inc(state: FluidState, cache: BucketCache, params: SimParams,
-             cfg: SimConfig, materialize: bool = False):
+             cfg: SimConfig, materialize=False, branches=None):
     """One incremental step. Returns (state', cache').
 
-    ``materialize``: gather the post-step per-particle state (positions,
-    velocities, densities, accelerations) from the planes this step, as on
-    the rollout's last step; otherwise residents keep one-step-stale
-    shadows (see the module docstring)."""
+    ``materialize`` (a bool, or a () bool tensor read on the device):
+    gather the post-step per-particle state (positions, velocities,
+    densities, accelerations) from the planes this step, as on the
+    rollout's last step; otherwise residents keep one-step-stale shadows
+    (see the module docstring). Reads nothing on the host but the
+    branches' predicates (``graph.device_if``), and those only outside a
+    capture. ``branches`` (``graph.Branches``) counts the runs of the
+    branches "rebuild", "drop", "drop_force" and "materialize"; a capture
+    needs it."""
     dim = cfg.dim
     h = params.smoothing_radius
-    L = sb._geometry(cfg).L
+    g = sb._geometry(cfg)
     cap_p = sb._cap_pad(cfg.cell_capacity)
-    PL = cap_p * L
+    PL = cap_p * g.L
     n = state.n
+    dev = state.pos.device
     coeffs = KernelCoeffs.from_radius(h, dim)
     params_vec = sb._param_vector(params, coeffs)
     look = params.lookahead
-    origin, ticks = cache.origin, cache.ticks
 
     pred_c, vel_c, pos_c = read_state(state, cache, params, cfg)
     planes_r, addr_r, nm, top0, occ_total = reinsert(pred_c, vel_c, cache,
                                                      params, cfg)
 
-    # --- rebuild decision, read on the host ---
-    drift = ((origin - (pred_c.amin(dim=0) - h)).abs() > 0.75 * h).any()
+    # --- the rebuild replaces the re-inserted planes (JAX :308) ---
+    drift = ((cache.origin - (pred_c.amin(dim=0) - h)).abs()
+             > 0.75 * h).any()
     debt = top0.sum() - occ_total.to(torch.float32)
     k = max(cfg.incremental_rebuild, 1)
-    rebuild = ((ticks >= k) | (nm > mover_budget(cfg)) | drift
+    rebuild = ((cache.ticks >= k) | (nm > mover_budget(cfg)) | drift
                | (debt > float(n // 2)))
-    if bool(rebuild):
-        planes_r, addr_r, origin, ticks = build_cache(pred_c, vel_c, params,
-                                                      cfg)
+    origin, ticks = cache.origin.clone(), cache.ticks.clone()
+
+    def do_rebuild():
+        fresh = build_cache(pred_c, vel_c, params, cfg)
+        planes_r.copy_(fresh.planes)
+        addr_r.copy_(fresh.addr)
+        origin.copy_(fresh.origin)
+        ticks.zero_()
+
+    graph_mod.device_if(rebuild, do_rebuild, branches, "rebuild")
 
     # --- the kernels on the re-inserted planes, lanes walked to `top` ---
     dropped = addr_r == PL
     overflow = dropped.sum().to(torch.int32)
+    drops = overflow > 0
     top, _ = _top_row(planes_r, cap_p)
     dens = sb.run_density(planes_r, top, addr_r, params_vec, cfg)
 
-    # the rescue and the dropped particles' particle-order integration run
-    # only on steps with dropped particles: read on the host
-    n_over = int(overflow)
-    rescue = n_over > 0 and cfg.rescue_capacity > 0
-    if rescue:
+    # What the drop-step branch writes, preset to JAX's else branch
+    # (:324-326, :400-403); `held` carries its selection from the density
+    # half (before the force kernel) to the force half (after it). Both
+    # halves take the one predicate, so both run or neither does.
+    den_r = torch.zeros(n, device=dev)
+    nden_r = torch.zeros(n, device=dev)
+    rescued = torch.zeros(n, dtype=torch.bool, device=dev)
+    pos_d, vel_d, pred_d = (torch.zeros((n, dim), device=dev)
+                            for _ in range(3))
+    held = {}
+    rescue = cfg.rescue_capacity > 0
+
+    def rescue_density():
         # the kernels read rows through raw pointers
         pred_k, vel_k = pred_c.contiguous(), vel_c.contiguous()
         # the cell order the rescue walks: the rows' keys against the
         # anchor the planes now use, sorted (only on steps that drop)
-        col = _new_columns(pred_c, origin, params, cfg,
-                           sb._geometry(cfg).S_pad)
+        col = _new_columns(pred_c, origin, params, cfg, g.S_pad)
         sorted_col, order = torch.sort(col, stable=True)
-        den_r, nden_r, sel, slot, count, walk = sb.rescue_density_planes(
+        den, nden, sel, slot, count, walk = sb.rescue_density_planes(
             dens, addr_r, dropped, overflow, pred_k, params, coeffs, cfg,
             params_vec, sorted_col, order.to(torch.int32))
-        rescued = (slot >= 0) & (slot < count)
+        den_r.copy_(den)
+        nden_r.copy_(nden)
+        rescued.copy_((slot >= 0) & (slot < count))
+        held.update(pred_k=pred_k, vel_k=vel_k, sel=sel, slot=slot,
+                    count=count, walk=walk)
+
+    if rescue:
+        graph_mod.device_if(drops, rescue_density, branches, "drop")
 
     out_c = sb.run_force(planes_r, dens, top, addr_r, params_vec, cfg)
     t_new = state.time + params.dt
 
-    def corrected(den, nden):
-        if not rescue:
-            return den, nden
-        return (torch.where(rescued, den_r, den),
-                torch.where(rescued, nden_r, nden))
-
-    if n_over:
-        # the dropped particles' exact forces, in particle order; the
-        # residents' corrected accelerations back into the plane layout
+    def fix_dropped():
+        # the dropped particles' exact forces, in particle order
         den, nden, acc = sb.gather_results(out_c, addr_r, dropped, params)
-        den, nden = corrected(den, nden)
         if rescue:
+            den = torch.where(rescued, den_r, den)
+            nden = torch.where(rescued, nden_r, nden)
             acc = acc.contiguous()
             prs = params.pressure_scalar * (den - params.target_density)
             nprs = params.near_pressure_scalar * nden
-            rescue_k.rescue_force(pred_k, vel_k, den, nden, prs, nprs, sel,
-                                  slot, count, acc, params, coeffs,
-                                  params_vec, cfg, walk)
-            keep = ~dropped
-            out_c.view(2 + dim, -1)[2:, addr_r[keep].long()] = acc[keep].T
+            rescue_k.rescue_force(held["pred_k"], held["vel_k"], den, nden,
+                                  prs, nprs, held["sel"], held["slot"],
+                                  held["count"], acc, params, coeffs,
+                                  params_vec, cfg, held["walk"])
+            _patch_acc(out_c, addr_r, dropped, acc)
         # dropped particles integrate in particle order
-        pos_d, vel_d, pred_d = integrate_mod.integrate(pos_c, vel_c, acc,
-                                                       params, t_new)
+        p, v, pr = integrate_mod.integrate(pos_c, vel_c, acc, params, t_new)
+        pos_d.copy_(p)
+        vel_d.copy_(v)
+        pred_d.copy_(pr)
+
+    graph_mod.device_if(drops, fix_dropped, branches, "drop_force")
 
     # --- integrate in the plane layout; holes go back to _FAR / 0 ---
     occupied = planes_r[0] < 0.5 * sb._FAR
@@ -345,23 +390,27 @@ def step_inc(state: FluidState, cache: BucketCache, params: SimParams,
         + [torch.where(occupied, nv[a], 0.0) for a in range(dim)])
 
     # --- particle shadows: dropped stay current, residents refresh on
-    # materialize ---
-    if materialize:
-        den_s, nden_s, acc_s = sb.gather_results(out_c, addr_r, dropped,
-                                                 params)
-        den_s, nden_s = corrected(den_s, nden_s)
+    # materialize (JAX :437); the step's own pred_c, vel_c, pos_c take the
+    # gathered rows in place ---
+    den_s, nden_s = state.density.clone(), state.near_density.clone()
+    acc_s = state.acc.clone()
+
+    def gather_state():
+        den, nden, acc = sb.gather_results(out_c, addr_r, dropped, params)
+        den_s.copy_(torch.where(rescued, den_r, den))
+        nden_s.copy_(torch.where(rescued, nden_r, nden))
+        acc_s.copy_(acc)
         rows2 = newplanes.reshape(2 * dim, -1)[
             :, torch.clamp_max(addr_r, PL - 1).long()]
-        pred_s, vel_s = rows2[:dim].T, rows2[dim:].T
-        pos_s = pred_s - vel_s * look
-    else:
-        den_s, nden_s, acc_s = (state.density, state.near_density, state.acc)
-        pred_s, vel_s, pos_s = pred_c, vel_c, pos_c
-    if n_over:
-        dc = dropped[:, None]
-        pred_s = torch.where(dc, pred_d, pred_s)
-        vel_s = torch.where(dc, vel_d, vel_s)
-        pos_s = torch.where(dc, pos_d, pos_s)
+        pred_c.copy_(rows2[:dim].T)
+        vel_c.copy_(rows2[dim:].T)
+        pos_c.copy_(pred_c - vel_c * look)
+
+    graph_mod.device_if(materialize, gather_state, branches, "materialize")
+    dc = dropped[:, None]
+    pred_s = torch.where(dc, pred_d, pred_c)
+    vel_s = torch.where(dc, vel_d, vel_c)
+    pos_s = torch.where(dc, pos_d, pos_c)
 
     state_out = FluidState(
         pos=pos_s, vel=vel_s, predicted=pred_s, acc=acc_s,
@@ -378,11 +427,12 @@ def step_inc(state: FluidState, cache: BucketCache, params: SimParams,
 
 def rollout_inc(state: FluidState, params: SimParams, cfg: SimConfig,
                 num_steps: int) -> FluidState:
-    """``num_steps`` incremental steps. The cache is built on entry and
-    dropped at exit (callers that run in chunks pay one rebuild a chunk);
-    per-particle results are gathered on the last step only."""
-    cache = build_cache(state.predicted, state.vel, params, cfg)
-    for i in range(num_steps):
-        state, cache = step_inc(state, cache, params, cfg,
-                                materialize=i == num_steps - 1)
-    return state
+    """``num_steps`` incremental steps on copies of the caller's state and
+    params (``graph.IncrementalGraph``: on CUDA, replays of one captured
+    step). The cache is built on entry and dropped at exit (callers that
+    run in chunks pay one rebuild a chunk); per-particle results are
+    gathered on the last step only."""
+    g = graph_mod.IncrementalGraph(state.clone(),
+                                   _map_tensors(params, torch.clone), cfg)
+    g.run(num_steps)
+    return g.state

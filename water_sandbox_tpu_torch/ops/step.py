@@ -16,7 +16,8 @@ run it as a captured CUDA graph replayed once a step
 compiled program; on the CPU the same buffers step eagerly. The other
 modes loop over ``step`` in Python. In the kernel pipeline with
 ``incremental_rebuild > 0``, ``rollout`` runs the plane-resident steps of
-``ops/cuda/incremental.py``, eagerly.
+``ops/cuda/incremental.py``: on a CUDA device replays of one captured step
+whose branches are decided on the device (``graph.IncrementalGraph``).
 """
 
 from __future__ import annotations

@@ -155,13 +155,16 @@ class DistributedSimulation:
         pos, vel = self.particles()
         self.lost_total = float(self.graph.lost)
         s0 = self.states[0]
+        counts = [int(a.sum()) for a in self.active]
         out = {
             "step": int(s0.step_count),
             "active_particles": int(pos.shape[0]),
             "lost_particles": self.lost_total,
             "overflow_total": float(s0.overflow_total),
             "kinetic_energy": float(0.5 * (vel ** 2).sum()),
-            "per_shard_counts": [int(a.sum()) for a in self.active],
+            "per_shard_counts": counts,
+            # the JAX package's key: a shard is a mesh position here
+            "per_device_counts": list(counts),
             "execution": self.execution,
         }
         out.update(self.metrics.summary())

@@ -31,12 +31,16 @@ class SimPhase(enum.Enum):
 
 class Simulation:
     """Holds the current state and params on ``device`` in buffers of its
-    own. In the kernel pipeline (``neighbor_mode`` "auto"/"pallas",
-    ``incremental_rebuild`` 0) it owns a ``StepGraph``
-    (``ops/cuda/graph.py``): on a CUDA device the first ``run`` captures
-    the step as a CUDA graph and every step after it is one replay; on the
-    CPU the same buffers step eagerly. Other modes step eagerly through
-    ``rollout``. ``tune`` copies into the parameter buffers, so a change
+    own. In the kernel pipeline (``neighbor_mode`` "auto"/"pallas") it owns
+    a graph (``ops/cuda/graph.py``): a ``StepGraph`` of the rebuild step,
+    or with ``incremental_rebuild > 0`` an ``IncrementalGraph``, whose
+    ``run(n)`` builds the bucket cache on entry, as JAX's ``rollout`` does
+    on every call, and gathers the per-particle state on its last step. On
+    a CUDA device the first ``run`` captures the step as a CUDA graph (the
+    incremental step's branches as conditional nodes) and every step after
+    it is one replay, with no recapture on later runs; on the CPU the same
+    buffers step eagerly. Other modes step eagerly through ``rollout``.
+    ``tune`` copies into the parameter buffers, so a change
     takes effect on the next step with no recapture, as the JAX package's
     traced parameters do; ``reset`` copies the initial state back. The
     first ``run`` of a Simulation is recorded as warm-up (it builds the
@@ -62,10 +66,11 @@ class Simulation:
         self._warm = False
         self.lock = threading.RLock()
         self.graph = None
-        if (self.cfg.neighbor_mode == "pallas"
-                and self.cfg.incremental_rebuild == 0):
-            self.graph = graph_mod.StepGraph(self.state, self.params,
-                                             self.cfg)
+        if self.cfg.neighbor_mode == "pallas":
+            graph = (graph_mod.IncrementalGraph
+                     if self.cfg.incremental_rebuild > 0
+                     else graph_mod.StepGraph)
+            self.graph = graph(self.state, self.params, self.cfg)
 
     @classmethod
     def from_scene(cls, name: str, device=device_mod.DEFAULT,
