@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare DIR   # this tree against an older one
+    python3 chip_smoke.py --trace-margin TRIALS  # profiler traces' drops
 
 
 Builds the port's CUDA kernels from ``water_sandbox_tpu_torch/csrc``, holds
@@ -21,7 +22,15 @@ peak memory, eager and captured ms/step alternated), the JAX package's
 trips it), holds the
 kernel pipeline against the dense oracle and ``hash_grid`` against the
 weighted oracle on ``mini-3d``, runs ``reference-cube`` in ``bucket_grid``
-mode against the kernel pipeline. Then the port's own 1,000-step pins of
+mode against the kernel pipeline ([bucket_grid]: the eager step under sync
+debug "error", the captured step against it bit for bit, eager and
+captured ms/step alternated, R1 and R2 launched once a step, also at cell
+capacity 8), then the same step in 4 cell slabs of the card through
+``parallel/gspmd.py`` ([gspmd]: each slab's planes against the
+single-device build bit for bit, 10 steps against the single-device step,
+captured against eager bit for bit, ms/step, peak memory, the bytes each
+collective moves a step, and at cell capacity 8 R1 and R2 held against
+their plain versions on the sharded path). Then the port's own 1,000-step pins of
 ``reference-cube`` and ``moving-container-256k``, made on the card
 (``golden.GOLDEN``): the kernels' own row group must meet the pin and
 repeat bit for bit, the row groups G = 1, 2 and 4 (three summation
@@ -40,7 +49,8 @@ domain-decomposed step runs next: 8 shards of a
 128-particle flow against the single-device step (migration and the
 cross-shard rescue included, also with one shard alone overflowing; once
 on the kernels, with the rescue's kernels D1 and D2 held against their
-plain versions, once on the plain pair-block passes), then
+plain versions, once on the plain pair-block passes; each also captured
+against its eager steps bit for bit), then
 ``DistributedSimulation`` on ``sharded-1m`` (1,015,920 particles, 4
 shards on the one card) with its step captured as one CUDA graph: parity
 by id with the single device, the kernels held against their plain
@@ -126,6 +136,12 @@ DOMAIN_KERNELS = ("sph_domain_rescue_density", "sph_domain_rescue_force")
 # The golden phase's runs of the picker's order (each counted from 0).
 GOLDEN_PATHS = tuple(f"golden {scene}" for scene in GOLDEN_1K)
 
+# The bucket_grid step's runs, single-device ([bucket_grid]) and
+# cell-slab-sharded ([gspmd]), each at the scene's capacity and at 8: its
+# rescue is R1 and R2, gated on the device count.
+GRID_PATHS = ("reference-cube bucket_grid", "reference-cube bucket_grid cap 8",
+              "gspmd reference-cube", "gspmd reference-cube cap 8")
+
 # The TPU kernels (K1-K4) and, for each, the wrapper's launch counter, the
 # path whose launches and the call site whose time the summary reports, and
 # the step paths it runs on (launches a step are read from each of their
@@ -166,7 +182,7 @@ KERNELS = {
         paths=("reference-cube", "moving-container-256k",
                "reference-cube incremental",
                "reference-cube incremental cap 8") + GOLDEN_PATHS
-        + FRONT_PATHS,
+        + GRID_PATHS + FRONT_PATHS,
         at="reference-cube cap 8 step 100",
         source="water_sandbox_tpu_torch/csrc/sph_rescue.cu",
         replaces="water_sandbox_tpu/ops/rescue.py:61"),
@@ -175,7 +191,7 @@ KERNELS = {
         paths=("reference-cube", "moving-container-256k",
                "reference-cube incremental",
                "reference-cube incremental cap 8") + GOLDEN_PATHS
-        + FRONT_PATHS,
+        + GRID_PATHS + FRONT_PATHS,
         at="reference-cube cap 8 step 100",
         source="water_sandbox_tpu_torch/csrc/sph_rescue.cu",
         replaces="water_sandbox_tpu/ops/rescue.py:116"),
@@ -200,7 +216,7 @@ KERNELS = {
         paths=("reference-cube", "moving-container-256k", "sharded-1m",
                "reference-cube incremental",
                "reference-cube incremental cap 8") + GOLDEN_PATHS
-        + FRONT_PATHS,
+        + GRID_PATHS + FRONT_PATHS,
         at="sort n=65536",
         source="water_sandbox_tpu_torch/csrc/bitonic_sort.cu",
         replaces="water_sandbox_tpu/ops/pallas/bitonic_sort.py:55"),
@@ -255,15 +271,15 @@ def cuda_ms(fn, reps: int = 20) -> float:
 
 def device_ms(fn, kernel: str, reps: int = 20):
     """Device time per call of the kernels whose name holds ``kernel``
-    (all device work for ""), from torch.profiler over ``reps`` calls after
-    one warm-up; None where the profiler records no device time."""
-    from torch.profiler import ProfilerActivity, profile
+    (all device work for ""), from torch.profiler (``profiling.traced``)
+    over ``reps`` calls after one warm-up; None where the profiler records
+    no device time."""
+    from torch.profiler import ProfilerActivity
+    from water_sandbox_tpu_torch.runtime.profiling import traced
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with traced([ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
     us = sum((getattr(e, "device_time_total", None)
               or getattr(e, "cuda_time_total", 0.0))
              for e in prof.key_averages() if kernel in e.key)
@@ -951,38 +967,291 @@ def phase_oracle(cfg, params, state) -> None:
         f"{int(w.max())}), max_abs_err={worst:.3e}")
 
 
-def phase_bucket_grid(state100, steps: int = 10) -> None:
+def alternate(eager, captured, pairs: int = 3, steps: int = 5) -> tuple:
+    """ms/step of ``pairs`` alternated windows of ``steps`` steps each:
+    ``eager(steps)`` then ``captured(steps)``, synced, on the host clock.
+    Returns (eager ms list, captured ms list)."""
+    out = ([], [])
+    for _ in range(pairs):
+        for fn, ms in zip((eager, captured), out):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(steps)
+            torch.cuda.synchronize()
+            ms.append(round(1e3 * (time.perf_counter() - t0) / steps, 3))
+    return out
+
+
+def grid_launches(label: str, paths: dict, launches: dict, steps: int,
+                  fired: bool) -> None:
+    """A bucket_grid path's launches: R1 and R2 once a step (their gate
+    decides on the device whether they work), no other kernel; recorded
+    as ``paths[label]``."""
+    check(launches.get("sph_rescue_density") == steps
+          and launches.get("sph_rescue_force") == steps
+          and sum(launches.values()) == 2 * steps,
+          f"{label}: launches {launches} over {steps} steps")
+    check(fired, f"{label}: no row was rescued")
+    paths[label] = (launches, steps)
+
+
+def phase_bucket_grid(state100, paths: dict, steps: int = 10):
     """reference-cube at full width with neighbor_mode="bucket_grid"
-    (particle-order rows, the plain pair-block passes of ops/grid.py) from
-    the step-100 state: ``steps`` steps against the kernel pipeline's from
-    the same state, by particle id; every particle exact."""
+    (particle-order rows, the plain pair-block passes of ops/grid.py, the
+    rescue R1/R2) from the step-100 state: the eager step, its first step
+    under ``torch.cuda.set_sync_debug_mode("error")``; ``steps`` steps of
+    the captured step (a StepGraph) against them bit for bit, with R1 and
+    R2 launched once a step; against the kernel pipeline by particle id,
+    every particle exact; ms/step eager and captured alternated; the same
+    path at cell capacity 8, where R1 and R2 rescue rows on every step.
+    Returns the eager state after ``steps`` steps."""
     import dataclasses
     import water_sandbox_tpu_torch as wst
+    from water_sandbox_tpu_torch.ops import grid
+    from water_sandbox_tpu_torch.ops.cuda import graph as graph_mod
     cfg_k, params, _ = wst.scenes.build("reference-cube", device="cuda")
     cfg_b = dataclasses.replace(cfg_k, neighbor_mode="bucket_grid",
                                 sorted_state=False)
     base = float(state100.overflow_total)
     s_k = wst.rollout(state100, params, cfg_k, steps)
     torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s_b = wst.step(state100, params, cfg_b)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for _ in range(steps - 1):
+        s_b = wst.step(s_b, params, cfg_b)
     torch.cuda.reset_peak_memory_stats()
-    s_b = wst.step(state100, params, cfg_b)          # warm-up, not timed
+    reset_launches()
+    g = graph_mod.StepGraph(state100.clone(), params, cfg_b)
+    g.run(steps)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    s_b = wst.rollout(s_b, params, cfg_b, steps - 1)
-    torch.cuda.synchronize()
-    ms = 1e3 * (time.perf_counter() - t0) / (steps - 1)
     peak = torch.cuda.max_memory_allocated() / 2**30
+    grid_launches("reference-cube bucket_grid", paths, launches_now(), steps,
+                  True)
+    check(same_state(g.state, s_b) and same_bits(g.state.acc, s_b.acc),
+          "bucket_grid phase: captured != eager")
     check(float(s_b.overflow_total) == base
           and float(s_k.overflow_total) == base,
           "bucket_grid phase: overflow_total grew")
     err = float(np.abs(by_id(s_b, "pos") - by_id(s_k, "pos"))
                 .sum(axis=1).max())
-    log(f"[bucket_grid] reference-cube from step 100: {steps} steps, "
-        f"n={s_b.n}, ms/step {ms:.3f} (host clock over {steps - 1} synced "
-        f"steps after 1 warm-up), peak memory {peak:.2f} GiB, "
-        f"overflow_total {float(s_b.overflow_total) - base}, max |dpos| by "
-        f"id vs the kernel pipeline {err:.3e}")
     check(err <= DOMAIN_TOL, f"bucket_grid phase: parity {err:.3e}")
+    state = {"eager": s_b}
+
+    def eager(k):
+        for _ in range(k):
+            state["eager"] = wst.step(state["eager"], params, cfg_b)
+
+    ms_e, ms_c = alternate(eager, g.run)
+    log(f"[bucket_grid] reference-cube from step 100: {steps} steps, "
+        f"n={s_b.n}, eager step under sync debug \"error\", captured = eager "
+        f"bit for bit, ms/step eager {ms_e} captured {ms_c} (host clock, "
+        f"alternated windows of 5 steps), capture {g.capture_s:.2f} s, "
+        f"peak memory {peak:.2f} GiB, overflow_total "
+        f"{float(s_b.overflow_total) - base}, max |dpos| by id vs the kernel "
+        f"pipeline {err:.3e}, launches {paths['reference-cube bucket_grid'][0]}")
+
+    cfg8 = dataclasses.replace(cfg_b, cell_capacity=8)
+    raw = int(grid.build_bucket_grid(state100.predicted, state100.vel,
+                                     params, cfg8).overflow)
+    reset_launches()
+    g8 = graph_mod.StepGraph(state100.clone(), params, cfg8)
+    g8.run(steps)
+    torch.cuda.synchronize()
+    grown = float(g8.state.overflow_total) - base
+    # every step rescues min(dropped, budget) rows: the total grows by the
+    # rows beyond the budget only
+    grid_launches("reference-cube bucket_grid cap 8", paths, launches_now(),
+                  steps, raw > 0 and grown < raw * steps)
+    check(bool(torch.isfinite(g8.state.pos).all()),
+          "bucket_grid cap 8: non-finite positions")
+    log(f"[bucket_grid] cell capacity 8: {raw} rows dropped at step 100, "
+        f"budget {cfg8.rescue_capacity}, overflow_total +{grown} over "
+        f"{steps} captured steps, launches "
+        f"{paths['reference-cube bucket_grid cap 8'][0]}")
+    return s_b
+
+
+@contextlib.contextmanager
+def recording_rescue():
+    """R1's and R2's wrappers patched to keep a copy of every call's inputs
+    before they run as before; yields {"density": [...], "force": [...]}."""
+    from water_sandbox_tpu_torch.ops.cuda import rescue as rk
+    calls = {"density": [], "force": []}
+    real = {"density": rk.rescue_density, "force": rk.rescue_force}
+
+    def recorder(half):
+        def rec(*args):
+            calls[half].append(clone_args(args))
+            real[half](*args)
+        return rec
+
+    rk.rescue_density = recorder("density")
+    rk.rescue_force = recorder("force")
+    try:
+        yield calls
+    finally:
+        rk.rescue_density = real["density"]
+        rk.rescue_force = real["force"]
+
+
+def hold_rescue(label, calls) -> dict:
+    """R1 and R2 against their plain versions on each recorded call: R1's
+    den and nden, R2's acc at ``hold``'s bar, two launches bit-identical,
+    the rescue firing. Returns the worst |kernel - plain| of each."""
+    from water_sandbox_tpu_torch.ops.cuda import rescue as rk
+    err = {}
+    # the wrapper, its plain version's arguments (the wrapper's without
+    # params_vec and walk), the count's and the outputs' positions
+    halves = {"density": (rk.rescue_density, rk.density_plain,
+                          lambda a: a[:10] + [a[11]], 3, (5, 6)),
+              "force": (rk.rescue_force, rk.force_plain,
+                        lambda a: a[:12] + [a[13]], 8, (9,))}
+    for half, (fn, plain, plain_args, at_count, outs) in halves.items():
+        name = f"sph_rescue_{half}"
+        check(len(calls[half]) == 1, f"{label}: {name} calls {calls[half]}")
+        for args in calls[half]:
+            k, again, want = (clone_args(args) for _ in range(3))
+            fn(*k)
+            fn(*again)
+            plain(*plain_args(want))
+            torch.cuda.synchronize()
+            check(int(args[at_count]) > 0, f"{label}: {name} rescued no row")
+            for j in outs:
+                check(same_bits(k[j], again[j]),
+                      f"{label}: two launches of {name} differ")
+                err[name] = max(err.get(name, 0.0), hold(
+                    f"{label} {name} output {j}", k[j].cpu().numpy(),
+                    want[j].cpu().numpy()))
+    return err
+
+
+def phase_gspmd(state100, single, record, paths: dict, shards: int = 4,
+                steps: int = 10) -> None:
+    """The cell-slab-sharded bucket_grid step (parallel/gspmd.py) on
+    ``shards`` shards of the card: reference-cube (65,536 particles, grid
+    (68, 40, 40), cell capacity 24, rescue 2,048) from the step-100 state.
+    Each slab's planes bit for bit against the single-device build; the
+    eager step (its first under sync debug "error", with the bytes each
+    collective moves) over ``steps`` steps against the single-device
+    bucket_grid step (``single``) row by row at tests/test_parallel.py's
+    bars, with overflow_total not growing; the captured step (a
+    ShardedGraph) against the eager one bit for bit, launches counted;
+    ms/step eager and captured alternated; peak memory; at cell capacity
+    8, R1 and R2 held against their plain versions on the sharded path's
+    inputs and the captured path's launches."""
+    import dataclasses
+    import water_sandbox_tpu_torch as wst
+    from water_sandbox_tpu_torch.ops import grid
+    from water_sandbox_tpu_torch.ops.cuda import graph as graph_mod
+    from water_sandbox_tpu_torch.parallel import gspmd, mesh as mesh_mod
+    t_phase = time.perf_counter()
+    cfg_k, params, _ = wst.scenes.build("reference-cube", device="cuda")
+    cfg = dataclasses.replace(cfg_k, neighbor_mode="bucket_grid",
+                              sorted_state=False)
+    mesh = mesh_mod.make_mesh(shards, "cuda")
+    sh = gspmd.shard_state(state100, mesh)
+    slabs = gspmd.build_slabs(mesh, cfg, sh, [params] * shards)
+    want = grid.build_bucket_grid(state100.predicted, state100.vel, params,
+                                  cfg)
+    nc_loc = grid.num_cells(cfg) // shards
+    for d, g in enumerate(slabs.grids):
+        cells = slice(d * nc_loc, (d + 1) * nc_loc)
+        check(all(same_bits(getattr(g, f), getattr(want, f)[..., cells]
+                            .contiguous())
+                  for f in ("cell_pos", "cell_vel", "cell_mask")),
+              f"gspmd: slab {d} differs from the single-device build")
+    del slabs, want
+
+    step = gspmd.make_sharded_step(mesh, cfg)
+    base = float(state100.overflow_total)
+    torch.cuda.synchronize()
+    mesh.reset_traffic()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        e = step(sh, params)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    moved, largest = dict(mesh.moved), dict(mesh.largest)
+    plane = cfg.cell_capacity * grid.num_cells(cfg) * 4
+    check(max(largest.values()) <= plane,
+          f"gspmd: a transfer larger than one (cap, nc) plane: {largest}")
+    for _ in range(steps - 1):
+        e = step(e, params)
+    got = gspmd.unshard_state(e)
+    pos_err = float((got.pos - single.pos).abs().max())
+    vel_err = float((got.vel - single.vel).abs().max())
+    check(bool(torch.allclose(got.pos, single.pos, rtol=1e-4, atol=1e-5))
+          and bool(torch.allclose(got.vel, single.vel, rtol=1e-3,
+                                  atol=1e-4)),
+          f"gspmd: {steps} steps vs single device, max |dpos| {pos_err:.3e}"
+          f" |dvel| {vel_err:.3e}")
+    check(float(got.overflow_total) == base, "gspmd: overflow_total grew")
+    bits = all(same_bits(getattr(got, f), getattr(single, f))
+               for f in ("pos", "vel", "density", "acc"))
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    g = graph_mod.ShardedGraph(step, [s.clone() for s in sh], params, mesh)
+    g.run(steps)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    grid_launches("gspmd reference-cube", paths, launches_now(), steps, True)
+    check(all(same_state(a, b) and same_bits(a.acc, b.acc)
+              for a, b in zip(g.states, e)),
+          "gspmd: captured != eager")
+    state = {"eager": e}
+
+    def eager(k):
+        for _ in range(k):
+            state["eager"] = step(state["eager"], params)
+
+    ms_e, ms_c = alternate(eager, g.run)
+    log(f"[gspmd] reference-cube bucket_grid on {shards} shards of the card "
+        f"({cfg.grid_dims[0] // shards} x layers each) from step 100: slabs "
+        f"= the single-device build bit for bit; {steps} eager steps vs the "
+        f"single-device step: max |dpos| {pos_err:.3e}, |dvel| "
+        f"{vel_err:.3e}, bit-identical {bits}; overflow_total "
+        f"{float(got.overflow_total) - base}; captured = eager bit for bit; "
+        f"ms/step eager {ms_e} captured {ms_c} (host clock, alternated "
+        f"windows of 5 steps), capture {g.capture_s:.2f} s, peak memory "
+        f"{peak:.2f} GiB; bytes a step {moved}, largest transfer {largest} "
+        f"(one (cap, nc) plane {plane}); launches "
+        f"{paths['gspmd reference-cube'][0]}")
+    del g, e, state
+
+    cfg8 = dataclasses.replace(cfg, cell_capacity=8)
+    step8 = gspmd.make_sharded_step(mesh, cfg8)
+    with recording_rescue() as calls:
+        step8(sh, params)
+    torch.cuda.synchronize()
+    err = hold_rescue("gspmd cap 8", calls)
+    for name, e_k in err.items():
+        record.setdefault(name, {})["gspmd reference-cube cap 8"] = dict(
+            max_abs_err=e_k)
+    del calls
+    reset_launches()
+    g8 = graph_mod.ShardedGraph(step8, [s.clone() for s in sh], params,
+                                mesh)
+    g8.run(5)
+    torch.cuda.synchronize()
+    grid_launches("gspmd reference-cube cap 8", paths, launches_now(), 5,
+                  True)
+    got8 = gspmd.unshard_state(g8.states)
+    single8 = wst.rollout(state100, params, cfg8, 5)
+    err8 = float((got8.pos - single8.pos).abs().max())
+    check(bool(torch.allclose(got8.pos, single8.pos, rtol=1e-4, atol=1e-5)),
+          f"gspmd cap 8: 5 steps vs single device, max |dpos| {err8:.3e}")
+    log(f"[gspmd] cell capacity 8: R1/R2 vs plain on the sharded path's "
+        f"inputs max_abs_err {err}, 5 captured steps vs the single-device "
+        f"step max |dpos| {err8:.3e} (bit-identical "
+        f"{same_bits(got8.pos, single8.pos)}), launches "
+        f"{paths['gspmd reference-cube cap 8'][0]}, phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_main_path(scene: str, steps: int, warmup: int):
@@ -1038,8 +1307,10 @@ DOMAIN_KERNEL_NAMES = ("sph_density_kernel", "sph_force_kernel",
 
 
 def profile_replays(g, steps: int = 20, names=STEP_KERNEL_NAMES):
-    """torch.profiler over ``steps`` replays of ``g`` (a StepGraph or a
-    DomainGraph), launched back to back: device ms a step (the device
+    """torch.profiler (``profiling.traced``: idle margins around the span,
+    so that the trace keeps the first replays' events) over ``steps``
+    replays of ``g`` (a StepGraph or a DomainGraph), launched back to
+    back: device ms a step (the device
     events' times summed), kernels a step, how many times each kernel of
     ``names`` appears (the kernels run inside the replays), the 8 largest
     device times a step by name, and the busy share on the trace's own
@@ -1049,10 +1320,8 @@ def profile_replays(g, steps: int = 20, names=STEP_KERNEL_NAMES):
     clock a step of the traced replays and of as many replays run again
     without the profiler (launch to synchronisation)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from water_sandbox_tpu_torch.runtime.profiling import traced
+    with traced() as prof:
         t0 = time.perf_counter()
         g.run(steps)
         torch.cuda.synchronize()
@@ -1771,9 +2040,20 @@ def phase_domain_parity(dev, use_pallas=None) -> None:
         single = wst.rollout(state0, params, c, steps)
         err = float(np.abs(sharded_by_id(states, active)
                            - by_id(single, "pos")).sum(axis=1).max())
+        # the same steps captured (make_domain_rollout, a DomainGraph: the
+        # plain pair-block step too, since its walk reads nothing on the
+        # host) against the eager ones bit for bit
+        states0, active0 = domain.shard_state(state0, mesh, c, params,
+                                              slack=float(nsh))
+        rolled, rolled_act, _ = domain.make_domain_rollout(
+            mesh, c, use_pallas=use_pallas)(states0, active0, params, steps)
+        check(all(same_state(a, b) for a, b in zip(rolled, states))
+              and all(torch.equal(a, b) for a, b in zip(rolled_act, active)),
+              f"domain {label}: captured != eager")
         path = "plain passes" if use_pallas is False else "kernels"
         gates = [int(a[3].count) for a in calls["density"]]
-        log(f"[domain] parity {label} ({path}): {steps} steps, per-shard "
+        log(f"[domain] parity {label} ({path}): {steps} steps (captured "
+            f"= eager bit for bit), per-shard "
             f"counts {before} -> {after}, overflowing at step 0 by shard "
             f"{raw}, query rows (gates) at step 0 {gates or 'none'}, lost "
             f"{lost}, unrescued {ovf}, max |dpos| by id {err:.3e}, "
@@ -2896,6 +3176,72 @@ def compare(other: Path) -> int:
     return 0
 
 
+def trace_margin(trials: int, steps: int = 20) -> int:
+    """``--trace-margin TRIALS``: how often a torch.profiler trace of
+    ``steps`` back-to-back replays of ``reference-cube``'s captured step
+    lacks some of them, TRIALS traces with no idle time around the span
+    and TRIALS with ``profiling.traced``'s margins, alternated. For each
+    short trace: the replays seen (K1's events), and where its first
+    device event and its first ``cudaGraphLaunch`` lie (us after the
+    trace's start). Fails if a trace with the margins is short."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import water_sandbox_tpu_torch as wst
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from water_sandbox_tpu_torch.core.params import _map_tensors
+    from water_sandbox_tpu_torch.ops.cuda import _build
+    from water_sandbox_tpu_torch.ops.cuda import graph as graph_mod
+    from water_sandbox_tpu_torch.runtime import profiling
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    _build.build()
+    cfg, params, state = wst.scenes.build("reference-cube", device="cuda")
+    g = graph_mod.StepGraph(state, _map_tensors(params, torch.clone),
+                            cfg.resolved())
+    g.capture()
+    g.run(50)
+
+    @contextlib.contextmanager
+    def bare():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            yield prof
+            torch.cuda.synchronize()
+
+    short = {"none": [], "margins": []}
+    for _ in range(trials):
+        for label, ctx in (("none", bare), ("margins", profiling.traced)):
+            with ctx() as prof:
+                g.run(steps)
+            events = prof.events()
+            dev = [e.time_range.start for e in events
+                   if e.device_type == DeviceType.CUDA]
+            seen = sum(1 for e in events if e.device_type == DeviceType.CUDA
+                       and "sph_density_kernel" in e.name)
+            launched = [e.time_range.start for e in events
+                        if e.name == "cudaGraphLaunch"]
+            if seen != steps:
+                short[label].append(dict(
+                    seen=seen,
+                    first_device_us=min(dev, default=float("nan")),
+                    first_launch_us=min(launched, default=float("nan"))))
+    for label, rows in short.items():
+        log(f"[trace-margin] {label} (margin "
+            f"{0.0 if label == 'none' else profiling.TRACE_MARGIN_S} s a "
+            f"side): {len(rows)} of {trials} traces of {steps} replays "
+            f"short; " + "; ".join(
+                f"{r['seen']} seen, first device event "
+                f"{r['first_device_us']:.1f} us, first cudaGraphLaunch "
+                f"{r['first_launch_us']:.1f} us" for r in rows))
+    log(smi)
+    return 1 if short["margins"] else 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2953,11 +3299,13 @@ def main() -> int:
     phase_capture("moving-container-256k")
 
     # 5. golden pins, the oracle and the plain neighbour modes
+    paths: dict = {}
     phase_oracle(*phase_golden())
-    phase_bucket_grid(state100)
+    single = phase_bucket_grid(state100, paths)
+    phase_gspmd(state100, single, record, paths)
+    del single
 
     # 5b. the port's 1,000-step pins made on the card
-    paths: dict = {}
     for scene in GOLDEN_1K:
         phase_golden_1k(scene, paths)
 
@@ -3026,4 +3374,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--compare"]:
         sys.exit(compare(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["--trace-margin"]:
+        sys.exit(trace_margin(int(sys.argv[2])))
     sys.exit(main())

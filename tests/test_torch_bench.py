@@ -93,6 +93,30 @@ def test_device_trace_writes_a_trace(tmp_path):
     assert len(prof.key_averages()) > 0
 
 
+def test_traced_idles_around_the_span_on_the_card(monkeypatch):
+    """With a card, ``traced`` synchronises it and idles TRACE_MARGIN_S
+    before and after the span, inside the profiler (the trace keeps the
+    span's first kernels); on the CPU it adds nothing."""
+    from torch.profiler import ProfilerActivity
+    seen = []
+    monkeypatch.setattr(profiling.time, "sleep",
+                        lambda s: seen.append(("sleep", s)))
+    with profiling.traced([ProfilerActivity.CPU]):
+        seen.append("span")
+    assert seen == ["span"]
+    seen.clear()
+    monkeypatch.setattr(profiling.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(profiling.torch.cuda, "synchronize",
+                        lambda: seen.append("sync"))
+    with profiling.traced([ProfilerActivity.CPU]) as prof:
+        seen.append("span")
+        torch.ones(3).sum()
+    margin = ("sleep", profiling.TRACE_MARGIN_S)
+    assert profiling.TRACE_MARGIN_S > 0
+    assert seen == ["sync", margin, "span", "sync", margin]
+    assert any(e.key.startswith("aten::") for e in prof.key_averages())
+
+
 def test_section_timer_sums_its_sections():
     syncs = []
     timer = profiling.SectionTimer(sync=lambda: syncs.append(1))

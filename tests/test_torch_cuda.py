@@ -15,7 +15,8 @@ import pytest
 import torch
 
 import water_sandbox_tpu_torch as wt
-from water_sandbox_tpu_torch.core.params import KernelCoeffs, SimConfig
+from water_sandbox_tpu_torch.core.params import (DENSITY_PADDING,
+                                                 KernelCoeffs, SimConfig)
 from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
 from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
 
@@ -737,6 +738,48 @@ def test_domain_graph_replays_the_eager_step(cuda_device):
     assert sim.stats()["execution"] == "captured"
 
 
+def test_plain_domain_rollout_is_captured(cuda_device):
+    """The plain pair-block domain step (``use_pallas=False``) reads nothing
+    on the host since its occupied-cell walk has a fixed size: its eager
+    step raises nothing under sync debug "error", and
+    ``make_domain_rollout`` captures it and replays it bit for bit, with
+    the cross-shard rescue on every step (cell capacity 1)."""
+    from water_sandbox_tpu_torch.core.params import Container
+    from water_sandbox_tpu_torch.ops.cuda import graph
+    from water_sandbox_tpu_torch.parallel import domain, mesh as mesh_mod
+    pts = wt.cube_fluid(8, 4, 4)
+    vel = np.zeros_like(pts)
+    vel[:, 0] = 3.0
+    cfg = SimConfig(n=pts.shape[0], dim=3, grid_dims=(24, 8, 8),
+                    cell_capacity=1, rescue_capacity=512)
+    params = wt.SimParams.create(dim=3, device=cuda_device, container=(
+        Container.create((0.0, 0.0, 0.0), (5.0, 1.8, 1.8),
+                         device=cuda_device)))
+    state = wt.init_state(pts, vel, device="cpu")
+    mesh = mesh_mod.make_mesh(8, cuda_device)
+    states, active = domain.shard_state(state, mesh, cfg, params, slack=8.0)
+    step = domain.make_domain_step(mesh, cfg, use_pallas=False)
+    e_states, e_active = states, active
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(4):
+            e_states, e_active, _ = step(e_states, e_active, params)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    g = graph.DomainGraph(step, [s.clone() for s in states],
+                          [a.clone() for a in active], params, mesh)
+    g.run(4)
+    torch.cuda.synchronize()
+    assert g.graph is not None
+    for a, b in zip(g.states, e_states):
+        for f in ("pos", "vel", "density", "ids", "acc"):
+            assert _same_bits(getattr(a, f), getattr(b, f)), f
+    out, _, _ = domain.make_domain_rollout(mesh, cfg, use_pallas=False)(
+        states, active, params, 4)
+    assert all(_same_bits(a.pos, b.pos) for a, b in zip(out, e_states))
+
+
 def test_device_if_node_runs_its_body_only_where_pred_holds(cuda_device):
     """graph.device_if under capture: an IF conditional node
     (csrc/graph_if.cu) whose body (a sort, a tensor allocated inside it,
@@ -835,6 +878,116 @@ def test_captured_incremental_step_equals_eager(cuda_device):
     assert sb.LAUNCHES == {"sph_density": 10, "sph_force": 10}
     assert rk.LAUNCHES == {"sph_rescue_density": fired["drop"],
                            "sph_rescue_force": fired["drop"]}
+
+
+def _bucket_grid_case(dev, cap=3):
+    """mini-3d in bucket_grid mode at cell capacity ``cap`` with a rescue
+    budget of 64 rows: the rescue fires on every step."""
+    import dataclasses
+    cfg, params, state = wt.scenes.build("mini-3d", device=dev,
+                                         neighbor_mode="bucket_grid",
+                                         sorted_state=False)
+    return dataclasses.replace(cfg, cell_capacity=cap,
+                               rescue_capacity=64), params, state
+
+
+def test_bucket_grid_step_is_device_only(cuda_device):
+    """The bucket_grid step raises nothing under sync debug "error", its
+    StepGraph replays it bit for bit, and its rescue launches R1 and R2
+    once a step, not their plain versions."""
+    from water_sandbox_tpu_torch.ops import grid
+    from water_sandbox_tpu_torch.ops.cuda import graph, rescue as rk
+    cfg, params, state = _bucket_grid_case(cuda_device)
+    raw = grid.build_bucket_grid(state.predicted, state.vel, params, cfg)
+    assert int(raw.overflow) > 0
+    torch.cuda.synchronize()
+    rk.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s = state
+        for _ in range(4):
+            s = wt.step(s, params, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert rk.LAUNCHES == {"sph_rescue_density": 4, "sph_rescue_force": 4}
+    g = graph.StepGraph(state.clone(), params, cfg)
+    g.run(4)
+    torch.cuda.synchronize()
+    assert g.graph is not None
+    assert g.per_replay == {"sph_rescue_density": 1, "sph_rescue_force": 1}
+    for f in ("pos", "vel", "density", "acc", "overflow_total"):
+        assert torch.equal(getattr(g.state, f), getattr(s, f)), f
+    sim = wt.Simulation(cfg, params, state)
+    sim.run(4)
+    assert sim.graph.graph is not None and torch.equal(sim.state.pos, s.pos)
+
+
+def test_bucket_grid_rescue_kernels_match_plain(cuda_device):
+    """R1 and R2 on the bucket_grid step's inputs (its column grid, rows in
+    particle order, no density planes) against their plain versions."""
+    from water_sandbox_tpu_torch.ops import grid, rescue as rescue_mod
+    cfg, params, state = _bucket_grid_case(cuda_device)
+    coeffs = KernelCoeffs.from_radius(params.smoothing_radius, cfg.dim)
+    pred, vel = state.predicted.contiguous(), state.vel.contiguous()
+    g, scol, order = grid._build(pred, vel, params, cfg)
+    den_c, nden_c, _, _ = grid.bucket_density_pass(g, params, coeffs, cfg)
+    den = grid._from_cells(den_c, g.addr, params.target_density)
+    nden = grid._from_cells(nden_c, g.addr, DENSITY_PADDING)
+    nc = grid.num_cells(cfg)
+    dropped = g.addr == cfg.cell_capacity * nc
+    den_k, nden_k = den.clone(), nden.clone()
+    r = grid.rescue_density(pred, dropped, g.overflow, den_k, nden_k, scol,
+                            order, params, coeffs, cfg)
+    want = rescue_mod.density_rescue_count(pred, r.sel, r.slot, r.count, den,
+                                           nden, params, coeffs, cfg)
+    assert int(r.count) > 0 and not torch.equal(den_k, den)
+    np.testing.assert_allclose(den_k.cpu().numpy(), want[0].cpu().numpy(),
+                               **TOL)
+    np.testing.assert_allclose(nden_k.cpu().numpy(), want[1].cpu().numpy(),
+                               **TOL)
+    prs = params.pressure_scalar * (den_k - params.target_density)
+    nprs = params.near_pressure_scalar * nden_k
+    acc = torch.randn_like(pred)
+    acc_k = acc.clone()
+    grid.rescue_force(pred, vel, den_k, nden_k, prs, nprs, acc_k, r, params,
+                      coeffs, cfg)
+    want = rescue_mod.force_rescue_count(pred, vel, den_k, nden_k, prs, nprs,
+                                         r.sel, r.slot, r.count, acc, params,
+                                         coeffs, cfg)
+    np.testing.assert_allclose(acc_k.cpu().numpy(), want.cpu().numpy(),
+                               **TOL)
+
+
+def test_sharded_rollout_captured_equals_eager(cuda_device):
+    """The cell-slab-sharded step on 4 shards of the card: a ShardedGraph
+    captures it, replays it bit for bit against the eager steps, and both
+    repeat the single-device bucket_grid step's positions."""
+    from water_sandbox_tpu_torch.ops.cuda import graph
+    from water_sandbox_tpu_torch.parallel import gspmd, mesh as mesh_mod
+    cfg, params, state = _bucket_grid_case(cuda_device)
+    mesh = mesh_mod.make_mesh(4, cuda_device)
+    shards = gspmd.shard_state(state, mesh)
+    step = gspmd.make_sharded_step(mesh, cfg)
+    e = shards
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            e = step(e, params)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    g = graph.ShardedGraph(step, [s.clone() for s in shards], params, mesh)
+    g.run(3)
+    torch.cuda.synchronize()
+    assert g.graph is not None
+    for a, b in zip(g.states, e):
+        for f in ("pos", "vel", "density", "acc", "overflow_total"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+    single = wt.rollout(state, params, cfg, 3)
+    got = gspmd.unshard_state(g.states)
+    np.testing.assert_allclose(got.pos.cpu().numpy(),
+                               single.pos.cpu().numpy(), rtol=1e-4,
+                               atol=1e-5)
+    assert float(got.overflow_total) == float(single.overflow_total)
 
 
 def test_a_host_read_in_the_step_fails_the_capture(cuda_device, monkeypatch):

@@ -296,9 +296,11 @@ def test_distributed_run_is_eager_steps_and_tune_takes_the_next_step():
 
 def test_rollout_steps_copies_and_plain_path_stays_eager():
     """``make_domain_rollout`` steps a DomainGraph over copies of its
-    inputs (they stay as they were) and sums the losses; on the plain
-    pair-block path (its occupied-cell walk syncs) the graph never
-    captures."""
+    inputs (they stay as they were) and sums the losses; on the CPU the
+    graph of either path never captures and the plain pair-block path
+    (``use_pallas=False``) steps eagerly, as its step does. On one card
+    both paths capture (their occupied-cell walks read nothing on the
+    host; tests/test_torch_cuda.py)."""
     mesh = mesh_mod.make_mesh(8, "cpu")
     params, cfg, states, active = _sharded(mesh, rightward=True)
     kept = _clone_all(states, active)
@@ -306,9 +308,13 @@ def test_rollout_steps_copies_and_plain_path_stays_eager():
         states, active, params, 2)
     assert _same(states, kept[0]) and float(lost) == 0.0
     assert int(out[0].step_count) == 2 and not _same(out, states)
+    plain = domain.make_domain_step(mesh, cfg, use_pallas=False)
+    out_p, _, _ = domain.make_domain_rollout(mesh, cfg, use_pallas=False)(
+        states, active, params, 2)
+    want = _clone_all(states, active)
+    for _ in range(2):
+        want = plain(*want[:2], params)[:2]
+    assert _same(out_p, want[0])
     step = domain.make_domain_step(mesh, cfg)
-    g = graph_mod.DomainGraph(step, *_clone_all(states, active),
-                                     params, mesh, capture=False)
-    assert not g.captures
     assert graph_mod.DomainGraph(step, states, active, params,
                                         mesh).captures is False   # CPU

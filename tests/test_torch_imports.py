@@ -31,5 +31,6 @@ def test_no_module_of_the_port_imports_jax():
     for name in ("cli", "bench", "golden", "io.export", "runtime.keymap",
                  "runtime.profiling", "viz.raster", "viz.live", "viz.render",
                  "viz.server", "ops.cuda.sph_bucket", "ops.cuda.incremental",
-                 "ops.cuda.rescue", "ops.cuda.graph", "parallel.domain"):
+                 "ops.cuda.rescue", "ops.cuda.graph", "parallel.domain",
+                 "parallel.gspmd"):
         assert f"water_sandbox_tpu_torch.{name}" in got["modules"], name

@@ -23,7 +23,10 @@
 //       adds the rescued rows' contributions and writes its six derived
 //       rows (den, nden, EOS half-pressures, reciprocals) into the planes
 //       at addr[j], as ops/cuda/sph_bucket.py::derived_density_planes
-//       computes them. Dropped-but-unrescued rows keep their fill values.
+//       computes them; with dens null (ops/grid.py, whose bucket planes
+//       have another layout) it writes den and nden only, and the caller
+//       updates its planes. Dropped-but-unrescued rows keep their fill
+//       values.
 // R2 (in place on acc): the same two parts for the pair forces of every
 // pair that touches a rescued row: (a) a rescued row's whole acceleration
 // (self and beyond-budget rows excluded, +y at d == 0), (b) a resident's
@@ -196,6 +199,7 @@ rescue_density_kernel(const float* __restrict__ pred, int n,
   const float nj = nden[j] + wn;
   den[j] = dj;
   nden[j] = nj;
+  if (dens == nullptr) return;  // the caller's planes
   const float kp = prm[P_PRESSURE];
   const float pa = kp * 0.5f;
   const float pb = -kp * prm[P_TARGET_DENSITY] * 0.5f;
@@ -367,7 +371,8 @@ int rows_grid(int n, int blocks_a) {
 // at position k; rpos: (cap,) i32 the rescued rows' positions, ascending
 // over [0, count); slot: (n,) i32; count: () i32 on the device; addr: (n,)
 // i32 plane addresses; prm: (16,) f32; den, nden: (n,) f32 and dens: (6,
-// cap_p, L) f32, all three updated in place; S_pad, gx, gy, gz: the column
+// cap_p, L) f32, all three updated in place (addr and dens may both be
+// null: then den and nden only); S_pad, gx, gy, gz: the column
 // keys' grid (gz unused in 2-D); blocks_a: blocks of part (a). Launches on
 // `stream` of `device` and returns cudaGetLastError().
 extern "C" int wst_sph_rescue_density(const float* pred, int n,

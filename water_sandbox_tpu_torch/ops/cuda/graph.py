@@ -1,5 +1,6 @@
-"""The kernel pipeline's rebuild step and the domain step as captured CUDA
-graphs — the counterparts of the JAX package's device-only rollouts
+"""The kernel pipeline's rebuild step, the ``bucket_grid`` step, the domain
+step and the cell-slab-sharded step as captured CUDA graphs — the
+counterparts of the JAX package's device-only rollouts
 (``jax.jit`` over ``lax.scan``, ``water_sandbox_tpu/ops/step.py:121-140``;
 ``make_domain_rollout``, ``water_sandbox_tpu/parallel/domain.py:913-940``).
 
@@ -17,8 +18,9 @@ refuses any host read or synchronisation in the step
 (``torch.cuda.graph`` raises), and a failed capture raises: nothing falls
 back to the eager loop. On the CPU ``run`` steps eagerly into the same
 buffers. ``DomainGraph`` does the same for the domain-decomposed step
-(``parallel/domain.py``) over per-shard buffers when every shard sits on
-one CUDA device.
+(``parallel/domain.py``) and ``ShardedGraph`` for the cell-slab-sharded
+``bucket_grid`` step (``parallel/gspmd.py``), over per-shard buffers,
+when every shard sits on one CUDA device.
 
 The graph reads the buffers by address, so the owner changes parameters by
 copying into them (``Simulation.tune``) and the next replay sees the new
@@ -56,6 +58,9 @@ from ...core.state import FluidState
 
 # Eager steps on a side stream before the capture.
 WARMUP_STEPS = 2
+
+# The neighbour modes whose rebuild step StepGraph captures.
+CAPTURED_MODES = ("pallas", "bucket_grid")
 
 
 def _counters() -> tuple:
@@ -149,16 +154,20 @@ class _Graph:
 class StepGraph(_Graph):
     """``run(n)`` advances ``state`` by n steps of ``ops/step.py::step`` in
     place, reading ``params`` in place: on CUDA n replays of a captured
-    step, on the CPU n eager steps. The buffers are the caller's: hand over
-    a state and params it owns (``FluidState.clone``)."""
+    step, on the CPU n eager steps. The step is the kernel pipeline's
+    rebuild step or the ``bucket_grid`` step. The buffers are the
+    caller's: hand over a state and params it owns
+    (``FluidState.clone``)."""
 
     def __init__(self, state: FluidState, params: SimParams,
                  cfg: SimConfig):
         self.cfg = cfg.resolved()
-        if self.cfg.neighbor_mode != "pallas" or self.cfg.incremental_rebuild:
-            raise ValueError("StepGraph runs the kernel pipeline's rebuild "
-                             "step (neighbor_mode 'pallas', "
-                             "incremental_rebuild 0)")
+        mode = self.cfg.neighbor_mode
+        if mode not in CAPTURED_MODES or (mode == "pallas"
+                                          and self.cfg.incremental_rebuild):
+            raise ValueError("StepGraph runs the rebuild step of "
+                             "neighbor_mode 'pallas' (incremental_rebuild "
+                             "0) or 'bucket_grid'")
         super().__init__()
         self.state = state
         self.params = params
@@ -190,25 +199,21 @@ class DomainGraph(_Graph):
     step's migration losses into ``lost`` (() f32 on shard 0's device).
 
     It captures only when every shard of ``mesh`` sits on one CUDA device
-    (``DistributedSimulation``'s case on one card) and ``capture`` is
-    true: then n replays of one captured step, the counterpart of JAX's
-    ``lax.scan`` over its jitted ``shard_map`` step. A mesh over several
-    devices, the CPU, or ``capture=False`` (the plain pair-block step,
-    whose occupied-cell walk syncs) steps eagerly into the same buffers:
-    by construction, not after a failed capture (a failed capture raises).
-    The buffers are the caller's."""
+    (``DistributedSimulation``'s case on one card): then n replays of one
+    captured step, the counterpart of JAX's ``lax.scan`` over its jitted
+    ``shard_map`` step. A mesh over several devices, or the CPU, steps
+    eagerly into the same buffers: by construction, not after a failed
+    capture (a failed capture raises). The buffers are the caller's."""
 
     def __init__(self, step, states: list, active: list, params: SimParams,
-                 mesh, capture: bool = True):
+                 mesh):
         super().__init__()
         self.step = step
         self.states = states
         self.active = active
         self.params = params
         self.lost = torch.zeros((), device=mesh.devices[0])
-        devices = set(mesh.devices)
-        self.captures = (capture and len(devices) == 1
-                         and mesh.devices[0].type == "cuda")
+        self.captures = _one_card(mesh)
 
     @property
     def device(self) -> torch.device:
@@ -234,6 +239,46 @@ class DomainGraph(_Graph):
         for dst, src in zip(self.active, active):
             dst.copy_(src)
         self.lost.copy_(lost)
+
+
+def _one_card(mesh) -> bool:
+    """Whether every shard of ``mesh`` sits on one CUDA device."""
+    return len(set(mesh.devices)) == 1 and mesh.devices[0].type == "cuda"
+
+
+class ShardedGraph(_Graph):
+    """``run(n)`` advances a state sharded on the particle axis
+    (``parallel/gspmd.py``: per-shard ``states``) by n calls of ``step``,
+    the cell-slab-sharded ``bucket_grid`` step, in place, reading
+    ``params`` in place. It captures when every shard of ``mesh`` sits on
+    one CUDA device: then n replays of one captured step, the counterpart
+    of JAX's ``lax.scan`` over its jitted sharded step. A mesh over several
+    devices, or the CPU, steps eagerly into the same buffers. The buffers
+    are the caller's."""
+
+    def __init__(self, step, states: list, params: SimParams, mesh):
+        super().__init__()
+        self.step = step
+        self.states = states
+        self.params = params
+        self.captures = _one_card(mesh)
+        self._device = mesh.devices[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    def _advance(self) -> None:
+        for dst, src in zip(self.states, self.step(self.states,
+                                                   self.params)):
+            copy_state(dst, src)
+
+    def _save(self):
+        return [s.clone() for s in self.states]
+
+    def _restore(self, saved) -> None:
+        for dst, src in zip(self.states, saved):
+            copy_state(dst, src)
 
 
 # ------------------------------------------------- device-side branches --

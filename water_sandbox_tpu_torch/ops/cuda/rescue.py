@@ -48,11 +48,14 @@ class Walk(NamedTuple):
     #                              None where row k is at position k
     rpos: torch.Tensor           # (cap,) i32: the rescued rows' positions,
     #                              ascending over [0, count)
+    cols: tuple | None = None    # the columns' grid (S_pad, gx, gy, gz);
+    #                              None: the kernel layout's (_geometry)
 
 
-def cell_walk(sel, count, scol, order=None) -> Walk:
+def cell_walk(sel, count, scol, order=None, cols=None) -> Walk:
     """The ``Walk`` of a rescue selection (``ops/rescue.py::
-    rescue_selection``) over rows whose columns, sorted, are ``scol``.
+    rescue_selection``) over rows whose columns, sorted, are ``scol``, on
+    the column grid ``cols`` (``Walk.cols``).
 
     On the sorted step (``order`` None) the rows are in column order and
     the list, in row order, is too: it is the walk's list as it is, and
@@ -61,37 +64,45 @@ def cell_walk(sel, count, scol, order=None) -> Walk:
     list's ``cap`` positions puts the list in column order, on the device
     and with no host read."""
     if order is None:
-        return Walk(scol, None, sel)
+        return Walk(scol, None, sel, cols)
     n, cap, dev = scol.shape[0], sel.shape[0], sel.device
     pos = torch.empty_like(order)
     pos[order.long()] = torch.arange(n, dtype=torch.int32, device=dev)
     live = torch.arange(cap, device=dev) < count
     keys = torch.where(live, pos[sel.long()], n)    # past count: sort last
-    return Walk(scol, order, torch.sort(keys).values)
+    return Walk(scol, order, torch.sort(keys).values, cols)
 
 
-def neighbour_runs(col, cfg: SimConfig):
+def _column_grid(cfg: SimConfig, cols=None) -> tuple:
+    """(S_pad, gx, gy, gz) of the column keys: ``cols``, or the kernel
+    layout's grid."""
+    if cols is not None:
+        return tuple(cols)
+    g = sb._geometry(cfg)
+    return (g.S_pad, g.gx, g.gy, g.gz)
+
+
+def neighbour_runs(col, cfg: SimConfig, cols=None):
     """The clamped 3^dim neighbourhood of each column of ``col`` (m,) as
     3^(dim-1) runs of adjacent columns along the innermost axis, x
     outermost: (lo, hi) (m, runs) i64, inclusive, lo > hi where the run's
     cell row lies outside the grid — what the kernels walk, for the tests
-    and chip_smoke.py's bound."""
-    g = sb._geometry(cfg)
+    and chip_smoke.py's bound. ``cols``: the column grid (``Walk.cols``)."""
+    S_pad, gx, gy, gz = _column_grid(cfg, cols)
     c = col.long()
-    x, rem = c // g.S_pad, c % g.S_pad
+    x, rem = c // S_pad, c % S_pad
     if cfg.dim == 3:
-        m, z, n_mid, n_in, moffs = rem // g.gz, rem % g.gz, g.gy, g.gz, (
-            -1, 0, 1)
+        m, z, n_mid, n_in, moffs = rem // gz, rem % gz, gy, gz, (-1, 0, 1)
     else:
-        m, z, n_mid, n_in, moffs = torch.zeros_like(c), rem, 1, g.gy, (0,)
+        m, z, n_mid, n_in, moffs = torch.zeros_like(c), rem, 1, gy, (0,)
     z_lo = torch.clamp_min(z - 1, 0)
     z_hi = torch.clamp_max(z + 1, n_in - 1)
     los, his = [], []
     for ox in (-1, 0, 1):
         for om in moffs:
             xx, mm = x + ox, m + om
-            ok = (xx >= 0) & (xx < g.gx) & (mm >= 0) & (mm < n_mid)
-            base = xx * g.S_pad + mm * g.gz
+            ok = (xx >= 0) & (xx < gx) & (mm >= 0) & (mm < n_mid)
+            base = xx * S_pad + mm * gz
             los.append(torch.where(ok, base + z_lo, 1))
             his.append(torch.where(ok, base + z_hi, 0))
     return torch.stack(los, dim=1), torch.stack(his, dim=1)
@@ -138,10 +149,9 @@ def _blocks_a(sel) -> int:
 def _walk_args(walk: Walk, cfg: SimConfig) -> tuple:
     """The walk's pointers and the column keys' grid, as the kernels take
     them (a null ``order`` where the rows are in column order)."""
-    g = sb._geometry(cfg)
     order = None if walk.order is None else walk.order.data_ptr()
     return ((walk.scol.data_ptr(), order, walk.rpos.data_ptr()),
-            (g.S_pad, g.gx, g.gy, g.gz))
+            _column_grid(cfg, walk.cols))
 
 
 def rescue_density(predicted, sel, slot, count, addr, den, nden, dens,
@@ -150,27 +160,34 @@ def rescue_density(predicted, sel, slot, count, addr, den, nden, dens,
     """R1 in place: rescued rows of ``den``/``nden`` (n,) take their exact
     sums; residents gain the rescued rows' contributions, in ``den``,
     ``nden`` and in their six rows of the density planes ``dens`` (6,
-    cap_p, L) at ``addr``. Nothing changes when ``count`` is 0. Plain
-    version on the CPU, kernel (walking ``walk``) on CUDA."""
+    cap_p, L) at ``addr``. ``addr`` and ``dens`` None: the planes are the
+    caller's to update (``ops/grid.py``'s bucket planes have another
+    layout). Nothing changes when ``count`` is 0. Plain version on the CPU,
+    kernel (walking ``walk``) on CUDA."""
     dim = cfg.dim
     _check_inputs({"predicted": (predicted, (dim,)), "den": (den, ()),
                    "nden": (nden, ())}, sel, slot, count, params_vec, walk)
-    g = sb._geometry(cfg)
-    cap_p = sb._cap_pad(cfg.cell_capacity)
-    sb._check(addr, "addr", torch.int32, (slot.shape[0],))
-    sb._check(dens, "dens", torch.float32, (6, cap_p, g.L))
-    if addr.device != slot.device or dens.device != slot.device:
-        raise ValueError("kernel inputs must share one device")
+    if (addr is None) != (dens is None):
+        raise ValueError("addr and dens come together")
+    cap_p = L = 0
+    if dens is not None:
+        cap_p = sb._cap_pad(cfg.cell_capacity)
+        L = sb._geometry(cfg).L
+        sb._check(addr, "addr", torch.int32, (slot.shape[0],))
+        sb._check(dens, "dens", torch.float32, (6, cap_p, L))
+        if addr.device != slot.device or dens.device != slot.device:
+            raise ValueError("kernel inputs must share one device")
     if slot.device.type == "cpu":
         density_plain(predicted, sel, slot, count, addr, den, nden, dens,
                       params, coeffs, cfg)
         return
     ptrs, grid = _walk_args(walk, cfg)
     _launch("sph_rescue_density", predicted.data_ptr(), slot.shape[0],
-            *ptrs, slot.data_ptr(), count.data_ptr(), addr.data_ptr(),
+            *ptrs, slot.data_ptr(), count.data_ptr(),
+            None if addr is None else addr.data_ptr(),
             params_vec.data_ptr(), den.data_ptr(), nden.data_ptr(),
-            dens.data_ptr(), dim, cap_p, g.L, *grid, _blocks_a(sel),
-            slot.device.index or 0,
+            None if dens is None else dens.data_ptr(), dim, cap_p, L, *grid,
+            _blocks_a(sel), slot.device.index or 0,
             torch.cuda.current_stream(slot.device).cuda_stream)
 
 
@@ -178,13 +195,15 @@ def density_plain(predicted, sel, slot, count, addr, den, nden, dens,
                   params: SimParams, coeffs: KernelCoeffs,
                   cfg: SimConfig) -> None:
     """Plain PyTorch version of R1, in place and sync-free: the device-count
-    density rescue, then the residents' derived rows written back at their
-    addresses (each other row rewrites the value its clamped address
-    already holds)."""
+    density rescue, then (``dens`` given) the residents' derived rows
+    written back at their addresses (each other row rewrites the value its
+    clamped address already holds)."""
     den_r, nden_r = rescue_mod.density_rescue_count(
         predicted, sel, slot, count, den, nden, params, coeffs, cfg)
     den.copy_(den_r)
     nden.copy_(nden_r)
+    if dens is None:
+        return
     flat = dens.view(6, -1)
     safe = torch.clamp_max(addr, flat.shape[1] - 1).long()
     write = (slot < 0) & (count > 0)

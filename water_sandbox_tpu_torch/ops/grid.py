@@ -9,8 +9,12 @@ reaches a hand-written kernel).
   here each occupied cell gathers its neighbours at those offsets), and
   each occupied cell computes a dense masked C×C pair block against each
   neighbour. Empty cells are skipped: their slots pair with nothing. The
+  occupied cells are a fixed-size list (``_occupied_cells``), so the step
+  reads nothing on the host and ``ops/cuda/graph.py`` captures it. The
   irregular memory operations are one stable sort, one n-row scatter, the
-  neighbour gathers and one n-row gather-back per pass.
+  neighbour gathers and one n-row gather-back per pass. The exact rescue
+  of capacity-overflow rows is the kernel pipeline's: R1 and R2
+  (``ops/cuda/rescue.py``), gated on the device count.
 * ``hash_grid``: emulation of the reference's hashed cell table — hash
   collision aliasing and per-offset multi-count included — by sorted-run
   gathers. Slow by design; it exists for parity against the dense oracle.
@@ -27,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -101,7 +106,8 @@ def _scatter_buckets(cid: torch.Tensor, active: torch.Tensor | None,
 
     Returns (cell_pos, cell_vel (dim, cap, nc), cell_mask (cap, nc), addr
     (n,) int32 in row order — cap·nc for dropped rows —, the number of rows
-    kept)."""
+    kept, the sorted keys (n,) int32 — nc for inactive rows —, the sort
+    permutation (n,) int32)."""
     n, dim = predicted.shape
     key = cid if active is None else torch.where(active > 0, cid, nc)
     # stable, as jnp.argsort is: the slot of every particle hangs on it
@@ -127,7 +133,8 @@ def _scatter_buckets(cid: torch.Tensor, active: torch.Tensor | None,
     # addr in row order (invert the sort): addr[order[r]] = flat[r]
     addr = torch.empty(n, dtype=torch.int32, device=predicted.device)
     addr[order] = flat.to(torch.int32)
-    return cell_pos, cell_vel, cell_mask, addr, ok.sum()
+    return (cell_pos, cell_vel, cell_mask, addr, ok.sum(), sorted_key,
+            order.to(torch.int32))
 
 
 def build_bucket_grid(predicted: torch.Tensor, vel: torch.Tensor,
@@ -138,6 +145,13 @@ def build_bucket_grid(predicted: torch.Tensor, vel: torch.Tensor,
 
     ``time`` feeds the container pose when cfg.grid_frame == 'container'
     (hashing.key_coords); the buckets still store world coordinates."""
+    return _build(predicted, vel, params, cfg, time)[0]
+
+
+def _build(predicted, vel, params: SimParams, cfg: SimConfig, time=None):
+    """``build_bucket_grid`` and its stable sort: (grid, sorted cell ids
+    (n,) int32, the row at each sorted position (n,) int32) — the cell
+    order the rescue's kernels walk."""
     n = predicted.shape[0]
     h = params.smoothing_radius
     nc = num_cells(cfg)
@@ -147,11 +161,11 @@ def build_bucket_grid(predicted: torch.Tensor, vel: torch.Tensor,
     origin = hashing.grid_origin(kpred, h)
     _, cid = hashing.bounded_cell_ids(kpred, h, origin, cfg.grid_dims)
 
-    cell_pos, cell_vel, cell_mask, addr, kept = _scatter_buckets(
-        cid, None, predicted, vel, cap, nc)
+    cell_pos, cell_vel, cell_mask, addr, kept, sorted_cid, order = (
+        _scatter_buckets(cid, None, predicted, vel, cap, nc))
     return BucketGrid(cell_pos=cell_pos, cell_vel=cell_vel,
                       cell_mask=cell_mask, addr=addr, origin=origin,
-                      overflow=(n - kept).to(torch.int32))
+                      overflow=(n - kept).to(torch.int32)), sorted_cid, order
 
 
 def _roll_shifts(dims: tuple) -> list[int]:
@@ -170,32 +184,54 @@ def _roll_shifts(dims: tuple) -> list[int]:
             for off in itertools.product((-1, 0, 1), repeat=len(dims))]
 
 
-def _occupied_cells(cell_mask: torch.Tensor) -> torch.Tensor:
-    """Flat ids of the cells that hold a particle: the passes walk these as
-    query cells only. An empty cell's slots pair with nothing, so skipping
-    it changes no occupied slot's sums. The neighbour at roll ``shift`` of
-    cell ``c`` is cell ``(c - shift) % num_cells``, as
-    ``torch.roll(x, shift, -1)[..., c]`` reads it."""
-    return torch.nonzero((cell_mask > 0).any(dim=0)).reshape(-1)
+def _occupied_cells(cell_mask: torch.Tensor, size: int, lo: int = 0,
+                    hi: int | None = None) -> torch.Tensor:
+    """The passes' query cells: the flat ids of the cells in [lo, hi) that
+    hold a particle, ascending, then the sentinel ``num_cells`` (the
+    planes' cell count) up to ``size`` entries, int64. ``size`` must be at
+    least the number of such cells (the rows that fill them bound it), so
+    the list has a fixed shape and taking it reads nothing on the host.
+    An empty cell's slots pair with nothing, so skipping it changes no
+    occupied slot's sums."""
+    nc = cell_mask.shape[-1]
+    hi = nc if hi is None else hi
+    occ = (cell_mask[:, lo:hi] > 0).any(dim=0)
+    return torch.nonzero_static(occ, size=size,
+                                fill_value=nc - lo).reshape(-1) + lo
+
+
+def _query_cells(cells: torch.Tensor | None, cell_mask: torch.Tensor):
+    """(cells, q): the query list (``_occupied_cells``; every occupied cell
+    of the planes when None) and the cells each entry reads, the sentinel
+    reading cell 0 (its results land in a column that is cut off). The
+    neighbour at roll ``shift`` of cell ``c`` is cell ``(c - shift) %
+    num_cells``, as ``torch.roll(x, shift, -1)[..., c]`` reads it."""
+    nc = cell_mask.shape[-1]
+    if cells is None:
+        cells = _occupied_cells(cell_mask, nc)
+    return cells, cells % nc
 
 
 def bucket_density_pass(grid: BucketGrid, params: SimParams,
-                        coeffs: KernelCoeffs, cfg: SimConfig):
+                        coeffs: KernelCoeffs, cfg: SimConfig,
+                        cells: torch.Tensor | None = None):
     """Density + EOS over the slot-major bucket layout: a loop over the
-    3^dim neighbour offsets, each gathering the occupied cells' neighbours
-    and accumulating a dense masked Cq×Cn pair block per occupied cell (one
-    block's temporaries live at a time). Returns cell-layout (den, nden,
-    prs, nprs), each (C, num_cells). Self-interaction included."""
+    3^dim neighbour offsets of ``cfg.grid_dims``, each gathering the query
+    cells' neighbours and accumulating a dense masked Cq×Cn pair block per
+    query cell (one block's temporaries live at a time). ``cells`` is the
+    query list (``_occupied_cells``; None: every occupied cell). Returns
+    cell-layout (den, nden, prs, nprs), each (C, num_cells); cells off the
+    list hold the padding alone. Self-interaction included."""
     h = params.smoothing_radius
     P, M = grid.cell_pos, grid.cell_mask            # (dim, C, nc), (C, nc)
-    dim = P.shape[0]
-    occ = _occupied_cells(M)
+    dim, nc = P.shape[0], M.shape[1]
+    cells, q = _query_cells(cells, M)
     PM = torch.cat([P, M[None]], dim=0)             # (dim+1, C, nc)
-    Pq = P[:, :, occ]
-    den_o = torch.zeros_like(M[:, occ])
+    Pq = P[:, :, q]
+    den_o = torch.zeros_like(M[:, q])
     nden_o = torch.zeros_like(den_o)
     for shift in _roll_shifts(cfg.grid_dims):
-        nb = PM[:, :, (occ - shift) % M.shape[1]]
+        nb = PM[:, :, (q - shift) % nc]
         # pair block: query slots on axis 0, neighbour slots on axis 1,
         # cells last
         dist2 = None
@@ -213,11 +249,12 @@ def bucket_density_pass(grid: BucketGrid, params: SimParams,
         nden_o = nden_o + (m * kernels.w_near(dc, h, coeffs)).sum(dim=1)
 
     # an empty cell's slots see no pair: padding alone, as the full pass
-    # gives them
-    den = torch.full_like(M, DENSITY_PADDING)
-    nden = torch.full_like(M, DENSITY_PADDING)
-    den[:, occ] = den_o + DENSITY_PADDING
-    nden[:, occ] = nden_o + DENSITY_PADDING
+    # gives them; the sentinel entries write the extra column
+    den = M.new_full((M.shape[0], nc + 1), DENSITY_PADDING)
+    nden = M.new_full((M.shape[0], nc + 1), DENSITY_PADDING)
+    den[:, cells] = den_o + DENSITY_PADDING
+    nden[:, cells] = nden_o + DENSITY_PADDING
+    den, nden = den[:, :nc], nden[:, :nc]
     prs = params.pressure_scalar * (den - params.target_density)
     nprs = params.near_pressure_scalar * nden
     return den, nden, prs, nprs
@@ -226,11 +263,12 @@ def bucket_density_pass(grid: BucketGrid, params: SimParams,
 def bucket_force_pass(grid: BucketGrid, den: torch.Tensor,
                       nden: torch.Tensor, prs: torch.Tensor,
                       nprs: torch.Tensor, params: SimParams,
-                      coeffs: KernelCoeffs, cfg: SimConfig) -> torch.Tensor:
+                      coeffs: KernelCoeffs, cfg: SimConfig,
+                      cells: torch.Tensor | None = None) -> torch.Tensor:
     """Pressure + viscosity acceleration over the slot-major bucket layout,
-    a loop over the neighbour offsets of the occupied cells. The self pair
-    is excluded in the centre offset only. Returns cell acc
-    (dim, C, num_cells)."""
+    a loop over the neighbour offsets of the query cells (``cells``, as in
+    the density pass). The self pair is excluded in the centre offset
+    only. Returns cell acc (dim, C, num_cells), 0 off the list."""
     h = params.smoothing_radius
     P, V, M = grid.cell_pos, grid.cell_vel, grid.cell_mask
     dim, cap, nc = P.shape
@@ -239,13 +277,13 @@ def bucket_force_pass(grid: BucketGrid, den: torch.Tensor,
     not_self = (1.0 - torch.eye(cap, dtype=dtype, device=P.device))[:, :, None]
     feats = torch.cat(
         [P, V, M[None], den[None], nden[None], prs[None], nprs[None]], dim=0)
-    occ = _occupied_cells(M)
-    Pq, Vq = P[:, :, occ], V[:, :, occ]
-    prs_q, nprs_q = prs[:, occ], nprs[:, occ]
-    pressure_force = [torch.zeros_like(M[:, occ]) for _ in range(dim)]
-    viscosity_force = [torch.zeros_like(M[:, occ]) for _ in range(dim)]
+    cells, q = _query_cells(cells, M)
+    Pq, Vq = P[:, :, q], V[:, :, q]
+    prs_q, nprs_q = prs[:, q], nprs[:, q]
+    pressure_force = [torch.zeros_like(M[:, q]) for _ in range(dim)]
+    viscosity_force = [torch.zeros_like(M[:, q]) for _ in range(dim)]
     for shift in _roll_shifts(cfg.grid_dims):
-        nb = feats[:, :, (occ - shift) % nc]
+        nb = feats[:, :, (q - shift) % nc]
         MQ = nb[2 * dim]
         dQ, ndQ = nb[2 * dim + 1], nb[2 * dim + 2]
         pQ, npQ = nb[2 * dim + 3], nb[2 * dim + 4]
@@ -290,23 +328,26 @@ def bucket_force_pass(grid: BucketGrid, den: torch.Tensor,
                 (nb[dim + a][None, :, :] - Vq[a][:, None, :])
                 * w_visc).sum(dim=1)
 
-    # an empty cell's slots feel no pair force
-    acc = torch.zeros_like(P)
-    acc[:, :, occ] = (torch.stack(pressure_force) / den[None, :, occ]
-                      + params.viscosity_strength
-                      * torch.stack(viscosity_force))
-    return acc
+    # an empty cell's slots feel no pair force; the sentinel entries write
+    # the extra column
+    acc = P.new_zeros((dim, cap, nc + 1))
+    acc[:, :, cells] = (torch.stack(pressure_force) / den[None, :, q]
+                        + params.viscosity_strength
+                        * torch.stack(viscosity_force))
+    return acc[:, :, :nc]
 
 
 def _from_cells(cell_arr: torch.Tensor, addr: torch.Tensor,
                 fill) -> torch.Tensor:
     """Gather per-particle values back from cell layout. Overflow particles
-    (addr == one past the end) get ``fill``.
+    (addr == one past the end) get ``fill`` (a number or a () tensor).
 
     cell_arr: (C, nc) scalar plane → (n,), or (dim, C, nc) → (n, dim)."""
     if cell_arr.dim() == 2:
-        tail = torch.as_tensor(fill, dtype=cell_arr.dtype,
-                               device=cell_arr.device).reshape(1)
+        if isinstance(fill, torch.Tensor):
+            tail = fill.to(cell_arr.dtype).reshape(1)
+        else:   # a fill kernel, not a host-to-device copy
+            tail = cell_arr.new_full((1,), fill)
         return torch.cat([cell_arr.reshape(-1), tail])[addr.long()]
     return torch.stack([_from_cells(cell_arr[a], addr, fill)
                         for a in range(cell_arr.shape[0])], dim=-1)
@@ -315,11 +356,65 @@ def _from_cells(cell_arr: torch.Tensor, addr: torch.Tensor,
 def _to_cells(cell_arr: torch.Tensor, addr: torch.Tensor,
               values: torch.Tensor) -> torch.Tensor:
     """A copy of the (C, nc) plane with ``values`` written at every in-range
-    address of ``addr`` (one-past-the-end addresses are dropped)."""
-    keep = addr < cell_arr.numel()
-    out = cell_arr.reshape(-1).clone()
-    out[addr[keep].long()] = values[keep]
-    return out.view(cell_arr.shape)
+    address of ``addr``: the one-past-the-end addresses land in an extra
+    element that is cut off (no mask index, so no host read)."""
+    n = cell_arr.numel()
+    out = torch.cat([cell_arr.reshape(-1), cell_arr.new_zeros(1)])
+    out[torch.clamp_max(addr, n).long()] = values
+    return out[:n].view(cell_arr.shape)
+
+
+def column_grid(dims: tuple) -> tuple:
+    """The cell ids' grid as the rescue's kernels take a column grid
+    (``ops/cuda/rescue.py::Walk.cols``): cell id ``x·S + y·gz + z`` is the
+    column key ``x·S_pad + y·gz + z`` with ``S_pad = S``. Returns
+    (S_pad, gx, gy, gz), gz 1 in 2-D."""
+    gz = dims[2] if len(dims) == 3 else 1
+    return (math.prod(dims[1:]), dims[0], dims[1], gz)
+
+
+class Rescue(NamedTuple):
+    """The rescue's selection and walk, from its density half for its force
+    half."""
+    sel: torch.Tensor
+    slot: torch.Tensor
+    count: torch.Tensor
+    walk: object
+    params_vec: torch.Tensor
+
+
+def rescue_density(predicted, dropped, overflow, den, nden, sorted_cid,
+                   order, params: SimParams, coeffs: KernelCoeffs,
+                   cfg: SimConfig) -> Rescue:
+    """The rescue's density half over all rows, in place on ``den``/``nden``
+    (n,): the selection (``ops/rescue.py::rescue_selection``, the first
+    ``rescue_capacity`` dropped rows in row order), the cell order of the
+    build's sort (``sorted_cid``, ``order``; ``ops/cuda/rescue.py::
+    cell_walk`` over ``cfg.grid_dims``) and R1, which leaves the bucket
+    planes to the caller. Gated on the device
+    count: with no overflow nothing changes. Returns the selection and
+    walk for ``rescue_force``."""
+    from . import rescue as rescue_mod
+    from .cuda import rescue as rescue_k, sph_bucket as sb
+    sel, slot, count = rescue_mod.rescue_selection(
+        dropped, overflow, min(cfg.rescue_capacity, dropped.shape[0]))
+    walk = rescue_k.cell_walk(sel, count, sorted_cid, order,
+                              column_grid(cfg.grid_dims))
+    params_vec = sb._param_vector(params, coeffs)
+    rescue_k.rescue_density(predicted, sel, slot, count, None, den, nden,
+                            None, params, coeffs, params_vec, cfg, walk)
+    return Rescue(sel, slot, count, walk, params_vec)
+
+
+def rescue_force(predicted, vel, den, nden, prs, nprs, acc, r: Rescue,
+                 params: SimParams, coeffs: KernelCoeffs,
+                 cfg: SimConfig) -> None:
+    """The rescue's force half (R2) in place on ``acc`` (n, dim): every
+    pair touching a rescued row, both sides."""
+    from .cuda import rescue as rescue_k
+    rescue_k.rescue_force(predicted, vel, den, nden, prs, nprs, r.sel,
+                          r.slot, r.count, acc, params, coeffs, r.params_vec,
+                          cfg, r.walk)
 
 
 def bucket_sph(predicted: torch.Tensor, vel: torch.Tensor,
@@ -329,36 +424,39 @@ def bucket_sph(predicted: torch.Tensor, vel: torch.Tensor,
     overflow).
 
     With ``cfg.rescue_capacity > 0`` dropped particles get exact physics
-    from the dense rescue sweep (ops/rescue.py): densities are corrected
-    before the force pass (written back into the cell planes) and every
-    dropped↔any pair force is added afterwards; the returned ``overflow``
-    then counts only particles beyond the rescue budget. Whether a step
-    overflowed, and which budget tier it takes, is read on the host (one
-    device sync per step), as in ``ops/cuda/sph_bucket.sph_passes``. With
-    the rescue off, dropped particles get rest density and zero
-    acceleration and all are counted.
+    from the rescue's kernels R1 and R2 (``rescue_density``,
+    ``rescue_force``; their plain versions, the sweeps of ops/rescue.py, on
+    the CPU): densities are corrected before the force pass (written back
+    into the cell planes) and every dropped↔any pair force is added
+    afterwards; the returned ``overflow`` then counts only particles beyond
+    the rescue budget. Both run on every step and gate themselves on the
+    device count, as in the kernel pipeline (``ops/cuda/sph_bucket.py::
+    sph_passes``): the step reads nothing on the host. With the rescue
+    off, dropped particles get rest density and zero acceleration and all
+    are counted.
 
     The JAX function's ``constrain`` argument (a sharding hook for its
-    GSPMD multi-chip path) is not ported."""
-    from . import rescue as rescue_mod
-
-    grid = build_bucket_grid(predicted, vel, params, cfg, time=time)
+    GSPMD multi-chip path) has no torch counterpart: the sharded step is
+    written out in ``parallel/gspmd.py``."""
+    n = predicted.shape[0]
+    nc = num_cells(cfg)
+    grid, sorted_cid, order = _build(predicted, vel, params, cfg, time)
+    cells = _occupied_cells(grid.cell_mask, min(n, nc))
     den_c, nden_c, prs_c, nprs_c = bucket_density_pass(grid, params, coeffs,
-                                                       cfg)
+                                                       cfg, cells)
     addr = grid.addr
     den = _from_cells(den_c, addr, params.target_density)
     nden = _from_cells(nden_c, addr, DENSITY_PADDING)
     unrescued = grid.overflow
 
-    n_over = int(grid.overflow) if cfg.rescue_capacity > 0 else 0
-    if n_over > 0:
-        # two-tier budget: the sweep costs O(budget · n), so the full budget
-        # runs only when the small tier cannot cover the count
-        small = rescue_mod.small_budget(cfg)
-        budget = small if n_over <= small else cfg.rescue_capacity
-        dropped = addr == cfg.cell_capacity * num_cells(cfg)
-        den, nden, _, unrescued = rescue_mod.density_rescue(
-            predicted, dropped, den, nden, params, coeffs, cfg, budget=budget)
+    rescue = cfg.rescue_capacity > 0
+    if rescue:
+        # the kernels read rows through raw pointers
+        predicted, vel = predicted.contiguous(), vel.contiguous()
+        r = rescue_density(predicted, addr == cfg.cell_capacity * nc,
+                           grid.overflow, den, nden, sorted_cid, order,
+                           params, coeffs, cfg)
+        unrescued = grid.overflow - r.count
         # corrected densities must be visible to the force pass
         den_c = _to_cells(den_c, addr, den)
         nden_c = _to_cells(nden_c, addr, nden)
@@ -366,18 +464,16 @@ def bucket_sph(predicted: torch.Tensor, vel: torch.Tensor,
         nprs_c = params.near_pressure_scalar * nden_c
 
     acc_c = bucket_force_pass(grid, den_c, nden_c, prs_c, nprs_c, params,
-                              coeffs, cfg)
+                              coeffs, cfg, cells)
     acc = _from_cells(acc_c, addr, 0.0)
-    if cfg.rescue_capacity > 0:
+    if rescue:
         prs = params.pressure_scalar * (den - params.target_density)
         nprs = params.near_pressure_scalar * nden
+        rescue_force(predicted, vel, den, nden, prs, nprs, acc, r, params,
+                     coeffs, cfg)
     else:
         prs = _from_cells(prs_c, addr, 0.0)
         nprs = _from_cells(nprs_c, addr, 0.0)
-    if n_over > 0:
-        acc = rescue_mod.force_rescue(predicted, vel, den, nden, prs, nprs,
-                                      dropped, acc, params, coeffs, cfg,
-                                      budget=budget)
     return den, nden, prs, nprs, acc, unrescued
 
 

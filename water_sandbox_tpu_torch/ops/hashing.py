@@ -71,8 +71,10 @@ def bounded_cell_ids(predicted: torch.Tensor, h, origin: torch.Tensor,
     slowest. Returns (cell (n, dim) int32, cid (n,) int32)."""
     # a true division, not a multiply by 1/h: keys must match JAX's bits
     cell = torch.floor((predicted - origin) / h).to(torch.int32)
-    hi = torch.tensor(dims, dtype=torch.int32, device=predicted.device) - 1
-    cell = torch.minimum(torch.clamp_min(cell, 0), hi)
+    # clamped axis by axis with Python bounds: no host-to-device copy, so
+    # the bucket_grid step runs under CUDA-graph capture
+    cell = torch.stack([torch.clamp(cell[:, a], 0, dims[a] - 1)
+                        for a in range(len(dims))], dim=1)
     cid = cell[:, 0]
     for a in range(1, len(dims)):
         cid = cid * dims[a] + cell[:, a]

@@ -205,8 +205,9 @@ def force_rescue_count(predicted, vel, den, nden, prs, nprs, sel, slot,
 # ------------------------------------------------ the host-budget form --
 #
 # The JAX package's signatures, for callers that pick a budget on the host
-# (ops/grid.py's two tiers, the tests held against JAX): the same sweep as
-# above over the first ``budget`` dropped rows, and so the same bits.
+# (the tests held against JAX): the same sweep as above over the first
+# ``budget`` dropped rows, and so the same bits. No step calls them: every
+# step's rescue is the device-count form.
 
 def density_rescue(predicted, dropped, den, nden, params: SimParams,
                    coeffs: KernelCoeffs, cfg: SimConfig,

@@ -9,12 +9,12 @@ run the fused bucket-kernel pipeline:
 ``"dense"`` runs the all-pairs oracle (``ops/dense.py``), ``"bucket_grid"``
 and ``"hash_grid"`` the plain PyTorch pipelines of ``ops/grid.py``.
 
-The kernel pipeline's step reads nothing on the host (the rescue gates
-itself on the device), so on a CUDA device ``rollout`` and ``trajectory``
-run it as a captured CUDA graph replayed once a step
-(``ops/cuda/graph.py``), as the JAX package runs ``lax.scan`` in one
-compiled program; on the CPU the same buffers step eagerly. The other
-modes loop over ``step`` in Python. In the kernel pipeline with
+The kernel pipeline's step and the ``bucket_grid`` step read nothing on
+the host (the rescue gates itself on the device), so on a CUDA device
+``rollout`` and ``trajectory`` run them as a captured CUDA graph replayed
+once a step (``ops/cuda/graph.py``), as the JAX package runs ``lax.scan``
+in one compiled program; on the CPU the same buffers step eagerly. The
+other modes loop over ``step`` in Python. In the kernel pipeline with
 ``incremental_rebuild > 0``, ``rollout`` runs the plane-resident steps of
 ``ops/cuda/incremental.py``: on a CUDA device replays of one captured step
 whose branches are decided on the device (``graph.IncrementalGraph``).
@@ -107,7 +107,7 @@ def rollout(state: FluidState, params: SimParams, cfg: SimConfig,
     cfg = cfg.resolved()
     if cfg.neighbor_mode == "pallas" and cfg.incremental_rebuild > 0:
         return incremental.rollout_inc(state, params, cfg, num_steps)
-    if cfg.neighbor_mode == "pallas":
+    if cfg.neighbor_mode in graph_mod.CAPTURED_MODES:
         g = _own_graph(state, params, cfg)
         g.run(num_steps)
         return g.state
@@ -138,7 +138,7 @@ def trajectory(state: FluidState, params: SimParams, cfg: SimConfig,
             f"{record_every}; the remainder steps would be silently dropped")
     cfg = cfg.resolved()
     g = None
-    if cfg.neighbor_mode == "pallas":
+    if cfg.neighbor_mode in graph_mod.CAPTURED_MODES:
         g = _own_graph(state, params,
                        dataclasses.replace(cfg, incremental_rebuild=0))
         state = g.state                  # stepped in place by g.run

@@ -274,8 +274,9 @@ def _local_buckets(pred, vel, active, origin, params, cfg: SimConfig,
     for a in range(2, len(dims)):
         rest = rest * dims[a] + ax[a]
     cid = cx_local * S + rest
-    cell_pos, cell_vel, cell_mask, addr, kept = grid_mod._scatter_buckets(
-        cid, active, pred, vel, cfg.cell_capacity, nc_loc)
+    cell_pos, cell_vel, cell_mask, addr, kept, _, _ = (
+        grid_mod._scatter_buckets(cid, active, pred, vel, cfg.cell_capacity,
+                                  nc_loc))
     overflow = (active.sum() - kept).to(torch.int32)
     return cell_pos, cell_vel, cell_mask, addr, overflow, S
 
@@ -333,13 +334,18 @@ def _sph_local(pred, vel, active, params, coeffs, cfg: SimConfig,
                                     S, mesh)
 
     pm_ext = with_halo(pm, [_FAR] * dim + [0.0])
+    # the query cells: the occupied local cells (at most a row each), a
+    # fixed-size list with no host read
+    query = [grid_mod._occupied_cells(p[dim], min(pred[d].shape[0], nc_loc),
+                                      S, S + nc_loc)
+             for d, p in enumerate(pm_ext)]
     den_c, nden_c = [], []
     for d in range(nsh):
         grid_ext = grid_mod.BucketGrid(
             cell_pos=pm_ext[d][:dim], cell_vel=None, cell_mask=pm_ext[d][dim],
             addr=None, origin=None, overflow=overflow[d])
         den_e, nden_e, _, _ = grid_mod.bucket_density_pass(
-            grid_ext, params[d], coeffs[d], ext_cfg)
+            grid_ext, params[d], coeffs[d], ext_cfg, query[d])
         den_c.append(den_e[:, local])
         nden_c.append(nden_e[:, local])
 
@@ -398,7 +404,7 @@ def _sph_local(pred, vel, active, params, coeffs, cfg: SimConfig,
             cell_mask=pm_ext[d][dim], addr=None, origin=None,
             overflow=overflow[d])
         acc_e = grid_mod.bucket_force_pass(grid_f, *dfields_e[d], params[d],
-                                           coeffs[d], ext_cfg)
+                                           coeffs[d], ext_cfg, query[d])
         den.append(grid_mod._from_cells(den_c[d], addr[d],
                                         params[d].target_density))
         nden.append(grid_mod._from_cells(nden_c[d], addr[d],
@@ -634,17 +640,16 @@ def make_domain_rollout(mesh: Mesh, cfg: SimConfig, mig_cap: int = 256,
     steps a ``DomainGraph`` (``ops/cuda/graph.py``) over copies of its
     inputs: on a mesh whose shards share one CUDA device it warms up and
     captures, then replays one graph a step (keep a
-    ``DistributedSimulation`` for repeated windows); elsewhere, and on the
-    plain pair-block path (``use_pallas=False``: its occupied-cell walk,
-    ``ops/grid.py::_occupied_cells``, syncs), it steps eagerly."""
+    ``DistributedSimulation`` for repeated windows), on the kernels and
+    on the plain pair-block path (``use_pallas=False``) alike; elsewhere
+    it steps eagerly."""
     step = make_domain_step(mesh, cfg, mig_cap=mig_cap,
                             use_pallas=use_pallas, rescue_cap=rescue_cap)
 
     def rollout(states, active, params, num_steps: int):
         g = graph_mod.DomainGraph(
             step, [s.clone() for s in states], [a.clone() for a in active],
-            _map_tensors(params, torch.clone), mesh,
-            capture=use_pallas is not False)
+            _map_tensors(params, torch.clone), mesh)
         g.run(num_steps)
         return g.states, g.active, g.lost
 

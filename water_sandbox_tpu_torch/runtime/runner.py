@@ -31,9 +31,10 @@ class SimPhase(enum.Enum):
 
 class Simulation:
     """Holds the current state and params on ``device`` in buffers of its
-    own. In the kernel pipeline (``neighbor_mode`` "auto"/"pallas") it owns
-    a graph (``ops/cuda/graph.py``): a ``StepGraph`` of the rebuild step,
-    or with ``incremental_rebuild > 0`` an ``IncrementalGraph``, whose
+    own. In the kernel pipeline (``neighbor_mode`` "auto"/"pallas") and in
+    "bucket_grid" it owns a graph (``ops/cuda/graph.py``): a ``StepGraph``
+    of the rebuild step, or (kernel pipeline) with ``incremental_rebuild >
+    0`` an ``IncrementalGraph``, whose
     ``run(n)`` builds the bucket cache on entry, as JAX's ``rollout`` does
     on every call, and gathers the per-particle state on its last step. On
     a CUDA device the first ``run`` captures the step as a CUDA graph (the
@@ -66,9 +67,10 @@ class Simulation:
         self._warm = False
         self.lock = threading.RLock()
         self.graph = None
-        if self.cfg.neighbor_mode == "pallas":
+        if self.cfg.neighbor_mode in graph_mod.CAPTURED_MODES:
             graph = (graph_mod.IncrementalGraph
-                     if self.cfg.incremental_rebuild > 0
+                     if self.cfg.neighbor_mode == "pallas"
+                     and self.cfg.incremental_rebuild > 0
                      else graph_mod.StepGraph)
             self.graph = graph(self.state, self.params, self.cfg)
 
@@ -88,8 +90,9 @@ class Simulation:
             torch.cuda.synchronize(self.device)
 
     def run(self, num_steps: int = 1, block: bool = True) -> "Simulation":
-        """Advance num_steps (on CUDA in the kernel pipeline: num_steps
-        replays of the captured step). Respects PAUSED."""
+        """Advance num_steps (on CUDA in the kernel pipeline and in
+        bucket_grid: num_steps replays of the captured step). Respects
+        PAUSED."""
         with self.lock:
             if self.phase is SimPhase.PAUSED:
                 return self
