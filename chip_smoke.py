@@ -21,7 +21,7 @@ peak memory, eager and captured ms/step alternated), the JAX package's
 (and that the planted physics bug of ``golden.flipped_near_derivative``
 trips it), holds the
 kernel pipeline against the dense oracle and ``hash_grid`` against the
-weighted oracle on ``mini-3d``, runs ``reference-cube`` in ``bucket_grid``
+weighted oracle on ``mini-3d`` (eager and captured steps), runs ``reference-cube`` in ``bucket_grid``
 mode against the kernel pipeline ([bucket_grid]: the eager step under sync
 debug "error", the captured step against it bit for bit, eager and
 captured ms/step alternated, R1 and R2 launched once a step, also at cell
@@ -30,13 +30,23 @@ capacity 8), then the same step in 4 cell slabs of the card through
 single-device build bit for bit, 10 steps against the single-device step,
 captured against eager bit for bit, ms/step, peak memory, the bytes each
 collective moves a step, and at cell capacity 8 R1 and R2 held against
-their plain versions on the sharded path). Then the port's own 1,000-step pins of
+their plain versions on the sharded path), then the "dense" and
+"hash_grid" steps on the device only ([modes]: ``mini-3d`` and
+``dam-break-2d-4k`` from steps 0 and 100 in "dense"; ``mini-3d``,
+``reference-cube`` and ``moving-container-256k`` in "hash_grid"; each
+eager step under sync debug "error", 10 captured steps against 10 eager
+ones bit for bit, ms/step eager and captured alternated, capture seconds,
+peak memory, kernels a replay and busy share of 20 traced replays, the
+hash runs truncated; the bench's fingerprint in both modes; one CLI run
+in "dense"). Then the port's own 1,000-step pins of
 ``reference-cube`` and ``moving-container-256k``, made on the card
 (``golden.GOLDEN``): the kernels' own row group must meet the pin and
 repeat bit for bit, the row groups G = 1, 2 and 4 (three summation
 orders, all different) and the eager step with the rescue's plain versions
 must stay within the pin's bars, no particle may drop, and the planted bug
-must trip a pin. Then it drives the single-device path through ``Simulation.from_scene(...).run(n)`` on
+must trip a pin; and the same for ``dam-break-2d-4k`` in "dense" over its
+captured step, with the scene's row order and two seeded permutations of
+it as the three orders. Then it drives the single-device path through ``Simulation.from_scene(...).run(n)`` on
 ``reference-cube`` (65,536 particles) and ``moving-container-256k``
 (266,112 particles), then the incremental plane-resident mode on
 ``reference-cube`` in particle order (parity with the rebuild path at the
@@ -923,26 +933,46 @@ def hold(name, got, want, rtol=RTOL) -> float:
     return float(err.max(initial=0.0))
 
 
+def captured_step(state, params, cfg):
+    """One replay of a StepGraph of ``cfg``'s step over copies of
+    ``state``: the step as rollout and Simulation.run run it."""
+    from water_sandbox_tpu_torch.ops.cuda import graph as graph_mod
+    g = graph_mod.StepGraph(state.clone(), params, cfg)
+    g.run(1)
+    torch.cuda.synchronize()
+    check(g.graph is not None, f"{cfg.neighbor_mode}: no graph captured")
+    return g.state
+
+
 def phase_oracle(cfg, params, state) -> None:
     """mini-3d on the card, from its compressed state at step 60: one step
     of the dense oracle against one step of the kernel pipeline (density,
     near density and acceleration by particle id, the 2e-4 bar of the JAX
     package's test_pallas_matches_xla_bucket), and hash_grid, on a table
     small enough to collide, against the oracle weighted by
-    reference_pair_weights (tests/test_grid.py's parity)."""
+    reference_pair_weights (tests/test_grid.py's parity). Each step runs
+    eagerly and as one replay of its captured graph (the two bit for bit),
+    and the captured steps meet the same bars."""
     import dataclasses
     import water_sandbox_tpu_torch as wst
     from water_sandbox_tpu_torch.core.params import KernelCoeffs
     from water_sandbox_tpu_torch.ops import dense, grid, hashing
+    cfg_d = dataclasses.replace(cfg, neighbor_mode="dense")
     s_k = wst.step(state, params, cfg)
-    s_d = wst.step(state, params,
-                   dataclasses.replace(cfg, neighbor_mode="dense"))
+    s_d = wst.step(state, params, cfg_d)
+    c_k = captured_step(state, params, cfg)
+    c_d = captured_step(state, params, cfg_d)
+    check(same_state(c_k, s_k) and same_state(c_d, s_d)
+          and same_bits(c_d.acc, s_d.acc),
+          "oracle phase: a captured step differs from the eager one")
     check(int(s_k.overflow) == 0, "oracle phase: the kernel step overflowed")
-    worst = max(hold(f"kernel pipeline vs dense oracle, {f}", by_id(s_k, f),
-                     by_id(s_d, f))
+    worst = max(hold(f"kernel pipeline vs dense oracle, {f}", by_id(a, f),
+                     by_id(b, f))
+                for a, b in ((s_k, s_d), (c_k, c_d))
                 for f in ("density", "near_density", "acc"))
     check(float(s_d.acc.abs().max()) > 1.0, "oracle phase: no pair forces")
     log(f"[oracle] mini-3d step 61: kernel pipeline vs dense oracle by id, "
+        f"eager and captured (each captured = its eager step bit for bit), "
         f"max_abs_err={worst:.3e} (max |acc| "
         f"{float(s_d.acc.abs().max()):.1f})")
 
@@ -956,15 +986,23 @@ def phase_oracle(cfg, params, state) -> None:
     want = dense.density_pass(pred, params, coeffs, pair_weight=w)
     want += (dense.force_pass(pred, vel, *want, params, coeffs,
                               pair_weight=w),)
-    check(int(got[5]) == 0, "oracle phase: a hash run was truncated")
+    c_h = captured_step(state, params, cfg_h)
+    stepped = (c_h.density, c_h.near_density, c_h.pressure,
+               c_h.near_pressure, c_h.acc)
+    check(int(got[5]) == 0 and int(c_h.overflow) == 0,
+          "oracle phase: a hash run was truncated")
     check(int(w.max()) > 1, "oracle phase: no hash collision to multi-count")
     worst = max(hold(f"hash_grid vs weighted oracle, {name}",
                      g.cpu().numpy(), x.cpu().numpy())
+                for out in (got, stepped)
                 for name, g, x in zip(("den", "nden", "prs", "nprs", "acc"),
-                                      got, want))
+                                      out, want))
+    check(all(same_bits(a, b) for a, b in zip(stepped, got)),
+          "oracle phase: the captured hash_grid step differs from hash_sph")
     log(f"[oracle] mini-3d step 60: hash_grid vs dense oracle with "
         f"reference_pair_weights (table {cfg_h.table_size}, max weight "
-        f"{int(w.max())}), max_abs_err={worst:.3e}")
+        f"{int(w.max())}), hash_sph and one captured step (bit for bit the "
+        f"same), max_abs_err={worst:.3e}")
 
 
 def alternate(eager, captured, pairs: int = 3, steps: int = 5) -> tuple:
@@ -1252,6 +1290,227 @@ def phase_gspmd(state100, single, record, paths: dict, shards: int = 4,
         f"{same_bits(got8.pos, single8.pos)}), launches "
         f"{paths['gspmd reference-cube cap 8'][0]}, phase "
         f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def mode_state(mode: str, scene: str, start: int, steps: int = 10,
+               **kw) -> None:
+    """One [modes] line: ``scene`` in ``neighbor_mode=mode`` at full width
+    (``kw`` replaces SimConfig fields) from the state ``start`` steps past
+    the lattice: the eager step under sync debug "error", ``steps``
+    replays of its captured step (a StepGraph) against ``steps`` eager
+    steps bit for bit, launching no hand kernel, warm-up and capture
+    seconds, peak memory above the scene's tensors (eager and captured),
+    ms/step eager and captured in alternated 5-step windows, the kernels a
+    replay and busy share of 20 traced replays, and the hash runs
+    truncated (``overflow``: the emulation's limit, as in the JAX
+    package)."""
+    import water_sandbox_tpu_torch as wst
+    from water_sandbox_tpu_torch.core.params import _map_tensors
+    from water_sandbox_tpu_torch.ops.cuda import graph as graph_mod
+    t0 = time.perf_counter()
+    label = f"{mode} {scene} step {start}"
+    cfg, params, state = wst.scenes.build(scene, device="cuda",
+                                          neighbor_mode=mode, **kw)
+    if start:
+        state = wst.rollout(state, params, cfg, start)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        e = wst.step(state, params, cfg)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for _ in range(steps - 1):
+        e = wst.step(e, params, cfg)
+    torch.cuda.synchronize()
+    peak_eager = (torch.cuda.max_memory_allocated() - base) / 2**20
+    total0 = float(state.overflow_total)
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    g = graph_mod.StepGraph(state.clone(), _map_tensors(params, torch.clone),
+                            cfg)
+    reset_launches()
+    g.run(steps)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    launches = {k: v for k, v in launches_now().items() if v}
+    check(g.graph is not None, f"[modes] {label}: no graph")
+    check(same_state(g.state, e) and same_bits(g.state.acc, e.acc)
+          and same_bits(g.state.overflow_total, e.overflow_total),
+          f"[modes] {label}: {steps} captured steps != {steps} eager steps")
+    check(not launches and not g.per_replay,
+          f"[modes] {label}: hand kernels launched {launches}")
+    check(bool(torch.isfinite(g.state.pos).all()),
+          f"[modes] {label}: non-finite positions")
+    truncated = int(g.state.overflow)
+    grown = float(g.state.overflow_total) - total0
+    state = {"eager": e}
+
+    def eager(k):
+        for _ in range(k):
+            state["eager"] = wst.step(state["eager"], params, cfg)
+
+    ms_e, ms_c = alternate(eager, g.run)
+    del state, e
+    prof = profile_replays(g, names=())
+    log(f"[modes] {label}: n={cfg.n}, dim {cfg.dim}, eager step under sync "
+        f"debug \"error\", {steps} captured steps = {steps} eager bit for "
+        f"bit, no hand kernel; warm-up + capture {g.capture_s:.2f} s; peak "
+        f"memory above the scene's tensors: captured (capture + {steps} "
+        f"replays) {peak:.1f} MiB, {steps} eager steps {peak_eager:.1f} MiB; "
+        f"ms/step eager {ms_e} captured {ms_c} (host clock, alternated "
+        f"windows of 5 steps); {prof['steps']} traced replays: ATen kernels "
+        f"a replay {prof['kernels']:.1f}, device ms a step "
+        f"{prof['device_ms']:.4f}, busy share {fmt(prof['busy'])}, host "
+        f"clock a step {prof['wall_ms']:.4f} untraced; hash runs truncated "
+        f"(overflow) {truncated} at the last step, overflow_total "
+        f"+{grown} over {steps} steps ({time.perf_counter() - t0:.1f} s)")
+
+
+# [modes]: the plain neighbour modes' captured steps, (mode, scene, steps
+# from the lattice, SimConfig overrides). The flagships ride in bucket
+# order under the kernel pipeline only (sorted_state=True there).
+MODE_STATES = (
+    ("dense", "mini-3d", 0, {}),
+    ("dense", "dam-break-2d-4k", 0, {}),
+    ("dense", "dam-break-2d-4k", 100, {}),
+    ("hash_grid", "mini-3d", 0, {}),
+    ("hash_grid", "reference-cube", 0, dict(sorted_state=False)),
+    ("hash_grid", "moving-container-256k", 0, dict(sorted_state=False)),
+)
+
+
+def phase_modes() -> None:
+    """The "dense" and "hash_grid" steps on the device only ([modes]):
+    ``mode_state`` for each of MODE_STATES; the bench's fingerprint of a
+    short ``bench.measure`` in each mode says ``"step": "captured"``; one
+    ``cli run mini-3d --neighbor-mode dense --steps 4`` subprocess, which
+    launches no hand kernel."""
+    from water_sandbox_tpu_torch import bench
+    t_phase = time.perf_counter()
+    for mode, scene, start, kw in MODE_STATES:
+        mode_state(mode, scene, start, **kw)
+    for mode in ("dense", "hash_grid"):
+        sim, rate, _, done = bench.measure("mini-3d", mode, chunk=10,
+                                           settle=20, device="cuda")
+        fp = bench.fingerprint(sim)
+        check(fp["step"] == "captured" and fp["neighbor_mode"] == mode,
+              f"[modes] bench {mode}: fingerprint {fp}")
+        log(f"[modes] bench.measure mini-3d {mode} (10-step windows, "
+            f"settled at {done}): {rate:.1f} particle-steps/s, fingerprint "
+            f"step {fp['step']!r}")
+        del sim
+    t0 = time.perf_counter()
+    lines, launches = run_front("water_sandbox_tpu_torch.cli", "run",
+                                "--scene", "mini-3d", "--neighbor-mode",
+                                "dense", "--steps", "4")
+    stats = json.loads(next(ln for ln in lines if ln.startswith("{")))
+    check(stats["step"] == 4 and not any(launches.values()),
+          f"[modes] cli run dense: step {stats['step']}, launches {launches}")
+    log(f"[modes] cli run mini-3d --neighbor-mode dense --steps 4: step 4, "
+        f"ke {stats['kinetic_energy']:.2f}, no hand kernel "
+        f"({time.perf_counter() - t0:.1f} s); phase passed in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+# The dense 1,000-step pin's three summation orders: the scene's own row
+# order and two seeded permutations of the initial rows (ids with them).
+DENSE_ORDERS = (None, 1, 2)
+
+
+def permuted(state, seed: int):
+    """``state`` with its rows in a seeded random order, ``ids`` with
+    them."""
+    import dataclasses
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(
+        state.n)).to(state.device)
+    return dataclasses.replace(state, **{
+        f.name: getattr(state, f.name)[perm]
+        for f in dataclasses.fields(state)
+        if getattr(state, f.name).dim() > 0})
+
+
+def phase_golden_dense(steps: int = 1000) -> None:
+    """The port's 1,000-step pin of ``dam-break-2d-4k`` in "dense" made on
+    the card, through Simulation.run (the captured dense step): the
+    scene's own order twice (bit for bit), two seeded permutations of the
+    rows (other summation orders of the same pairs), each within the pin's
+    bars (the larger of the JAX package's and twice the spread over the
+    three orders), and the planted physics bug tripping it; the JAX
+    package's TPU pin printed beside it. Every run prints its statistics
+    before any check fails."""
+    import water_sandbox_tpu_torch as wst
+    from water_sandbox_tpu_torch import golden
+    scene, mode = "dam-break-2d-4k", "dense"
+    key = (scene, mode, steps)
+    pin = golden.GOLDEN.get(key)
+    t_phase = time.perf_counter()
+
+    def run(label, seed=None):
+        t0 = time.perf_counter()
+        cfg, params, state = wst.scenes.build(scene, device="cuda",
+                                              neighbor_mode=mode)
+        if seed is not None:
+            state = permuted(state, seed)
+        sim = wst.Simulation(cfg, params, state, name=scene)
+        done = 0
+        while done < steps:                 # golden.run's 50-step chunks
+            sim.run(min(50, steps - done), block=False)
+            done += 50
+        torch.cuda.synchronize()
+        got = golden.summarize(sim.state)
+        log(f"[golden] {scene} {mode} {steps} steps, {label}: "
+            f"{json.dumps(got)} ({time.perf_counter() - t0:.1f} s)")
+        return sim.state, got
+
+    reset_launches()
+    first, picked = run("the scene's order")
+    launches = {k: v for k, v in launches_now().items() if v}
+    again, _ = run("the scene's order again")
+    same = same_state(first, again) and same_bits(first.acc, again.acc)
+    del again
+    orders = {"the scene's order": picked}
+    states = [first]
+    for seed in DENSE_ORDERS[1:]:
+        s, orders[f"rows permuted, seed {seed}"] = run(
+            f"rows permuted, seed {seed}", seed)
+        states.append(s)
+    differ = all(not np.array_equal(by_id(a, "pos"), by_id(b, "pos"))
+                 for i, a in enumerate(states) for b in states[i + 1:])
+    del states, first
+    spread = spreads(orders.values())
+    log(f"[golden] {scene} {mode}: spread over the three orders "
+        f"{json.dumps(spread)}; 2x that "
+        f"{json.dumps({k: 2 * v for k, v in spread.items()})}")
+    with golden.flipped_near_derivative():
+        _, flipped = run("pow3_der flipped")
+    jax_pin = golden.JAX_GOLDEN[key]
+    log(f"[golden] {scene} {mode} beside the JAX package's pin "
+        f"(information only): tripped {golden.check(picked, jax_pin)}, "
+        f"margins {json.dumps(rounded(golden.margins(picked, jax_pin)))}")
+
+    check(pin is not None, f"golden {scene} {mode}: no pin for {key}")
+    check(not launches, f"golden {scene} {mode}: hand kernels {launches}")
+    check(same, f"golden {scene} {mode}: two runs of one order differ")
+    check(differ, f"golden {scene} {mode}: the three orders do not all "
+          "differ")
+    for label, got in orders.items():
+        tripped = golden.check(got, pin)
+        log(f"[golden] {scene} {mode}: {label} against the pin made on "
+            f"{pin['made_on']}: tripped {tripped}, margins "
+            f"{json.dumps(rounded(golden.margins(got, pin)))}")
+        check(tripped == [], f"golden {scene} {mode}: {label} tripped "
+              f"{tripped}")
+    tripped = golden.check(flipped, pin)
+    log(f"[golden] {scene} {mode}: pow3_der flipped trips {tripped}")
+    check(bool(set(tripped) - {"overflow_total"}),
+          f"golden {scene} {mode}: the flipped run tripped no statistic")
+    log(f"[golden] {scene} {mode}: two runs of the scene's order "
+        f"bit-identical, the three orders all different, no hand kernel, "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_main_path(scene: str, steps: int, warmup: int):
@@ -3304,10 +3563,12 @@ def main() -> int:
     single = phase_bucket_grid(state100, paths)
     phase_gspmd(state100, single, record, paths)
     del single
+    phase_modes()
 
     # 5b. the port's 1,000-step pins made on the card
     for scene in GOLDEN_1K:
         phase_golden_1k(scene, paths)
+    phase_golden_dense()
 
     # 6. single-device path
     paths["reference-cube"] = phase_main_path("reference-cube", 200,

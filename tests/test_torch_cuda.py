@@ -990,6 +990,36 @@ def test_sharded_rollout_captured_equals_eager(cuda_device):
     assert float(got.overflow_total) == float(single.overflow_total)
 
 
+@pytest.mark.parametrize("mode", ["dense", "hash_grid"])
+def test_plain_mode_step_is_captured(cuda_device, mode):
+    """The dense and hash_grid steps at mini-3d raise nothing under sync
+    debug "error", and 10 replays of their StepGraph equal 10 eager steps
+    bit for bit; a Simulation and rollout replay the same graph."""
+    from water_sandbox_tpu_torch.ops.cuda import graph
+    cfg, params, state = wt.scenes.build("mini-3d", device=cuda_device,
+                                         neighbor_mode=mode)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s = wt.step(state, params, cfg)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for _ in range(9):
+        s = wt.step(s, params, cfg)
+    g = graph.StepGraph(state.clone(), params, cfg)
+    g.run(10)
+    torch.cuda.synchronize()
+    assert g.graph is not None and g.per_replay == {}
+    for f in ("pos", "vel", "predicted", "acc", "density", "near_density",
+              "pressure", "near_pressure", "overflow_total", "time"):
+        assert _same_bits(getattr(g.state, f), getattr(s, f)), f
+    sim = wt.Simulation(cfg, params, state)
+    sim.run(10)
+    assert sim.graph.graph is not None and _same_bits(sim.state.pos, s.pos)
+    assert _same_bits(wt.rollout(state, params, cfg, 10).pos, s.pos)
+
+
 def test_a_host_read_in_the_step_fails_the_capture(cuda_device, monkeypatch):
     """A step that reads the device on the host cannot be captured, and the
     capture raises: nothing falls back to the eager loop. (Last in the

@@ -141,7 +141,14 @@ def test_check_applies_the_bars_and_a_pins_own_bars():
         "overflow_total"]
 
 
+# the pins made on the card (chip_smoke.py's [golden] phases)
+CARD = [("reference-cube", "pallas", 1000),
+        ("moving-container-256k", "pallas", 1000),
+        ("dam-break-2d-4k", "dense", 1000)]
+
+
 def test_every_pin_records_where_it_was_made():
+    assert set(golden.GOLDEN) == set(FAST) | set(SLOW) | set(CARD)
     for key, pin in golden.GOLDEN.items():
         made = pin["made_on"]
         if key in FAST or key in SLOW:
@@ -149,9 +156,13 @@ def test_every_pin_records_where_it_was_made():
         else:
             assert "H100" in made and "W" in made and "torch" in made \
                 and "CUDA" in made, (key, made)
+            # bars from the spread of the card's summation orders
+            assert set(pin["bars"]) <= set(golden.BARS), key
 
 
 def test_jax_pin_copy_matches_the_jax_table():
+    # every card pin is printed beside the JAX package's pin of its key
+    assert set(CARD) <= set(golden.JAX_GOLDEN)
     for key, pin in golden.JAX_GOLDEN.items():
         want = {k: v for k, v in JAX_PINS[key].items() if k != "marks"}
         assert pin == want, key

@@ -276,16 +276,22 @@ def test_roll_shifts_match_jax():
 
 def test_container_frame_is_refused_where_jax_ignores_it():
     """The JAX package's dense and hash_grid modes never read grid_frame;
-    the port refuses the combination, and honours the frame in bucket_grid,
-    where JAX does: the keys follow the box, the physics does not change."""
-    for mode in ("dense", "hash_grid"):
-        with pytest.raises(ValueError, match="container"):
-            wt.SimConfig(n=8, dim=3, neighbor_mode=mode,
-                         grid_frame="container")
+    the port accepts the combination and ignores it there too (the hash
+    keys stay world cells), and honours the frame in bucket_grid, where JAX
+    does: the keys follow the box, the physics does not change."""
     box = JContainer.create((0.5, 0.0, 0.0), (6.0, 6.0, 6.0),
                             angular_velocity=0.7, angle=0.4)
     pred, vel, _, _, _, params, cfg, tc = _case(container=box, seed=4)
     pred, vel = torch.from_numpy(pred), torch.from_numpy(vel)
+    for mode in ("dense", "hash_grid"):
+        kw = dict(n=8, dim=3, neighbor_mode=mode, grid_frame="container")
+        assert (wt.SimConfig(**kw).grid_frame
+                == JSimConfig(**kw).grid_frame == "container")
+    cfg_h = dataclasses.replace(cfg, neighbor_mode="hash_grid")
+    for a, b in zip(grid.hash_sph(pred, vel, params, tc, dataclasses.replace(
+                        cfg_h, grid_frame="container")),
+                    grid.hash_sph(pred, vel, params, tc, cfg_h)):
+        assert torch.equal(a, b)
     cfg_c = dataclasses.replace(cfg, grid_frame="container")
     t = torch.tensor(0.7)
     world = grid.bucket_sph(pred, vel, params, tc, cfg, time=t)

@@ -116,11 +116,12 @@ def test_config_modes_and_probe_fields():
                         hash_table_size=31).table_size == 31
     with pytest.raises(ValueError, match="grid_dims"):
         wt.SimConfig(n=64, neighbor_mode="bucket_grid")
-    # the JAX package ignores the container frame in these two modes; the
-    # port refuses it
+    # these two modes have no bounded grid to pose: the container frame is
+    # accepted and ignored, as the JAX package does
     for mode in ("dense", "hash_grid"):
-        with pytest.raises(ValueError, match="container"):
-            wt.SimConfig(**base, neighbor_mode=mode, grid_frame="container")
+        kw = dict(base, neighbor_mode=mode, grid_frame="container")
+        assert (wt.SimConfig(**kw).grid_frame
+                == wj.SimConfig(**kw).grid_frame == "container")
     assert wt.SimConfig(**base, neighbor_mode="bucket_grid",
                         grid_frame="container").grid_frame == "container"
     # the incremental mode is ported (ops/cuda/incremental.py)

@@ -151,7 +151,8 @@ def test_rollout_and_trajectory_step_the_buffers_like_a_step_loop():
     assert torch.equal(rec, torch.stack(frames[1::2]))
     assert torch.equal(final.vel, s.vel)
     assert int(state.step_count) == 0
+    # every mode's rebuild step; the incremental step is IncrementalGraph's
     with pytest.raises(ValueError, match="rebuild step"):
         graph.StepGraph(state, params,
-                        dataclasses.replace(cfg, neighbor_mode="dense",
-                                            sorted_state=False))
+                        dataclasses.replace(cfg, sorted_state=False,
+                                            incremental_rebuild=4))

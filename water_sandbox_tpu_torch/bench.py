@@ -118,8 +118,7 @@ def fingerprint(sim) -> dict:
         "grid_frame": cfg.grid_frame,
         "cell_capacity": cfg.cell_capacity,
         "sorted_state": cfg.sorted_state,
-        "step": ("captured" if sim.graph is not None
-                 and sim.graph.captures else "eager"),
+        "step": "captured" if sim.graph.captures else "eager",
         "kernels": None, "row_group": None, "tile": None,
         "build_scatter": cfg.build_scatter,
         "dt": float(sim.params.dt),

@@ -264,8 +264,9 @@ class SimConfig:
     ``"dense"`` (the all-pairs oracle, ``ops/dense.py``), ``"bucket_grid"``
     and ``"hash_grid"`` (``ops/grid.py``) are plain PyTorch on the state's
     device. ``grid_frame="container"`` is honoured by the kernel pipeline
-    and ``"bucket_grid"``; ``"dense"`` and ``"hash_grid"`` have no frame to
-    pose (the JAX package ignores the field there) and refuse it.
+    and ``"bucket_grid"``; ``"dense"`` and ``"hash_grid"`` have no bounded
+    grid to pose and ignore it, as the JAX package does (their hash keys
+    stay world cells; the integrator still moves and yaws the box).
     ``incremental_rebuild > 0`` makes ``rollout`` in the kernel pipeline
     keep the particles resident in the bucket planes
     (``ops/cuda/incremental.py``).
@@ -319,12 +320,6 @@ class SimConfig:
         if self.sorted_state and self.incremental_rebuild > 0:
             raise ValueError(
                 "sorted_state is incompatible with incremental_rebuild")
-        if (self.grid_frame == "container"
-                and self.neighbor_mode in ("dense", "hash_grid")):
-            raise ValueError(
-                f"grid_frame='container' has no meaning for neighbor_mode="
-                f"{self.neighbor_mode!r} (no bounded grid to pose); use "
-                "'world'")
         for name, default in _PROBE_DEFAULTS.items():
             if getattr(self, name) != default:
                 raise ValueError(

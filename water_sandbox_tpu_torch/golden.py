@@ -15,8 +15,10 @@ Regenerate a pin after an intentional physics change::
 
     python -m water_sandbox_tpu_torch.golden mini-3d dense 60 --device cpu
     python -m water_sandbox_tpu_torch.golden reference-cube pallas 1000
+    python -m water_sandbox_tpu_torch.golden dam-break-2d-4k dense 1000 \
+        --device cuda
 
-The second runs on the card (the default device; it raises without one).
+The last two run on the card (the default device; it raises without one).
 The printed line is ``{"scene|mode|steps": stats}``.
 """
 
@@ -50,7 +52,7 @@ BARS = {"com": (1e-7, 2e-3), "ke": (2e-3, 0.0), "bbox_lo": (1e-7, 5e-3),
 _PIN_OF = {"com": "com", "ke": "ke", "bbox_lo": "bbox", "bbox_hi": "bbox",
            "mean_rho": "mean_rho", "vq": "vq", "rq": "rq"}
 
-# The card the two 1,000-step pins were made on (``made_on("cuda")``).
+# The card the 1,000-step card pins were made on (``made_on("cuda")``).
 _H100 = "NVIDIA H100 80GB HBM3, 700.00 W; torch 2.11.0+cu128; CUDA 12.8"
 
 # The port's own pins. ``kw`` overrides SimConfig fields of the scene;
@@ -126,11 +128,25 @@ GOLDEN = {
         bars=dict(com=0.00828, ke=1224.16, bbox_hi=0.02616, mean_rho=0.2198,
                   vq=0.00878, rq=0.624),
         made_on=_H100),
+    # The dense oracle through its captured step (chip_smoke.py's [golden]
+    # dam-break-2d-4k dense lines). ``bars``: twice the largest spread of a
+    # statistic over three summation orders of the same pairs (the scene's
+    # row order and two seeded permutations of the initial rows), where
+    # that is wider than the JAX package's bar.
+    ("dam-break-2d-4k", "dense", 1000): dict(
+        com=[-0.10786, -3.9302], ke=8703.93,
+        bbox_lo=[-7.95, -4.45], bbox_hi=[7.95, -3.05077],
+        mean_rho=209.6719,
+        vq=[0.58858, 1.63902, 3.29854], rq=[143.1299, 209.5872, 275.4879],
+        bars=dict(com=0.15556, ke=1525.78, bbox_hi=0.25668, mean_rho=11.1674,
+                  vq=0.39308, rq=15.4976),
+        made_on=_H100),
 }
 
 # The JAX package's pins the port is held to or printed beside
-# (tests/test_golden.py:58-63, :100-123; a test keeps this copy equal to
-# that table). The 1,000-step pins were made on a TPU v5e.
+# (tests/test_golden.py:58-63, :80-85, :100-123; a test keeps this copy
+# equal to that table). The flagships' 1,000-step pins were made on a TPU
+# v5e.
 JAX_GOLDEN = {
     ("mini-3d", "pallas", 60): dict(
         com=[0.0, -3.79511, 0.0], ke=10585.89,
@@ -143,6 +159,11 @@ JAX_GOLDEN = {
         bbox_lo=[-7.9, -4.4, -4.4], bbox_hi=[7.9, -2.23074, 4.4],
         mean_rho=332.9723,
         vq=[0.01156, 0.03055, 0.37969], rq=[161.8073, 315.4169, 536.8668]),
+    ("dam-break-2d-4k", "dense", 1000): dict(
+        com=[-0.14036, -3.93962], ke=9659.11,
+        bbox_lo=[-7.95, -4.45], bbox_hi=[7.95, -2.85276],
+        mean_rho=214.1837,
+        vq=[0.70559, 1.81522, 3.3783], rq=[140.9755, 212.3918, 285.7992]),
     ("moving-container-256k", "pallas", 1000): dict(
         com=[2.6997, -2.93742, -0.02899], ke=223845.0,
         bbox_lo=[-18.26894, -4.9, -10.10571],
@@ -157,8 +178,8 @@ def run(name: str, mode: str, steps: int, device=device_mod.DEFAULT,
     """``steps`` steps of scene ``name`` in ``neighbor_mode=mode`` on
     ``device`` (the card unless the caller names the CPU); ``kw`` replaces
     SimConfig fields. Runs what ``Simulation.run`` runs (on the card, the
-    kernel pipeline's captured step, captured here under whatever context
-    the caller has open), in 50-step chunks as the JAX tool does. Returns
+    mode's captured step, captured here under whatever context the caller
+    has open), in 50-step chunks as the JAX tool does. Returns
     (cfg, params, state)."""
     cfg, params, state = scenes.build(name, device=device,
                                       neighbor_mode=mode, **kw)

@@ -149,9 +149,7 @@ def _force_sweep(q: dict, cand_groups: list[dict], params: SimParams,
     h = params.smoothing_radius
     O, dim = q["pos"].shape
     dev = q["pos"].device
-    # +y, made on the device (a scalar written from the host is a copy,
-    # which a CUDA graph capture refuses)
-    up = (torch.arange(dim, device=dev) == 1).to(q["pos"].dtype)
+    up = kernels.up_direction(dim, q["pos"].dtype, dev)
     pf_o = torch.zeros((O, dim), dtype=q["pos"].dtype, device=dev)
     vf_o = torch.zeros_like(pf_o)
     corrections = None

@@ -1,6 +1,7 @@
-"""The kernel pipeline's rebuild step, the ``bucket_grid`` step, the domain
-step and the cell-slab-sharded step as captured CUDA graphs — the
-counterparts of the JAX package's device-only rollouts
+"""The single-device step in every neighbour mode (the kernel pipeline's
+rebuild step, ``bucket_grid``, ``dense``, ``hash_grid``), the domain step
+and the cell-slab-sharded step as captured CUDA graphs — the counterparts
+of the JAX package's device-only rollouts
 (``jax.jit`` over ``lax.scan``, ``water_sandbox_tpu/ops/step.py:121-140``;
 ``make_domain_rollout``, ``water_sandbox_tpu/parallel/domain.py:913-940``).
 
@@ -59,8 +60,9 @@ from ...core.state import FluidState
 # Eager steps on a side stream before the capture.
 WARMUP_STEPS = 2
 
-# The neighbour modes whose rebuild step StepGraph captures.
-CAPTURED_MODES = ("pallas", "bucket_grid")
+# The neighbour modes whose rebuild step StepGraph captures: all of them,
+# as the JAX package runs every mode's rollout as one compiled program.
+CAPTURED_MODES = ("pallas", "bucket_grid", "dense", "hash_grid")
 
 
 def _counters() -> tuple:
@@ -154,10 +156,10 @@ class _Graph:
 class StepGraph(_Graph):
     """``run(n)`` advances ``state`` by n steps of ``ops/step.py::step`` in
     place, reading ``params`` in place: on CUDA n replays of a captured
-    step, on the CPU n eager steps. The step is the kernel pipeline's
-    rebuild step or the ``bucket_grid`` step. The buffers are the
-    caller's: hand over a state and params it owns
-    (``FluidState.clone``)."""
+    step, on the CPU n eager steps. The step is the rebuild step of any
+    neighbour mode (the kernel pipeline's without ``incremental_rebuild``,
+    which ``IncrementalGraph`` runs). The buffers are the caller's: hand
+    over a state and params it owns (``FluidState.clone``)."""
 
     def __init__(self, state: FluidState, params: SimParams,
                  cfg: SimConfig):
@@ -166,8 +168,8 @@ class StepGraph(_Graph):
         if mode not in CAPTURED_MODES or (mode == "pallas"
                                           and self.cfg.incremental_rebuild):
             raise ValueError("StepGraph runs the rebuild step of "
-                             "neighbor_mode 'pallas' (incremental_rebuild "
-                             "0) or 'bucket_grid'")
+                             f"neighbor_mode {CAPTURED_MODES} (in 'pallas' "
+                             "with incremental_rebuild 0)")
         super().__init__()
         self.state = state
         self.params = params

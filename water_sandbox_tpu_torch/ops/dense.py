@@ -69,8 +69,7 @@ def force_pass(predicted: torch.Tensor, vel: torch.Tensor,
     else:
         weight = mask.to(predicted.dtype)
 
-    up = torch.zeros(dim, dtype=predicted.dtype, device=predicted.device)
-    up[1] = 1.0
+    up = kernels.up_direction(dim, predicted.dtype, predicted.device)
     safe = torch.where(dist > 0.0, dist, 1.0)
     direction = torch.where((dist > 0.0)[..., None], disp / safe[..., None],
                             up)

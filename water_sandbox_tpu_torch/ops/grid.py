@@ -577,8 +577,7 @@ def hash_force_pass(predicted: torch.Tensor, vel: torch.Tensor,
     nden_pad = _pad_rows(near_density, 1.0)
     prs_pad = _pad_rows(pressure, 0.0)
     nprs_pad = _pad_rows(near_pressure, 0.0)
-    up = torch.zeros(dim, dtype=predicted.dtype, device=predicted.device)
-    up[1] = 1.0
+    up = kernels.up_direction(dim, predicted.dtype, predicted.device)
     iota = torch.arange(n, device=predicted.device)
 
     out = []

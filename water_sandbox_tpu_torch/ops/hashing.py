@@ -14,7 +14,6 @@ Two key schemes:
 
 from __future__ import annotations
 
-import itertools
 import math
 
 import torch
@@ -46,9 +45,12 @@ def reference_hash(cell: torch.Tensor, table_size: int) -> torch.Tensor:
 
 def neighbor_offsets(dim: int, device=None) -> torch.Tensor:
     """The 3^dim neighbour-cell offsets (3^dim, dim) int32: x outermost, z
-    innermost, each in (-1, 0, 1) — the reference's OFFSET_TABLE order."""
-    return torch.tensor(list(itertools.product((-1, 0, 1), repeat=dim)),
-                        dtype=torch.int32, device=device)
+    innermost, each in (-1, 0, 1) — the reference's OFFSET_TABLE order.
+    The base-3 digits of 0 .. 3^dim - 1, made on the device: a table
+    copied from the host would refuse a CUDA graph capture."""
+    k = torch.arange(3**dim, dtype=torch.int32, device=device)
+    return torch.stack([k // 3**(dim - 1 - a) % 3 - 1 for a in range(dim)],
+                       dim=1)
 
 
 def reference_pair_weights(predicted: torch.Tensor, h,

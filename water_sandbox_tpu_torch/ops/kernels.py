@@ -42,3 +42,11 @@ def w_viscosity(d: torch.Tensor, h, k: KernelCoeffs) -> torch.Tensor:
 def support_mask(d: torch.Tensor, h) -> torch.Tensor:
     """Inside-support mask, inclusive of d == h like the reference."""
     return d <= h
+
+
+def up_direction(dim: int, dtype, device) -> torch.Tensor:
+    """+y, the direction a pair at distance 0 is pushed along: [0, 1] or
+    [0, 1, 0] (JAX's ``jnp.zeros(dim).at[1].set(1.0)``). Made on the
+    device: an item assignment would copy its scalar from the host, which a
+    CUDA graph capture refuses."""
+    return (torch.arange(dim, device=device) == 1).to(dtype)

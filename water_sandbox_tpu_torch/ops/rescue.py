@@ -159,8 +159,7 @@ def force_rescue_count(predicted, vel, den, nden, prs, nprs, sel, slot,
     oid = torch.where(valid, order, -1)
     iota = torch.arange(n, device=predicted.device)
     iota = torch.where(dropped & ~rescued, -3, iota)
-    up = torch.zeros(dim, dtype=predicted.dtype, device=predicted.device)
-    up[1] = 1.0
+    up = kernels.up_direction(dim, predicted.dtype, predicted.device)
 
     pf_o = torch.zeros((sel.shape[0], dim), dtype=acc.dtype,
                        device=acc.device)

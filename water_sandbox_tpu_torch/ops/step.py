@@ -9,15 +9,16 @@ run the fused bucket-kernel pipeline:
 ``"dense"`` runs the all-pairs oracle (``ops/dense.py``), ``"bucket_grid"``
 and ``"hash_grid"`` the plain PyTorch pipelines of ``ops/grid.py``.
 
-The kernel pipeline's step and the ``bucket_grid`` step read nothing on
-the host (the rescue gates itself on the device), so on a CUDA device
-``rollout`` and ``trajectory`` run them as a captured CUDA graph replayed
-once a step (``ops/cuda/graph.py``), as the JAX package runs ``lax.scan``
-in one compiled program; on the CPU the same buffers step eagerly. The
-other modes loop over ``step`` in Python. In the kernel pipeline with
-``incremental_rebuild > 0``, ``rollout`` runs the plane-resident steps of
-``ops/cuda/incremental.py``: on a CUDA device replays of one captured step
-whose branches are decided on the device (``graph.IncrementalGraph``).
+The step reads nothing on the host in any mode (the rescue gates itself
+on the device), so on a CUDA device ``rollout`` and ``trajectory`` run it
+as a captured CUDA graph replayed once a step (``ops/cuda/graph.py::
+StepGraph``), as the JAX package runs ``lax.scan`` in one compiled program
+for every mode; on the CPU the same buffers step eagerly. A step that
+cannot be captured raises: nothing falls back to a Python loop. In the
+kernel pipeline with ``incremental_rebuild > 0``, ``rollout`` runs the
+plane-resident steps of ``ops/cuda/incremental.py``: on a CUDA device
+replays of one captured step whose branches are decided on the device
+(``graph.IncrementalGraph``).
 """
 
 from __future__ import annotations
@@ -107,13 +108,9 @@ def rollout(state: FluidState, params: SimParams, cfg: SimConfig,
     cfg = cfg.resolved()
     if cfg.neighbor_mode == "pallas" and cfg.incremental_rebuild > 0:
         return incremental.rollout_inc(state, params, cfg, num_steps)
-    if cfg.neighbor_mode in graph_mod.CAPTURED_MODES:
-        g = _own_graph(state, params, cfg)
-        g.run(num_steps)
-        return g.state
-    for _ in range(num_steps):
-        state = step(state, params, cfg)
-    return state
+    g = _own_graph(state, params, cfg)
+    g.run(num_steps)
+    return g.state
 
 
 def _own_graph(state, params, cfg) -> graph_mod.StepGraph:
@@ -136,19 +133,12 @@ def trajectory(state: FluidState, params: SimParams, cfg: SimConfig,
         raise ValueError(
             f"num_steps={num_steps} not divisible by record_every="
             f"{record_every}; the remainder steps would be silently dropped")
-    cfg = cfg.resolved()
-    g = None
-    if cfg.neighbor_mode in graph_mod.CAPTURED_MODES:
-        g = _own_graph(state, params,
-                       dataclasses.replace(cfg, incremental_rebuild=0))
-        state = g.state                  # stepped in place by g.run
+    g = _own_graph(state, params,
+                   dataclasses.replace(cfg.resolved(), incremental_rebuild=0))
+    state = g.state                      # stepped in place by g.run
     frames = []
     for _ in range(num_steps // record_every):
-        if g is None:
-            for _ in range(record_every):
-                state = step(state, params, cfg)
-        else:
-            g.run(record_every)
+        g.run(record_every)
         frames.append(state.pos.clone())
     if not frames:
         return state, state.pos.new_zeros((0, *state.pos.shape))

@@ -18,7 +18,6 @@ from ..core import device as device_mod
 from ..core.params import SimConfig, SimParams, _map_tensors
 from ..core.state import FluidState
 from ..models import scenes as scene_registry
-from ..ops import step as step_mod
 from ..ops.cuda import graph as graph_mod
 from . import metrics as metrics_mod
 
@@ -31,16 +30,15 @@ class SimPhase(enum.Enum):
 
 class Simulation:
     """Holds the current state and params on ``device`` in buffers of its
-    own. In the kernel pipeline (``neighbor_mode`` "auto"/"pallas") and in
-    "bucket_grid" it owns a graph (``ops/cuda/graph.py``): a ``StepGraph``
-    of the rebuild step, or (kernel pipeline) with ``incremental_rebuild >
-    0`` an ``IncrementalGraph``, whose
+    own. It owns a graph (``ops/cuda/graph.py``): a ``StepGraph`` of the
+    rebuild step in every neighbour mode, or (kernel pipeline) with
+    ``incremental_rebuild > 0`` an ``IncrementalGraph``, whose
     ``run(n)`` builds the bucket cache on entry, as JAX's ``rollout`` does
     on every call, and gathers the per-particle state on its last step. On
     a CUDA device the first ``run`` captures the step as a CUDA graph (the
     incremental step's branches as conditional nodes) and every step after
     it is one replay, with no recapture on later runs; on the CPU the same
-    buffers step eagerly. Other modes step eagerly through ``rollout``.
+    buffers step eagerly.
     ``tune`` copies into the parameter buffers, so a change
     takes effect on the next step with no recapture, as the JAX package's
     traced parameters do; ``reset`` copies the initial state back. The
@@ -66,13 +64,11 @@ class Simulation:
         self.metrics = metrics_mod.MetricsRecorder()
         self._warm = False
         self.lock = threading.RLock()
-        self.graph = None
-        if self.cfg.neighbor_mode in graph_mod.CAPTURED_MODES:
-            graph = (graph_mod.IncrementalGraph
-                     if self.cfg.neighbor_mode == "pallas"
-                     and self.cfg.incremental_rebuild > 0
-                     else graph_mod.StepGraph)
-            self.graph = graph(self.state, self.params, self.cfg)
+        graph = (graph_mod.IncrementalGraph
+                 if self.cfg.neighbor_mode == "pallas"
+                 and self.cfg.incremental_rebuild > 0
+                 else graph_mod.StepGraph)
+        self.graph = graph(self.state, self.params, self.cfg)
 
     @classmethod
     def from_scene(cls, name: str, device=device_mod.DEFAULT,
@@ -90,19 +86,14 @@ class Simulation:
             torch.cuda.synchronize(self.device)
 
     def run(self, num_steps: int = 1, block: bool = True) -> "Simulation":
-        """Advance num_steps (on CUDA in the kernel pipeline and in
-        bucket_grid: num_steps replays of the captured step). Respects
-        PAUSED."""
+        """Advance num_steps (on CUDA: num_steps replays of the captured
+        step, in every neighbour mode). Respects PAUSED."""
         with self.lock:
             if self.phase is SimPhase.PAUSED:
                 return self
             self.phase = SimPhase.RUNNING
             t0 = _time.perf_counter()
-            if self.graph is not None:
-                self.graph.run(num_steps)
-            else:
-                graph_mod.copy_state(self.state, step_mod.rollout(
-                    self.state, self.params, self.cfg, num_steps))
+            self.graph.run(num_steps)
             if block:
                 self._sync()
                 self.metrics.record_steps(num_steps, self.cfg.n,
