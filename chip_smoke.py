@@ -30,7 +30,9 @@ capacity 8), then the same step in 4 cell slabs of the card through
 single-device build bit for bit, 10 steps against the single-device step,
 captured against eager bit for bit, ms/step, peak memory, the bytes each
 collective moves a step, and at cell capacity 8 R1 and R2 held against
-their plain versions on the sharded path), then the "dense" and
+their plain versions on the sharded path; at cell capacity 24 and 8 the
+mesh with a CUDA stream a shard against the serial reference, below),
+then the "dense" and
 "hash_grid" steps on the device only ([modes]: ``mini-3d`` and
 ``dam-break-2d-4k`` from steps 0 and 100 in "dense"; ``mini-3d``,
 ``reference-cube`` and ``moving-container-256k`` in "hash_grid"; each
@@ -60,13 +62,19 @@ domain-decomposed step runs next: 8 shards of a
 cross-shard rescue included, also with one shard alone overflowing; once
 on the kernels, with the rescue's kernels D1 and D2 held against their
 plain versions, once on the plain pair-block passes; each also captured
-against its eager steps bit for bit), then
+against its eager steps bit for bit; at cell capacity 1 the mesh with a
+stream a shard against the serial reference, below), then
 ``DistributedSimulation`` on ``sharded-1m`` (1,015,920 particles, 4
 shards on the one card) with its step captured as one CUDA graph: parity
 by id with the single device, the kernels held against their plain
 versions on one shard's halo-filled planes, captured against eager bit
 for bit over 20 steps, ms/step captured and eager alternated, kernels a
-replay and the busy share of 20 replays; then [domain-rescue], the same
+replay, the summed device time beside its union, the busy share on the
+union and the kernel pairs of different streams that overlap in 20
+replays, then the mesh with a stream a shard against the serial
+reference (``concurrent_vs_serial``: 10 repeats of 30 captured steps bit
+for bit against the serial mesh's, launches a replay, peak memory, 10
+alternated pairs of windows, both traced); then [domain-rescue], the same
 state at a cell capacity where every shard drops more rows than the
 rescue takes: D1 and D2 against their plain versions, timed beside the
 cell list's and the all-pairs sweep's bounds, at count 0 (bit for bit
@@ -469,7 +477,9 @@ def row_group_crossing(label, planes, counts, addr, pv, cfg, dens) -> None:
 
 
 def fmt(x) -> str:
-    return "not measured" if x is None else f"{x:.4f}"
+    if x is None:
+        return "not measured"
+    return str(x) if isinstance(x, int) else f"{x:.4f}"
 
 
 def kernels_vs_plain(label, cfg, params, state, record,
@@ -1180,9 +1190,13 @@ def phase_gspmd(state100, single, record, paths: dict, shards: int = 4,
     ShardedGraph) against the eager one bit for bit, launches counted;
     ms/step eager and captured alternated; peak memory; at cell capacity
     8, R1 and R2 held against their plain versions on the sharded path's
-    inputs and the captured path's launches."""
+    inputs and the captured path's launches. At cell capacity 24 and 8 the
+    mesh with a stream a shard against the serial reference
+    (``concurrent_vs_serial``: 10 repeats of 30 captured steps, 1-step
+    windows, 5 traced replays of each)."""
     import dataclasses
     import water_sandbox_tpu_torch as wst
+    from water_sandbox_tpu_torch.core.params import _map_tensors
     from water_sandbox_tpu_torch.ops import grid
     from water_sandbox_tpu_torch.ops.cuda import graph as graph_mod
     from water_sandbox_tpu_torch.parallel import gspmd, mesh as mesh_mod
@@ -1248,7 +1262,7 @@ def phase_gspmd(state100, single, record, paths: dict, shards: int = 4,
         for _ in range(k):
             state["eager"] = step(state["eager"], params)
 
-    ms_e, ms_c = alternate(eager, g.run)
+    ms_e, ms_c = alternate(eager, g.run, pairs=2, steps=3)
     log(f"[gspmd] reference-cube bucket_grid on {shards} shards of the card "
         f"({cfg.grid_dims[0] // shards} x layers each) from step 100: slabs "
         f"= the single-device build bit for bit; {steps} eager steps vs the "
@@ -1256,11 +1270,25 @@ def phase_gspmd(state100, single, record, paths: dict, shards: int = 4,
         f"{vel_err:.3e}, bit-identical {bits}; overflow_total "
         f"{float(got.overflow_total) - base}; captured = eager bit for bit; "
         f"ms/step eager {ms_e} captured {ms_c} (host clock, alternated "
-        f"windows of 5 steps), capture {g.capture_s:.2f} s, peak memory "
+        f"windows of 3 steps), capture {g.capture_s:.2f} s, peak memory "
         f"{peak:.2f} GiB; bytes a step {moved}, largest transfer {largest} "
         f"(one (cap, nc) plane {plane}); launches "
         f"{paths['gspmd reference-cube'][0]}")
     del g, e, state
+
+    def against_serial(c):
+        def graph_of(serial):
+            m = mesh_mod.make_mesh(shards, "cuda", serial=serial)
+            return graph_mod.ShardedGraph(
+                gspmd.make_sharded_step(m, c), gspmd.shard_state(state100, m),
+                _map_tensors(params, torch.clone), m)
+
+        concurrent_vs_serial(
+            "gspmd", f"reference-cube bucket_grid cell capacity "
+            f"{c.cell_capacity} on {shards} slabs from step 100", graph_of,
+            window=1, trace=5, names=STEP_KERNEL_NAMES[2:])
+
+    against_serial(cfg)
 
     cfg8 = dataclasses.replace(cfg, cell_capacity=8)
     step8 = gspmd.make_sharded_step(mesh, cfg8)
@@ -1284,6 +1312,8 @@ def phase_gspmd(state100, single, record, paths: dict, shards: int = 4,
     err8 = float((got8.pos - single8.pos).abs().max())
     check(bool(torch.allclose(got8.pos, single8.pos, rtol=1e-4, atol=1e-5)),
           f"gspmd cap 8: 5 steps vs single device, max |dpos| {err8:.3e}")
+    del g8
+    against_serial(cfg8)
     log(f"[gspmd] cell capacity 8: R1/R2 vs plain on the sharded path's "
         f"inputs max_abs_err {err}, 5 captured steps vs the single-device "
         f"step max |dpos| {err8:.3e} (bit-identical "
@@ -1559,13 +1589,33 @@ def busy_intervals(dev) -> tuple:
     return union + hi - lo, iv[-1][1] - iv[0][0]
 
 
+def stream_overlaps(dev) -> tuple:
+    """(pairs of kernels on different streams whose intervals overlap, the
+    streams the kernels ran on) among device events ``dev``, from each
+    event's ``device_resource_id`` (its stream); (None, 0) when the trace
+    names no stream."""
+    ev = sorted((e.time_range.start, e.time_range.end, e.device_resource_id)
+                for e in dev
+                if getattr(e, "device_resource_id", None) is not None
+                and not e.name.lower().startswith(("memcpy", "memset")))
+    if not ev:
+        return None, 0
+    pairs, live = 0, []
+    for start, end, stream in ev:
+        live = [(e, s) for e, s in live if e > start]
+        pairs += sum(1 for _, s in live if s != stream)
+        live.append((end, stream))
+    return pairs, len({s for _, _, s in ev})
+
+
 STEP_KERNEL_NAMES = ("sph_density_kernel", "sph_force_kernel",
                      "rescue_density_kernel", "rescue_force_kernel")
 DOMAIN_KERNEL_NAMES = ("sph_density_kernel", "sph_force_kernel",
                        "domain_density_kernel", "domain_force_kernel")
 
 
-def profile_replays(g, steps: int = 20, names=STEP_KERNEL_NAMES):
+def profile_replays(g, steps: int = 20, names=STEP_KERNEL_NAMES,
+                    grids=()):
     """torch.profiler (``profiling.traced``: idle margins around the span,
     so that the trace keeps the first replays' events) over ``steps``
     replays of ``g`` (a StepGraph or a DomainGraph), launched back to
@@ -1575,9 +1625,14 @@ def profile_replays(g, steps: int = 20, names=STEP_KERNEL_NAMES):
     device times a step by name, and the busy share on the trace's own
     clock: the union of the device events' intervals over
     the span from the first event's start to the last one's end (at most 1;
-    gaps between kernels and between replays count as idle). Also the host
-    clock a step of the traced replays and of as many replays run again
-    without the profiler (launch to synchronisation)."""
+    gaps between kernels and between replays count as idle). With shards
+    on their own streams the summed device time can exceed the union: the
+    share reads the union only. Also the pairs of kernels on different
+    streams that overlap in the trace (``stream_overlaps``), the launch
+    grid and block of the kernels whose names hold one of ``grids`` (from
+    the exported trace), and the host clock a step of the traced replays
+    and of as many replays run again without the profiler (launch to
+    synchronisation)."""
     from torch.autograd import DeviceType
     from water_sandbox_tpu_torch.runtime.profiling import traced
     with traced() as prof:
@@ -1596,6 +1651,18 @@ def profile_replays(g, steps: int = 20, names=STEP_KERNEL_NAMES):
         by_name[e.name] = (by_name.get(e.name, 0.0)
                            + e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    overlaps, streams = stream_overlaps(dev)
+    launch = {}
+    if grids:
+        FRONT_OUT.mkdir(parents=True, exist_ok=True)
+        path = FRONT_OUT / "profile_replays.json"
+        prof.export_chrome_trace(str(path))
+        for ev in json.loads(path.read_text())["traceEvents"]:
+            args = ev.get("args", {})
+            for k in grids:
+                if k in ev.get("name", "") and "grid" in args:
+                    launch.setdefault(k, set()).add(
+                        (tuple(args["grid"]), tuple(args.get("block", ()))))
     t0 = time.perf_counter()
     g.run(steps)
     torch.cuda.synchronize()
@@ -1604,6 +1671,7 @@ def profile_replays(g, steps: int = 20, names=STEP_KERNEL_NAMES):
                 found=found, busy=union_us / span_us if span_us else None,
                 union_ms=union_us / 1e3 / steps,
                 span_ms=span_us / 1e3 / steps, steps=steps,
+                overlaps=overlaps, streams=streams, launch=launch,
                 wall_ms=alone_ms / steps, traced_ms=traced_ms / steps,
                 top=[(name[:60], us / 1e3 / steps) for name, us in top])
 
@@ -2235,6 +2303,95 @@ def hold_domain_rescue(label, calls, check_changed=True) -> dict:
     return err
 
 
+def concurrent_vs_serial(tag: str, label: str, graph_of, steps: int = 30,
+                         repeats: int = 10, pairs: int = 10, window: int = 10,
+                         trace: int = 0, names=DOMAIN_KERNEL_NAMES) -> dict:
+    """The mesh's shards on their own streams against the serial reference
+    (``Mesh(serial=True)``: every shard on the caller's stream, one after
+    another). ``graph_of(serial)`` gives a DomainGraph or ShardedGraph over
+    fresh copies of one state. The serial graph's capture and ``steps``
+    replays, then the concurrent graph's, ``repeats`` times from the same
+    state, each held bit for bit against the serial one (a race shows as a
+    repeat that differs) with the same launches a replay; the peak memory
+    of each above what was allocated before it (buffers, capture,
+    replays); ``pairs`` alternated windows of ``window`` replays of each,
+    ms/step on the host clock (synced); with ``trace``, profile_replays
+    over ``trace`` replays of each (summed and union device ms, busy share
+    on the union, overlapping kernels of different streams). Logs one
+    ``[tag]`` line (two with ``trace``) and returns the facts."""
+    def same(g, ref):
+        return (all(same_state(a, b) and same_bits(a.acc, b.acc)
+                    for a, b in zip(g.states, ref[0]))
+                and all(torch.equal(a, b)
+                        for a, b in zip(getattr(g, "active", []), ref[1])))
+
+    graphs, peak, capture = {}, {}, {}
+    for mode in ("serial", "concurrent"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        g = graphs[mode] = graph_of(mode == "serial")
+        if mode == "serial":
+            g.run(steps)
+            ref = ([s.clone() for s in g.states],
+                   [a.clone() for a in getattr(g, "active", [])])
+        else:
+            saved = g._save()
+            equal = 0
+            for r in range(repeats):
+                if r:
+                    g._restore(saved)
+                g.run(steps)
+                equal += same(g, ref)
+            del saved
+        torch.cuda.synchronize()
+        peak[mode] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        capture[mode] = g.capture_s
+    per_replay = {m: g.per_replay for m, g in graphs.items()}
+    check(equal == repeats, f"{tag} {label}: {repeats - equal} of {repeats} "
+          f"repeats of {steps} concurrent steps differ from the serial ones")
+    check(per_replay["serial"] == per_replay["concurrent"],
+          f"{tag} {label}: launches a replay {per_replay}")
+    times = {"serial": [], "concurrent": []}
+    for i in range(pairs):
+        for mode in (("serial", "concurrent") if i % 2 == 0
+                     else ("concurrent", "serial")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            graphs[mode].run(window)
+            torch.cuda.synchronize()
+            times[mode].append(1e3 * (time.perf_counter() - t0) / window)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    log(f"[{tag}] {label}: shards on their own streams against the serial "
+        f"reference: {equal} of {repeats} repeats of {steps} captured steps "
+        f"bit for bit; launches a replay {per_replay['concurrent']} (serial "
+        f"the same); capture s concurrent {capture['concurrent']:.2f} serial "
+        f"{capture['serial']:.2f}; peak MiB concurrent "
+        f"{peak['concurrent']:.1f} serial {peak['serial']:.1f}; ms/step over "
+        f"{pairs} alternated pairs of {window}-replay windows (host clock, "
+        f"synced): concurrent median {med['concurrent']:.4f} (windows "
+        f"{', '.join(f'{x:.4f}' for x in times['concurrent'])}), serial "
+        f"median {med['serial']:.4f} (windows "
+        f"{', '.join(f'{x:.4f}' for x in times['serial'])})")
+    out = dict(equal=equal, peak=peak, times=times, med=med,
+               capture=capture)
+    if trace:
+        prof = out["prof"] = {m: profile_replays(g, steps=trace, names=names)
+                              for m, g in graphs.items()}
+        log(f"[{tag}] {label}: torch.profiler over {trace} replays, "
+            "concurrent / serial: " + "; ".join(
+                f"{k} {fmt(prof['concurrent'][k])} / "
+                f"{fmt(prof['serial'][k])}"
+                for k in ("device_ms", "union_ms", "span_ms", "busy",
+                          "kernels", "overlaps", "streams", "wall_ms"))
+            + " (device_ms: the events' times summed a step, which shards "
+            "on their own streams can make exceed union_ms, the time a "
+            "step with a device event running; busy = union over span; "
+            "overlaps: pairs of kernels of different streams overlapping in "
+            f"the trace); kernels found {prof['concurrent']['found']}")
+    return out
+
+
 def phase_domain_parity(dev, use_pallas=None) -> None:
     """__graft_entry__.py::dryrun_multichip on the port: 8 shards of a
     128-particle cube in rightward flow (real migration), then forced
@@ -2246,10 +2403,13 @@ def phase_domain_parity(dev, use_pallas=None) -> None:
     capacity 1 and in the one-shard case; there the overflowing shard's
     neighbours open their gates with nothing of their own dropped).
     ``use_pallas=False`` runs the shards' plain pair-block passes
-    (ops/grid.py) in place of the kernels, at the same bars."""
+    (ops/grid.py) in place of the kernels, at the same bars. At cell
+    capacity 1 the mesh with a stream a shard is held against the serial
+    reference (``concurrent_vs_serial``)."""
     import dataclasses
     import water_sandbox_tpu_torch as wst
-    from water_sandbox_tpu_torch.core.params import Container
+    from water_sandbox_tpu_torch.core.params import Container, _map_tensors
+    from water_sandbox_tpu_torch.ops.cuda import graph as graph_mod
     from water_sandbox_tpu_torch.parallel import domain, mesh as mesh_mod
     nsh = 8
     gx = 3 * nsh
@@ -2310,6 +2470,18 @@ def phase_domain_parity(dev, use_pallas=None) -> None:
               and all(torch.equal(a, b) for a, b in zip(rolled_act, active)),
               f"domain {label}: captured != eager")
         path = "plain passes" if use_pallas is False else "kernels"
+        if label == "rescue cap 1":
+            def graph_of(serial, c=c, state0=state0):
+                m = mesh_mod.make_mesh(nsh, dev, serial=serial)
+                return graph_mod.DomainGraph(
+                    domain.make_domain_step(m, c, use_pallas=use_pallas),
+                    *domain.shard_state(state0, m, c, params,
+                                        slack=float(nsh)),
+                    _map_tensors(params, torch.clone), m)
+
+            concurrent_vs_serial(
+                "domain", f"parity {label} ({path}) on {nsh} shards",
+                graph_of)
         gates = [int(a[3].count) for a in calls["density"]]
         log(f"[domain] parity {label} ({path}): {steps} steps (captured "
             f"= eager bit for bit), per-shard "
@@ -2381,11 +2553,17 @@ def phase_domain_full(record, scene="sharded-1m", dev="cuda",
     against their plain versions on halo-filled planes, one eager step
     under torch.cuda.set_sync_debug_mode("error"), 20 captured steps
     against 20 eager ones from the same state bit for bit, ``pairs``
-    alternated windows of ``window`` eager and captured steps, and
-    torch.profiler over 20 replays (kernels a replay, busy share). Then the
-    forced rescue (phase_domain_rescue). Returns the kernel launches of the
+    alternated windows of ``window`` eager and captured steps,
+    torch.profiler over 20 replays (kernels a replay, summed and union
+    device ms, busy share, overlapping kernels of different streams), and
+    the mesh with a stream a shard against the serial reference
+    (``concurrent_vs_serial``, 20 traced replays each). Then the forced
+    rescue (phase_domain_rescue). Returns the kernel launches of the
     30 captured steps and 30."""
     import water_sandbox_tpu_torch as wst
+    from water_sandbox_tpu_torch.core.params import _map_tensors
+    from water_sandbox_tpu_torch.ops.cuda import graph as graph_mod
+    from water_sandbox_tpu_torch.parallel import domain, mesh as mesh_mod
     from water_sandbox_tpu_torch.runtime.distributed import (
         DistributedSimulation)
     t_phase = time.perf_counter()
@@ -2479,20 +2657,39 @@ def phase_domain_full(record, scene="sharded-1m", dev="cuda",
         f"median ratio {statistics.median(ratios):.3f}; peak memory of "
         f"{window} eager steps above their state {peak_eager:.1f} MiB")
     del e_states, e_active
-    prof = profile_replays(g, names=DOMAIN_KERNEL_NAMES)
+    prof = profile_replays(g, names=DOMAIN_KERNEL_NAMES,
+                           grids=("scan_innermost_dim_with_indices",))
     log(f"[domain] {scene} torch.profiler over {prof['steps']} replays: "
         f"device ms a step {prof['device_ms']:.4f} (events summed), "
         f"kernels a step {prof['kernels']:.1f}, step kernels found "
         f"{prof['found']}, busy share {fmt(prof['busy'])} on the trace's "
         f"clock (device events' union {prof['union_ms']:.4f} over the span "
-        f"{prof['span_ms']:.4f} ms a step); host clock a step "
-        f"{prof['wall_ms']:.4f} without the profiler, "
+        f"{prof['span_ms']:.4f} ms a step; the summed device ms may "
+        f"exceed the union with the shards on their own streams); kernel "
+        f"pairs of different streams overlapping in the trace "
+        f"{fmt(prof['overlaps'])} over {prof['streams']} streams; launch "
+        f"(grid, block) of cummax's scan {prof['launch'] or 'not measured'}; "
+        f"host "
+        f"clock a step {prof['wall_ms']:.4f} without the profiler, "
         f"{prof['traced_ms']:.4f} traced; the 8 largest by name, device ms "
         f"a step: " + "; ".join(f"{n} {ms:.4f}" for n, ms in prof["top"]))
     if prof["kernels"] > 0:
         check(all(v == nsh * prof["steps"] for v in prof["found"].values()),
               f"{scene}: the trace of {prof['steps']} replays holds the "
               f"domain kernels {prof['found']} times")
+        check(prof["overlaps"] is None or prof["overlaps"] > 0,
+              f"{scene}: no two shards' kernels overlap in the trace")
+
+    def graph_of(serial):
+        m = mesh_mod.make_mesh(nsh, dev, serial=serial)
+        return graph_mod.DomainGraph(
+            domain.make_domain_step(m, sim.cfg, mig_cap=1024),
+            [s.clone() for s in sim.states], [a.clone() for a in sim.active],
+            _map_tensors(sim.params, torch.clone), m)
+
+    concurrent_vs_serial(
+        "domain", f"{scene} on {nsh} shards from step "
+        f"{int(sim.states[0].step_count)}", graph_of, trace=20)
 
     st = sim.stats()
     dense = sim.to_dense_state().to(dev)

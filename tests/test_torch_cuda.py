@@ -1020,6 +1020,78 @@ def test_plain_mode_step_is_captured(cuda_device, mode):
     assert _same_bits(wt.rollout(state, params, cfg, 10).pos, s.pos)
 
 
+def _mesh_case(case, dev, serial):
+    """(graph over a fresh state, the eager step and its arguments) of the
+    domain step on 8 shards at cell capacity 1 (the cross-shard rescue on
+    every step) or the sharded step on 4 slabs (R1/R2 on every step), on a
+    mesh with a stream a shard or on the serial reference."""
+    from water_sandbox_tpu_torch.core.params import Container, _map_tensors
+    from water_sandbox_tpu_torch.ops.cuda import graph
+    from water_sandbox_tpu_torch.parallel import domain, gspmd
+    from water_sandbox_tpu_torch.parallel import mesh as mesh_mod
+    if case == "sharded":
+        cfg, params, state = _bucket_grid_case(dev)
+        mesh = mesh_mod.make_mesh(4, dev, serial=serial)
+        shards = gspmd.shard_state(state, mesh)
+        step = gspmd.make_sharded_step(mesh, cfg)
+        return mesh, graph.ShardedGraph(step, [s.clone() for s in shards],
+                                        params, mesh), step, (shards, params)
+    pts = wt.cube_fluid(8, 4, 4)
+    vel = np.zeros_like(pts)
+    vel[:, 0] = 3.0
+    cfg = SimConfig(n=pts.shape[0], dim=3, grid_dims=(24, 8, 8),
+                    cell_capacity=1, rescue_capacity=512)
+    params = wt.SimParams.create(dim=3, device=dev, container=(
+        Container.create((0.0, 0.0, 0.0), (5.0, 1.8, 1.8), device=dev)))
+    mesh = mesh_mod.make_mesh(8, dev, serial=serial)
+    states, active = domain.shard_state(wt.init_state(pts, vel, device="cpu"),
+                                        mesh, cfg, params, slack=8.0)
+    step = domain.make_domain_step(mesh, cfg)
+    return mesh, graph.DomainGraph(
+        step, [s.clone() for s in states], [a.clone() for a in active],
+        _map_tensors(params, torch.clone), mesh), step, (states, active,
+                                                         params)
+
+
+@pytest.mark.parametrize("case", ["domain", "sharded"])
+def test_concurrent_shards_repeat_the_serial_reference(cuda_device, case):
+    """A stream a shard, distinct from each other and from the caller's;
+    a step cannot fork from a shard's stream; 6 captured steps (twice, from
+    the same state) and 6 eager steps on the concurrent mesh equal 6
+    captured steps of the serial reference bit for bit."""
+    ref_mesh, ref, _, _ = _mesh_case(case, cuda_device, serial=True)
+    assert ref_mesh.streams is None
+    ref.run(6)
+    mesh, g, step, args = _mesh_case(case, cuda_device, serial=False)
+    handles = [s.cuda_stream for s in mesh.streams]
+    assert len(set(handles)) == mesh.size
+    # "cuda" resolved to its index: a handed-over tensor's device matches
+    assert all(d == args[0][0].pos.device for d in mesh.devices)
+    assert torch.cuda.current_stream().cuda_stream not in handles
+    with torch.cuda.stream(mesh.streams[1]):
+        with pytest.raises(RuntimeError, match="shard's stream"):
+            with mesh.step():
+                pass
+    saved = g._save()
+    runs = []
+    for _ in range(2):
+        g._restore(saved)
+        g.run(6)
+        runs.append([s.clone() for s in g.states])
+    eager = args
+    for _ in range(6):
+        out = step(*eager)
+        eager = (out,) + args[1:] if case == "sharded" else (*out[:2],
+                                                            args[2])
+    runs.append(eager[0])
+    torch.cuda.synchronize()
+    assert g.graph is not None
+    for states in runs:
+        for a, b in zip(states, ref.states):
+            for f in ("pos", "vel", "density", "acc", "overflow_total"):
+                assert _same_bits(getattr(a, f), getattr(b, f)), f
+
+
 def test_a_host_read_in_the_step_fails_the_capture(cuda_device, monkeypatch):
     """A step that reads the device on the host cannot be captured, and the
     capture raises: nothing falls back to the eager loop. (Last in the

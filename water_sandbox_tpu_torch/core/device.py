@@ -15,6 +15,9 @@ import torch
 
 DEFAULT = "cuda:0"
 
+# Streams a device's pool hands out round robin (c10's kStreamsPerPool).
+_POOL_STREAMS = 32
+
 
 def resolve(device=DEFAULT) -> torch.device:
     """``device`` as a torch.device; raises if it is a CUDA device and no
@@ -25,3 +28,16 @@ def resolve(device=DEFAULT) -> torch.device:
             f"device {str(dev)!r} needs a CUDA device and none is present; "
             "pass device='cpu' to run on the CPU")
     return dev
+
+
+def pool_stream(device: torch.device, taken) -> "torch.cuda.Stream":
+    """A stream of ``device``'s pool whose handle (``cuda_stream``) is none
+    of ``taken``. torch hands its pool's streams out round robin, so a new
+    one may be a stream already in use (the capturing one, a shard's);
+    raises when a whole round gives none that is free."""
+    for _ in range(_POOL_STREAMS + 1):
+        stream = torch.cuda.Stream(device)
+        if stream.cuda_stream not in taken:
+            return stream
+    raise RuntimeError(f"the stream pool of {device} has no stream apart "
+                       f"from the {len(taken)} in use")

@@ -21,7 +21,8 @@ back to the eager loop. On the CPU ``run`` steps eagerly into the same
 buffers. ``DomainGraph`` does the same for the domain-decomposed step
 (``parallel/domain.py``) and ``ShardedGraph`` for the cell-slab-sharded
 ``bucket_grid`` step (``parallel/gspmd.py``), over per-shard buffers,
-when every shard sits on one CUDA device.
+when every shard sits on one CUDA device; their steps fork into the
+mesh's shard streams, so one graph holds a branch a shard.
 
 The graph reads the buffers by address, so the owner changes parameters by
 copying into them (``Simulation.tune``) and the next replay sees the new
@@ -54,6 +55,7 @@ import time
 
 import torch
 
+from ...core import device as device_mod
 from ...core.params import SimConfig, SimParams
 from ...core.state import FluidState
 
@@ -105,8 +107,12 @@ def copy_state(dst: FluidState, src: FluidState) -> None:
 class _Graph:
     """One step captured as a CUDA graph over buffers the subclass owns:
     ``_advance`` steps them in place, ``_save`` / ``_restore`` copy them
-    out and back, ``device`` is where they live and ``captures`` whether
-    ``run`` replays a graph or steps eagerly."""
+    out and back, ``device`` is where they live, ``captures`` whether
+    ``run`` replays a graph or steps eagerly, and ``streams`` the streams
+    the step forks into (a mesh's shard streams), which the warm-up and
+    capture streams must not be."""
+
+    streams: tuple = ()
 
     def __init__(self):
         self.graph = None
@@ -120,7 +126,10 @@ class _Graph:
         t0 = time.perf_counter()
         before = _read_counters()
         saved = self._save()
-        side = torch.cuda.Stream(dev)
+        taken = {s.cuda_stream for s in self.streams}
+        taken.add(torch.cuda.current_stream(dev).cuda_stream)
+        side = device_mod.pool_stream(dev, taken)
+        taken.add(side.cuda_stream)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             self._warm_up()
@@ -129,7 +138,8 @@ class _Graph:
         del saved
         _set_counters(before)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph,
+                              stream=device_mod.pool_stream(dev, taken)):
             self._advance()
         self.per_replay = _launches_since(before)
         self.graph = graph
@@ -203,9 +213,14 @@ class DomainGraph(_Graph):
     It captures only when every shard of ``mesh`` sits on one CUDA device
     (``DistributedSimulation``'s case on one card): then n replays of one
     captured step, the counterpart of JAX's ``lax.scan`` over its jitted
-    ``shard_map`` step. A mesh over several devices, or the CPU, steps
-    eagerly into the same buffers: by construction, not after a failed
-    capture (a failed capture raises). The buffers are the caller's."""
+    ``shard_map`` step. The step forks from the capture stream into the
+    mesh's shard streams and joins them again (``Mesh.step``), so the graph
+    holds one branch a shard, ordered against each other only at the
+    collectives, and a replay runs the shards concurrently; a stream left
+    unjoined fails the capture, which raises. A mesh over several devices,
+    or the CPU, steps eagerly into the same buffers (on the same shard
+    streams): by construction, not after a failed capture. The buffers are
+    the caller's."""
 
     def __init__(self, step, states: list, active: list, params: SimParams,
                  mesh):
@@ -216,6 +231,7 @@ class DomainGraph(_Graph):
         self.params = params
         self.lost = torch.zeros((), device=mesh.devices[0])
         self.captures = _one_card(mesh)
+        self.streams = tuple(mesh.streams or ())
 
     @property
     def device(self) -> torch.device:
@@ -254,9 +270,10 @@ class ShardedGraph(_Graph):
     the cell-slab-sharded ``bucket_grid`` step, in place, reading
     ``params`` in place. It captures when every shard of ``mesh`` sits on
     one CUDA device: then n replays of one captured step, the counterpart
-    of JAX's ``lax.scan`` over its jitted sharded step. A mesh over several
-    devices, or the CPU, steps eagerly into the same buffers. The buffers
-    are the caller's."""
+    of JAX's ``lax.scan`` over its jitted sharded step, with one branch a
+    shard forked from the capture stream and joined again, as in
+    ``DomainGraph``. A mesh over several devices, or the CPU, steps
+    eagerly into the same buffers. The buffers are the caller's."""
 
     def __init__(self, step, states: list, params: SimParams, mesh):
         super().__init__()
@@ -264,6 +281,7 @@ class ShardedGraph(_Graph):
         self.states = states
         self.params = params
         self.captures = _one_card(mesh)
+        self.streams = tuple(mesh.streams or ())
         self._device = mesh.devices[0]
 
     @property

@@ -23,8 +23,11 @@ Scheme (1-D mesh of shards over the container's x axis, ``parallel/mesh.py``):
 
 A sharded state is a list of per-shard ``FluidState``s (P rows each, the
 scalars replicated) and a list of per-shard ``active`` masks (P,) f32.
-Shards run one phase after another in one process; the collectives are the
-mesh's. The step reads nothing on the host, as JAX's ``jit(shard_map)``
+Every shard's work runs under its scope of the mesh (``Mesh.each``), on
+its own CUDA stream, so on one card the shards run concurrently, as JAX's
+shards run on their own devices; the collectives are the mesh's and the
+only place where one shard waits on another. The step reads nothing on the
+host, as JAX's ``jit(shard_map)``
 does not: the cross-shard rescue's kernels (``ops/cuda/domain_rescue.py``)
 gate themselves on a device count where JAX has ``lax.cond`` on
 ``pmax(overflow) > 0``, and the plain pair-block path computes its rescue
@@ -62,8 +65,14 @@ def _grid_origin_static(params: SimParams, cfg: SimConfig) -> torch.Tensor:
 
 
 def _per_shard(params: SimParams, mesh: Mesh) -> list[SimParams]:
-    by_dev = {dev: params.to(dev) for dev in set(mesh.devices)}
-    return [by_dev[dev] for dev in mesh.devices]
+    """The parameters on every shard's device, moved on the shard's stream
+    (on one device: the same tensors, which a step only reads)."""
+    return mesh.each(lambda d: params.to(mesh.devices[d]))
+
+
+def _split(rows: list) -> tuple:
+    """Per-shard tuples as a tuple of per-shard lists."""
+    return tuple(list(x) for x in zip(*rows))
 
 
 def shard_state(state: FluidState, mesh: Mesh, cfg: SimConfig,
@@ -126,11 +135,15 @@ def _exchange_halo_slabs(planes: list[torch.Tensor], gx_loc: int, S_pad: int,
     hi = PAD + gx_loc * S_pad
     from_left = mesh.shift_right([p[:, :, lo:lo + S_pad] for p in planes])
     from_right = mesh.shift_left([p[:, :, PAD:PAD + S_pad] for p in planes])
-    for d, p in enumerate(planes):
+
+    def fill(d):
+        p = planes[d]
         if d > 0:
             p[:, :, PAD - S_pad:PAD] = from_left[d]
         if d < mesh.size - 1:
             p[:, :, hi:hi + S_pad] = from_right[d]
+
+    mesh.each(fill)
     return planes
 
 
@@ -143,20 +156,19 @@ def _halo_build(pred, vel, active, params, cfg: SimConfig, gx_loc: int,
     """``halo_planes`` and each shard's rows in its build's column order
     (``domain_rescue.Rows``, the order the rescue's kernels walk)."""
     cfg_loc = _local_cfg(cfg, gx_loc)
-    planes, addr, overflow, walks = [], [], [], []
-    for d in range(mesh.size):
-        origin = _grid_origin_static(params[d], cfg)
-        p, _, a, o, skey, order = sb.build_local_slab_buckets(
-            pred[d], vel[d], active[d], origin, gx_loc, d, params[d],
-            cfg_loc)
-        planes.append(p)
-        addr.append(a)
-        overflow.append(o)
-        walks.append(dr.Rows(skey, order))
     g = sb._geometry(cfg_loc)
-    feats = _exchange_halo_slabs(planes, gx_loc, g.S_pad, g.PAD, mesh)
-    counts = [(f[0] < _FAR * 0.5).sum(dim=0, dtype=f.dtype)[None, :]
-              for f in feats]
+
+    def build(d):
+        p, _, a, o, skey, order = sb.build_local_slab_buckets(
+            pred[d], vel[d], active[d], _grid_origin_static(params[d], cfg),
+            gx_loc, d, params[d], cfg_loc)
+        return p, a, o, dr.Rows(skey, order)
+
+    with mesh.step():
+        planes, addr, overflow, walks = _split(mesh.each(build))
+        feats = _exchange_halo_slabs(planes, gx_loc, g.S_pad, g.PAD, mesh)
+        counts = mesh.each(lambda d: (feats[d][0] < _FAR * 0.5).sum(
+            dim=0, dtype=feats[d].dtype)[None, :])
     return feats, counts, addr, overflow, walks
 
 
@@ -184,67 +196,80 @@ def _sph_local_pallas(pred, vel, active, params, coeffs, cfg: SimConfig,
 
     All arguments but cfg, gx_loc, mesh and rescue_cap are per-shard lists.
     Returns lists (den, nden, prs, nprs, acc, overflow)."""
-    nsh = mesh.size
     cfg_loc = _local_cfg(cfg, gx_loc)
     g = sb._geometry(cfg_loc)
     sentinel = sb._cap_pad(cfg.cell_capacity) * g.L
 
     feats, counts, addr, overflow, walks = _halo_build(
         pred, vel, active, params, cfg, gx_loc, mesh)
-    pv = [sb._param_vector(p, c) for p, c in zip(params, coeffs)]
-    dens = [sb.run_density(feats[d], counts[d], addr[d], pv[d], cfg_loc)
-            for d in range(nsh)]
+    pv = mesh.each(lambda d: sb._param_vector(params[d], coeffs[d]))
+    dens = mesh.each(lambda d: sb.run_density(feats[d], counts[d], addr[d],
+                                              pv[d], cfg_loc))
 
     rescue = cfg.rescue_capacity > 0
     unres = overflow
     if rescue:
         # the kernels read rows through raw pointers
-        pred = [x.contiguous() for x in pred]
-        vel = [x.contiguous() for x in vel]
-        dropped = [(addr[d] == sentinel) & (active[d] > 0)
-                   for d in range(nsh)]
+        pred, vel = _split(mesh.each(lambda d: (pred[d].contiguous(),
+                                                vel[d].contiguous())))
+        dropped = mesh.each(lambda d: (addr[d] == sentinel) & (active[d] > 0))
         qs, slots, R = _rescue_queries(pred, vel, dropped, overflow, params,
                                        cfg, gx_loc, mesh, rescue_cap)
-        qden = [torch.zeros(R, device=x.device) for x in pred]
-        qnden = [torch.zeros_like(x) for x in qden]
-        # corrected resident rows, with consistent derived planes, go into
-        # the planes before the exchange so the neighbours' force passes
-        # see them too
-        for d in range(nsh):
+
+        def d1(d):
+            # corrected resident rows, with consistent derived planes, go
+            # into the planes before the exchange so the neighbours' force
+            # passes see them too
+            qden = torch.zeros(R, device=pred[d].device)
+            qnden = torch.zeros_like(qden)
             dr.rescue_density(pred[d], walks[d], addr[d], qs[d], feats[d],
-                              dens[d], qden[d], qnden[d], params[d],
-                              coeffs[d], pv[d], cfg_loc)
-        unres = [o - torch.clamp_max(o, R) for o in overflow]
+                              dens[d], qden, qnden, params[d], coeffs[d],
+                              pv[d], cfg_loc)
+            return qden, qnden, overflow[d] - torch.clamp_max(overflow[d], R)
+
+        qden, qnden, unres = _split(mesh.each(d1))
 
     # halo densities are the neighbours' exact local results
     dens = _exchange_halo_slabs(dens, gx_loc, g.S_pad, g.PAD, mesh)
-    # the query-side force kernel (the JAX step pins the "qrow3" gate): a
-    # pair-once kernel would write the mirrored halves of boundary pairs
-    # into halo lanes that no shard reads back
-    out = [sb.run_force(feats[d], dens[d], counts[d], addr[d], pv[d],
-                        cfg_loc) for d in range(nsh)]
-    res = [sb.gather_results(out[d], addr[d], addr[d] == sentinel, params[d])
-           for d in range(nsh)]
-    den, nden, acc = (list(x) for x in zip(*res))
+
+    def force(d):
+        # the query-side force kernel (the JAX step pins the "qrow3" gate):
+        # a pair-once kernel would write the mirrored halves of boundary
+        # pairs into halo lanes that no shard reads back
+        out = sb.run_force(feats[d], dens[d], counts[d], addr[d], pv[d],
+                           cfg_loc)
+        return sb.gather_results(out, addr[d], addr[d] == sentinel,
+                                 params[d])
+
+    den, nden, acc = _split(mesh.each(force))
 
     if rescue:
-        den = [_rescued(s, a, b, R) for s, a, b in zip(slots, qden, den)]
-        nden = [_rescued(s, a, b, R) for s, a, b in zip(slots, qnden, nden)]
+        den, nden = _split(mesh.each(lambda d: (
+            _rescued(slots[d], qden[d], den[d], R),
+            _rescued(slots[d], qnden[d], nden[d], R))))
         qfs = _force_queries(qs, qden, qnden, params, mesh)
-        for d in range(nsh):
+
+        def d2(d):
             p = params[d]
-            acc[d] = acc[d].contiguous()
+            a = acc[d].contiguous()
             dr.rescue_force(
                 pred[d], vel[d], den[d], nden[d],
                 p.pressure_scalar * (den[d] - p.target_density),
                 p.near_pressure_scalar * nden[d], walks[d], slots[d], qs[d],
-                qfs[d], feats[d], dens[d], acc[d], p, coeffs[d], pv[d],
-                cfg_loc)
+                qfs[d], feats[d], dens[d], a, p, coeffs[d], pv[d], cfg_loc)
+            return a
 
-    prs = [p.pressure_scalar * (x - p.target_density)
-           for p, x in zip(params, den)]
-    nprs = [p.near_pressure_scalar * x for p, x in zip(params, nden)]
+        acc = mesh.each(d2)
+
+    prs, nprs = _pressures(den, nden, params, mesh)
     return den, nden, prs, nprs, acc, unres
+
+
+def _pressures(den, nden, params, mesh: Mesh) -> tuple:
+    """Each shard's pressures and near pressures from its densities."""
+    return _split(mesh.each(lambda d: (
+        params[d].pressure_scalar * (den[d] - params[d].target_density),
+        params[d].near_pressure_scalar * nden[d])))
 
 
 def _local_buckets(pred, vel, active, origin, params, cfg: SimConfig,
@@ -312,127 +337,127 @@ def _sph_local(pred, vel, active, params, coeffs, cfg: SimConfig,
 
     All arguments but cfg, gx_loc, mesh and rescue_cap are per-shard lists.
     Returns lists (den, nden, prs, nprs, acc, overflow)."""
-    nsh = mesh.size
     dim = cfg.dim
     cap = cfg.cell_capacity
     ext_cfg = _local_cfg(cfg, gx_loc + 2)
 
-    cell_vel, addr, overflow, pm = [], [], [], []
-    for d in range(nsh):
+    def buckets(d):
         cp, cv, cm, a, o, S = _local_buckets(
             pred[d], vel[d], active[d], _grid_origin_static(params[d], cfg),
             params[d], cfg, gx_loc, d)
-        pm.append(torch.cat([cp, cm[None]], dim=0))
-        cell_vel.append(cv)
-        addr.append(a)
-        overflow.append(o)
+        return torch.cat([cp, cm[None]], dim=0), cv, a, o, S
+
+    pm, cell_vel, addr, overflow, S = _split(mesh.each(buckets))
+    S = S[0]
     nc_loc = gx_loc * S
     local = slice(S, S + nc_loc)
 
     def with_halo(planes, fill):
-        return _exchange_halo_slabs(_pad_slabs(planes, S, fill), gx_loc, S,
-                                    S, mesh)
+        padded = mesh.each(lambda d: _pad_slabs([planes[d]], S, fill)[0])
+        return _exchange_halo_slabs(padded, gx_loc, S, S, mesh)
 
     pm_ext = with_halo(pm, [_FAR] * dim + [0.0])
     # the query cells: the occupied local cells (at most a row each), a
     # fixed-size list with no host read
-    query = [grid_mod._occupied_cells(p[dim], min(pred[d].shape[0], nc_loc),
-                                      S, S + nc_loc)
-             for d, p in enumerate(pm_ext)]
-    den_c, nden_c = [], []
-    for d in range(nsh):
+    query = mesh.each(lambda d: grid_mod._occupied_cells(
+        pm_ext[d][dim], min(pred[d].shape[0], nc_loc), S, S + nc_loc))
+
+    def density(d):
         grid_ext = grid_mod.BucketGrid(
             cell_pos=pm_ext[d][:dim], cell_vel=None, cell_mask=pm_ext[d][dim],
             addr=None, origin=None, overflow=overflow[d])
         den_e, nden_e, _, _ = grid_mod.bucket_density_pass(
             grid_ext, params[d], coeffs[d], ext_cfg, query[d])
-        den_c.append(den_e[:, local])
-        nden_c.append(nden_e[:, local])
+        return den_e[:, local], nden_e[:, local]
+
+    den_c, nden_c = _split(mesh.each(density))
 
     rescue = cfg.rescue_capacity > 0
     unres = overflow
 
-    def halo(planes):
-        return [torch.cat([p[..., :S], p[..., -S:]], dim=-1).reshape(
-            p.shape[0], -1) for p in planes]
+    def halo(p):
+        return torch.cat([p[..., :S], p[..., -S:]], dim=-1).reshape(
+            p.shape[0], -1)
 
     if rescue:
-        on = [m > 0 for m in mesh.pmax(overflow)]
-        dropped = [(addr[d] == cap * nc_loc) & (active[d] > 0)
-                   for d in range(nsh)]
+        top = mesh.pmax(overflow)
+        on = mesh.each(lambda d: top[d] > 0)
+        dropped = mesh.each(lambda d: (addr[d] == cap * nc_loc)
+                            & (active[d] > 0))
         qs, slots, R = _rescue_queries(pred, vel, dropped, overflow, params,
                                        cfg, gx_loc, mesh, rescue_cap)
-        halo_pos = [hp.T for hp in halo([p[:dim] for p in pm_ext])]
-        den_p, nden_p, qden, qnden = [], [], [], []
-        for d in range(nsh):
+        halo_pos = mesh.each(lambda d: halo(pm_ext[d][:dim]).T)
+
+        def d1(d):
             my_den, my_nden, cw, cwn = dr.density_sums(
                 qs[d].pos, qs[d].valid, R,
                 torch.where((active[d] > 0)[:, None], pred[d], _FAR),
                 halo_pos[d], params[d], coeffs[d], cfg.chunk)
             # residents gain the dropped contributions; rescued rows take
-            # their exact sums; beyond-budget rows keep their fills
-            for cells, fill, mine, gain, out in (
-                    (den_c, params[d].target_density, my_den, cw, den_p),
-                    (nden_c, DENSITY_PADDING, my_nden, cwn, nden_p)):
-                x = grid_mod._from_cells(cells[d], addr[d], fill)
-                out.append(_rescued(slots[d], mine, torch.where(
-                    dropped[d], x, x + gain), R))
-            qden.append(my_den)
-            qnden.append(my_nden)
-        # corrected resident rows into the planes before the exchange, so
-        # the neighbours' force passes see them too
-        den_c = [torch.where(on[d], grid_mod._to_cells(
-            den_c[d], addr[d], den_p[d]), den_c[d]) for d in range(nsh)]
-        nden_c = [torch.where(on[d], grid_mod._to_cells(
-            nden_c[d], addr[d], nden_p[d]), nden_c[d]) for d in range(nsh)]
-        unres = [torch.where(on[d], o - torch.clamp_max(o, R), o)
-                 for d, o in enumerate(overflow)]
+            # their exact sums; beyond-budget rows keep their fills; the
+            # corrected resident rows go into the planes before the
+            # exchange, so the neighbours' force passes see them too
+            planes = []
+            for cells, fill, mine, gain in (
+                    (den_c[d], params[d].target_density, my_den, cw),
+                    (nden_c[d], DENSITY_PADDING, my_nden, cwn)):
+                x = grid_mod._from_cells(cells, addr[d], fill)
+                rows = _rescued(slots[d], mine, torch.where(
+                    dropped[d], x, x + gain), R)
+                planes.append(torch.where(on[d], grid_mod._to_cells(
+                    cells, addr[d], rows), cells))
+            o = overflow[d]
+            return (*planes, my_den, my_nden,
+                    torch.where(on[d], o - torch.clamp_max(o, R), o))
 
-    dfields = [torch.stack([
+        den_c, nden_c, qden, qnden, unres = _split(mesh.each(d1))
+
+    dfields = mesh.each(lambda d: torch.stack([
         den_c[d], nden_c[d],
         params[d].pressure_scalar * (den_c[d] - params[d].target_density),
-        params[d].near_pressure_scalar * nden_c[d]]) for d in range(nsh)]
+        params[d].near_pressure_scalar * nden_c[d]]))
     # halo densities are the neighbours' exact local results; the edge
     # shards' outer slabs hold 0, which the force pass guards
     dfields_e = with_halo(dfields, [0.0] * 4)
     v_ext = with_halo(cell_vel, [0.0] * dim)
 
-    den, nden, acc = [], [], []
-    for d in range(nsh):
+    def force(d):
         grid_f = grid_mod.BucketGrid(
             cell_pos=pm_ext[d][:dim], cell_vel=v_ext[d],
             cell_mask=pm_ext[d][dim], addr=None, origin=None,
             overflow=overflow[d])
         acc_e = grid_mod.bucket_force_pass(grid_f, *dfields_e[d], params[d],
                                            coeffs[d], ext_cfg, query[d])
-        den.append(grid_mod._from_cells(den_c[d], addr[d],
-                                        params[d].target_density))
-        nden.append(grid_mod._from_cells(nden_c[d], addr[d],
-                                         DENSITY_PADDING))
-        acc.append(grid_mod._from_cells(acc_e[:, :, local], addr[d], 0.0))
+        return (grid_mod._from_cells(den_c[d], addr[d],
+                                     params[d].target_density),
+                grid_mod._from_cells(nden_c[d], addr[d], DENSITY_PADDING),
+                grid_mod._from_cells(acc_e[:, :, local], addr[d], 0.0))
+
+    den, nden, acc = _split(mesh.each(force))
 
     if rescue:
-        den = [torch.where(on[d], _rescued(slots[d], qden[d], den[d], R),
-                           den[d]) for d in range(nsh)]
-        nden = [torch.where(on[d], _rescued(slots[d], qnden[d], nden[d], R),
-                            nden[d]) for d in range(nsh)]
+        den, nden = _split(mesh.each(lambda d: (
+            torch.where(on[d], _rescued(slots[d], qden[d], den[d], R),
+                        den[d]),
+            torch.where(on[d], _rescued(slots[d], qnden[d], nden[d], R),
+                        nden[d]))))
         qfs = _force_queries(qs, qden, qnden, params, mesh)
-        hvel = [hv.T for hv in halo(v_ext)]
-        hdens = halo([x[:2] for x in dfields_e])
-        for d in range(nsh):
+
+        def d2(d):
             p = params[d]
-            halo_grp = dr.halo_group(halo_pos[d], hvel[d], hdens[d][0],
-                                     hdens[d][1], p)
+            hdens = halo(dfields_e[d][:2])
+            halo_grp = dr.halo_group(halo_pos[d], halo(v_ext[d]).T,
+                                     hdens[0], hdens[1], p)
             new = dr.rescued_forces(
                 acc[d], pred[d], vel[d], den[d], nden[d],
                 p.pressure_scalar * (den[d] - p.target_density),
                 p.near_pressure_scalar * nden[d], active[d] > 0, slots[d],
                 qs[d], qfs[d], halo_grp, p, coeffs[d], cfg.chunk)
-            acc[d] = torch.where(on[d], new, acc[d])
+            return torch.where(on[d], new, acc[d])
 
-    prs = [p.pressure_scalar * (x - p.target_density)
-           for p, x in zip(params, den)]
-    nprs = [p.near_pressure_scalar * x for p, x in zip(params, nden)]
+        acc = mesh.each(d2)
+
+    prs, nprs = _pressures(den, nden, params, mesh)
     return den, nden, prs, nprs, acc, unres
 
 
@@ -459,8 +484,8 @@ def _neighbours(xs: list[torch.Tensor], mesh: Mesh) -> list[torch.Tensor]:
     """Each shard's own tensor, its left neighbour's and its right
     neighbour's, concatenated (``lax.ppermute`` both ways; the rows that
     came across the wrapped edges are masked by the callers)."""
-    return [torch.cat([x, l, r]) for x, l, r in
-            zip(xs, mesh.shift_right(xs), mesh.shift_left(xs))]
+    left, right = mesh.shift_right(xs), mesh.shift_left(xs)
+    return mesh.each(lambda d: torch.cat([xs[d], left[d], right[d]]))
 
 
 def _rescue_queries(pred, vel, dropped, overflow, params, cfg: SimConfig,
@@ -471,37 +496,39 @@ def _rescue_queries(pred, vel, dropped, overflow, params, cfg: SimConfig,
     row's rank, -1 otherwise —, R)."""
     cfg_loc = _local_cfg(cfg, gx_loc)
     R = min(rescue_cap, cfg.rescue_capacity, pred[0].shape[0])
-    sel, slots, valid, pos, vel_q = [], [], [], [], []
-    for d in range(mesh.size):
+
+    def select(d):
         s, slot, count = rescue_mod.rescue_selection(dropped[d], overflow[d],
                                                      R)
         v = torch.arange(R, device=s.device) < count
-        sel.append(s)
-        slots.append(slot)
-        valid.append(v)
-        pos.append(torch.where(v[:, None], pred[d][s.long()], _FAR))
-        vel_q.append(torch.where(v[:, None], vel[d][s.long()], 0.0))
-    valid = _neighbours(valid, mesh)
-    valid[0][R:2 * R] = False                     # the wrapped edges
-    valid[-1][2 * R:] = False
-    qs = []
-    for d, (v, p, u) in enumerate(zip(valid, _neighbours(pos, mesh),
-                                      _neighbours(vel_q, mesh))):
-        p = torch.where(v[:, None], p, _FAR)
+        return (s, slot, v, torch.where(v[:, None], pred[d][s.long()], _FAR),
+                torch.where(v[:, None], vel[d][s.long()], 0.0))
+
+    sel, slots, valid, pos, vel_q = _split(mesh.each(select))
+    valid, pos, vel_q = (_neighbours(x, mesh) for x in (valid, pos, vel_q))
+
+    def queries(d):
+        v = valid[d]
+        if d == 0:
+            v[R:2 * R] = False                    # the wrapped edges
+        if d == mesh.size - 1:
+            v[2 * R:] = False
+        p = torch.where(v[:, None], pos[d], _FAR)
         col, scol, qord = dr.query_walk(
             p, v, _grid_origin_static(params[d], cfg), gx_loc, d, params[d],
             cfg_loc)
-        qs.append(dr.Queries(p, u, v, sel[d], col, scol, qord,
-                             v.sum(dtype=torch.int32)))
-    return qs, slots, R
+        return dr.Queries(p, vel_q[d], v, sel[d], col, scol, qord,
+                          v.sum(dtype=torch.int32))
+
+    return mesh.each(queries), slots, R
 
 
 def _force_queries(qs, qden, qnden, params, mesh: Mesh) -> list:
     """D2's query rows (``domain_rescue.force_rows``): each shard's rows
     with the densities D1 gave them, sent to both neighbours."""
-    return [dr.force_rows(q, den, nden, p) for q, den, nden, p in
-            zip(qs, _neighbours(qden, mesh), _neighbours(qnden, mesh),
-                params)]
+    den, nden = _neighbours(qden, mesh), _neighbours(qnden, mesh)
+    return mesh.each(lambda d: dr.force_rows(qs[d], den[d], nden[d],
+                                             params[d]))
 
 
 def _rescued(slot, mine, x, R: int):
@@ -518,27 +545,29 @@ def _migrate(states, active, params, cfg: SimConfig, gx_loc: int,
     lost per shard (), f32)."""
     ndev = mesh.size
     fields = ("pos", "vel", "predicted", "ids")
-    out_l, out_r, act = [], [], []
-    for d, (s, a) in enumerate(zip(states, active)):
-        p = params[d]
+
+    def depart(d):
+        s, p = states[d], params[d]
         origin = _grid_origin_static(p, cfg)
         cx = torch.floor((s.predicted[:, 0] - origin[0])
                          / p.smoothing_radius).to(torch.int32)
         cx = torch.clamp(cx, 0, cfg.grid_dims[0] - 1)
         target = torch.clamp(cx // gx_loc, 0, ndev - 1)
-        a = a.clone()
-        for mask, sink in (((target < d) & (a > 0), out_l),
-                           ((target > d) & (a > 0), out_r)):
+        a = active[d].clone()
+        sinks = []
+        for mask in ((target < d) & (a > 0), (target > d) & (a > 0)):
             # up to mig_cap flagged rows, in row order
             prio = torch.where(mask, 0, 1)
             order = torch.sort(prio, stable=True).indices[:mig_cap]
             valid = mask[order]
             rows = {f: getattr(s, f)[order] for f in fields}
             rows["valid"] = valid.to(torch.float32)
-            sink.append(rows)
+            sinks.append(rows)
             # departed rows go inactive
             a[order] = torch.where(valid, 0.0, a[order])
-        act.append(a)
+        return (*sinks, a)
+
+    out_l, out_r, act = _split(mesh.each(depart))
 
     def shift(rows, move):
         moved = [dict() for _ in rows]
@@ -549,9 +578,6 @@ def _migrate(states, active, params, cfg: SimConfig, gx_loc: int,
 
     in_from_right = shift(out_l, mesh.shift_left)
     in_from_left = shift(out_r, mesh.shift_right)
-    # wrapped edges carry nothing
-    in_from_right[-1]["valid"] = torch.zeros_like(in_from_right[-1]["valid"])
-    in_from_left[0]["valid"] = torch.zeros_like(in_from_left[0]["valid"])
 
     def merge(s, a, inc):
         """Arrivals into free slots (inactive slots first, in row order)."""
@@ -568,14 +594,18 @@ def _migrate(states, active, params, cfg: SimConfig, gx_loc: int,
         a[free] = torch.where(take, 1.0, a[free])
         return dataclasses.replace(s, **new), a, lost
 
-    new_states, new_active, lost = [], [], []
-    for d in range(ndev):
-        s, a, lost_r = merge(states[d], act[d], in_from_right[d])
-        s, a, lost_l = merge(s, a, in_from_left[d])
-        new_states.append(s)
-        new_active.append(a)
-        lost.append((lost_r + lost_l).to(torch.float32))
-    return new_states, new_active, lost
+    def arrive(d):
+        inc_r, inc_l = in_from_right[d], in_from_left[d]
+        # wrapped edges carry nothing
+        if d == ndev - 1:
+            inc_r = dict(inc_r, valid=torch.zeros_like(inc_r["valid"]))
+        if d == 0:
+            inc_l = dict(inc_l, valid=torch.zeros_like(inc_l["valid"]))
+        s, a, lost_r = merge(states[d], act[d], inc_r)
+        s, a, lost_l = merge(s, a, inc_l)
+        return s, a, (lost_r + lost_l).to(torch.float32)
+
+    return _split(mesh.each(arrive))
 
 
 def make_domain_step(mesh: Mesh, cfg: SimConfig, mig_cap: int = 256,
@@ -601,32 +631,36 @@ def make_domain_step(mesh: Mesh, cfg: SimConfig, mig_cap: int = 256,
     sph_local = _sph_local if use_pallas is False else _sph_local_pallas
 
     def domain_step(states, active, params: SimParams):
-        ps = _per_shard(params, mesh)
-        coeffs = [KernelCoeffs.from_radius(p.smoothing_radius, cfg.dim)
-                  for p in ps]
-        den, nden, prs, nprs, acc, overflow = sph_local(
-            [s.predicted for s in states], [s.vel for s in states], active,
-            ps, coeffs, cfg, gx_loc, mesh, rescue_cap=rescue_cap)
-        ovf = mesh.psum(overflow)
-        stepped = []
-        for d, s in enumerate(states):
-            t_new = s.time + ps[d].dt
-            pos, vel, predicted = integrate_mod.integrate(
-                s.pos, s.vel, acc[d], ps[d], t_new)
-            # inactive slots stay inert and far away
-            act = (active[d] > 0)[:, None]
-            stepped.append(FluidState(
-                pos=torch.where(act, pos, _FAR),
-                vel=torch.where(act, vel, 0.0),
-                predicted=torch.where(act, predicted, _FAR),
-                acc=acc[d], density=den[d], near_density=nden[d],
-                pressure=prs[d], near_pressure=nprs[d],
-                step_count=s.step_count + 1, time=t_new, overflow=ovf[d],
-                overflow_total=s.overflow_total + ovf[d].to(torch.float32),
-                ids=s.ids))
-        stepped, active, lost = _migrate(stepped, active, ps, cfg, gx_loc,
-                                         mesh, mig_cap)
-        return stepped, active, mesh.psum(lost)[0]
+        with mesh.step():
+            ps = _per_shard(params, mesh)
+            coeffs = mesh.each(lambda d: KernelCoeffs.from_radius(
+                ps[d].smoothing_radius, cfg.dim))
+            den, nden, prs, nprs, acc, overflow = sph_local(
+                [s.predicted for s in states], [s.vel for s in states],
+                active, ps, coeffs, cfg, gx_loc, mesh, rescue_cap=rescue_cap)
+            ovf = mesh.psum(overflow)
+
+            def integrate(d):
+                s = states[d]
+                t_new = s.time + ps[d].dt
+                pos, vel, predicted = integrate_mod.integrate(
+                    s.pos, s.vel, acc[d], ps[d], t_new)
+                # inactive slots stay inert and far away
+                act = (active[d] > 0)[:, None]
+                return FluidState(
+                    pos=torch.where(act, pos, _FAR),
+                    vel=torch.where(act, vel, 0.0),
+                    predicted=torch.where(act, predicted, _FAR),
+                    acc=acc[d], density=den[d], near_density=nden[d],
+                    pressure=prs[d], near_pressure=nprs[d],
+                    step_count=s.step_count + 1, time=t_new, overflow=ovf[d],
+                    overflow_total=s.overflow_total
+                    + ovf[d].to(torch.float32),
+                    ids=s.ids)
+
+            stepped, active, lost = _migrate(mesh.each(integrate), active, ps,
+                                             cfg, gx_loc, mesh, mig_cap)
+            return stepped, active, mesh.psum(lost)[0]
 
     return domain_step
 
@@ -641,8 +675,11 @@ def make_domain_rollout(mesh: Mesh, cfg: SimConfig, mig_cap: int = 256,
     inputs: on a mesh whose shards share one CUDA device it warms up and
     captures, then replays one graph a step (keep a
     ``DistributedSimulation`` for repeated windows), on the kernels and
-    on the plain pair-block path (``use_pallas=False``) alike; elsewhere
-    it steps eagerly."""
+    on the plain pair-block path (``use_pallas=False``) alike. The graph
+    forks into the shards' streams and joins them again, so the shards'
+    kernels run concurrently within a replay; on a ``serial`` mesh they
+    run one after another on one stream. Elsewhere it steps eagerly, on
+    the same per-shard streams."""
     step = make_domain_step(mesh, cfg, mig_cap=mig_cap,
                             use_pallas=use_pallas, rescue_cap=rescue_cap)
 

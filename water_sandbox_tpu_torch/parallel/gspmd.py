@@ -42,10 +42,15 @@ holds rows [d·m, (d+1)·m), m = n / mesh.size, and the scalars. Each step:
 5. Results home. Per-row results go from shard 0 to their home shards,
    and each shard integrates its own rows.
 
-The step reads nothing on the host, so ``make_sharded_rollout`` replays it
-as one captured CUDA graph when every shard sits on one card
-(``ops/cuda/graph.py::ShardedGraph``); a mesh over several devices, and
-the CPU, step eagerly into the same buffers.
+Each shard's part of every phase runs under its scope of the mesh
+(``Mesh.each``), on its own CUDA stream, so the slabs' passes run
+concurrently on one card, as JAX's run on their own devices; shard 0's
+stream runs the rescue, and the collectives are the only place where one
+shard's stream waits on another's. The step reads nothing on the host, so
+``make_sharded_rollout`` replays it as one captured CUDA graph, forking
+into the shards' streams and joining them again, when every shard sits on
+one card (``ops/cuda/graph.py::ShardedGraph``); a mesh over several
+devices, and the CPU, step eagerly into the same buffers.
 """
 
 from __future__ import annotations
@@ -61,7 +66,7 @@ from ..core.params import (DENSITY_PADDING, KernelCoeffs, SimConfig,
 from ..core.state import FluidState
 from ..ops import grid as grid_mod, hashing, integrate as integrate_mod
 from ..ops.cuda import graph as graph_mod
-from .domain import _per_shard
+from .domain import _per_shard, _split
 from .mesh import Mesh
 
 _FAR = grid_mod._FAR
@@ -127,8 +132,9 @@ def _with_halo(mesh: Mesh, planes: list[torch.Tensor], H: int,
     h = min(H, nc_loc)
     from_left = mesh.shift_right([p[..., nc_loc - h:] for p in planes])
     from_right = mesh.shift_left([p[..., :h] for p in planes])
-    out = []
-    for p, left, right in zip(planes, from_left, from_right):
+
+    def extend(d):
+        p, left, right = planes[d], from_left[d], from_right[d]
         if h < H:
             pad = torch.empty(p.shape[:-1] + (H - h,), dtype=p.dtype,
                               device=p.device)
@@ -136,8 +142,9 @@ def _with_halo(mesh: Mesh, planes: list[torch.Tensor], H: int,
                 pad[f].fill_(v)
             left, right = torch.cat([pad, left], -1), torch.cat([right, pad],
                                                                 -1)
-        out.append(torch.cat([left, p, right], dim=-1))
-    return out
+        return torch.cat([left, p, right], dim=-1)
+
+    return mesh.each(extend)
 
 
 def _to_shard0(mesh: Mesh, packs: list[torch.Tensor]) -> torch.Tensor:
@@ -182,31 +189,41 @@ def build_slabs(mesh: Mesh, cfg: SimConfig, states: list[FluidState],
     over the unsharded rows, bit for bit."""
     size, dim, dims = mesh.size, cfg.dim, cfg.grid_dims
     nc_loc = dims[0] // size * math.prod(dims[1:])
-    kpred = [hashing.key_coords(s.predicted, p, cfg, s.time)
-             for s, p in zip(states, params)]
-    low = mesh.pmin([k.amin(dim=0) for k in kpred])
-    cid = [hashing.bounded_cell_ids(k, p.smoothing_radius,
-                                    lo - p.smoothing_radius, dims)[1]
-           for k, p, lo in zip(kpred, params, low)]
-    # a block holds all of its source's rows; the receiver keeps its slab's
-    rows = [torch.cat([s.predicted, s.vel, c.view(torch.float32)[:, None]],
-                      dim=1) for s, c in zip(states, cid)]
-    got = mesh.all_to_all([[r] * size for r in rows])
-    out = Slabs([], [], [], [], [], [], [])
-    for d, g in enumerate(got):
+
+    def keys(d):
+        k = hashing.key_coords(states[d].predicted, params[d], cfg,
+                               states[d].time)
+        return k, k.amin(dim=0)
+
+    def slab(d):
+        g = got[d]
         pred, vel = g[:, :dim], g[:, dim:2 * dim]
         c = g[:, 2 * dim].contiguous().view(torch.int32)
         mine = c // nc_loc == d
         pos, vl, mask, addr, kept, skey, order = grid_mod._scatter_buckets(
             c - d * nc_loc, mine.to(torch.float32), pred, vel,
             cfg.cell_capacity, nc_loc)
-        for field, x in zip(out, (pred, vel, c, mine, grid_mod.BucketGrid(
-                cell_pos=pos, cell_vel=vl, cell_mask=mask, addr=addr,
-                origin=low[d] - params[d].smoothing_radius,
-                overflow=(mine.sum() - kept).to(torch.int32)), skey,
-                                   order)):
-            field.append(x)
-    return out
+        return (pred, vel, c, mine, grid_mod.BucketGrid(
+            cell_pos=pos, cell_vel=vl, cell_mask=mask, addr=addr,
+            origin=low[d] - params[d].smoothing_radius,
+            overflow=(mine.sum() - kept).to(torch.int32)), skey, order)
+
+    with mesh.step():
+        kpred, kmin = _split(mesh.each(keys))
+        low = mesh.pmin(kmin)
+
+        def rows(d):
+            p = params[d]
+            c = hashing.bounded_cell_ids(kpred[d], p.smoothing_radius,
+                                         low[d] - p.smoothing_radius,
+                                         dims)[1]
+            # a block holds all of its source's rows; the receiver keeps
+            # its slab's
+            return torch.cat([states[d].predicted, states[d].vel,
+                              c.view(torch.float32)[:, None]], dim=1)
+
+        got = mesh.all_to_all([[r] * size for r in mesh.each(rows)])
+        return Slabs(*_split(mesh.each(slab)))
 
 
 def make_sharded_step(mesh: Mesh, cfg: SimConfig):
@@ -224,9 +241,13 @@ def make_sharded_step(mesh: Mesh, cfg: SimConfig):
     rescue = cfg.rescue_capacity > 0
 
     def sharded_step(states: list[FluidState], params: SimParams):
+        with mesh.step():
+            return step_body(states, params)
+
+    def step_body(states, params):
         ps = _per_shard(params, mesh)
-        coeffs = [KernelCoeffs.from_radius(p.smoothing_radius, dim)
-                  for p in ps]
+        coeffs = mesh.each(lambda d: KernelCoeffs.from_radius(
+            ps[d].smoothing_radius, dim))
         m = states[0].n
         n = m * size
 
@@ -238,66 +259,75 @@ def make_sharded_step(mesh: Mesh, cfg: SimConfig):
 
         # 3. density over each slab's occupied cells, halos from both
         # neighbours
-        pm = _with_halo(mesh, [torch.cat([g.cell_pos, g.cell_mask[None]])
-                               for g in sl.grids], H, [_FAR] * dim + [0.0])
-        query = [grid_mod._occupied_cells(p[dim], min(n, nc_loc), H,
-                                          H + nc_loc) for p in pm]
+        pm = _with_halo(mesh, mesh.each(lambda d: torch.cat([
+            sl.grids[d].cell_pos, sl.grids[d].cell_mask[None]])), H,
+            [_FAR] * dim + [0.0])
         local = slice(H, H + nc_loc)
-        dens = []
-        for d in range(size):
+
+        def density(d):
+            query = grid_mod._occupied_cells(pm[d][dim], min(n, nc_loc), H,
+                                             H + nc_loc)
             g = grid_mod.BucketGrid(cell_pos=pm[d][:dim], cell_vel=None,
                                     cell_mask=pm[d][dim], addr=None,
                                     origin=None, overflow=overflow[d])
-            dens.append([x[:, local] for x in grid_mod.bucket_density_pass(
-                g, ps[d], coeffs[d], cfg, query[d])])
+            return query, [x[:, local] for x in grid_mod.bucket_density_pass(
+                g, ps[d], coeffs[d], cfg, query)]
+
+        query, dens = _split(mesh.each(density))
 
         # 4a. the rescue's density half on shard 0 over all rows
         p0, c0 = ps[0], coeffs[0]
-        owner = gcid[0] // nc_loc
+        with mesh.shard(0):
+            owner = gcid[0] // nc_loc
         unrescued = overflow
         if rescue:
-            sorted_pack = []
-            for d in range(size):
+            def pack(d):
                 den_d = grid_mod._from_cells(dens[d][0], addr[d],
                                              ps[d].target_density)
                 nden_d = grid_mod._from_cells(dens[d][1], addr[d],
                                               DENSITY_PADDING)
                 dropped_d = (addr[d] == cap * nc_loc) & mine[d]
-                sorted_pack.append(torch.stack([
+                return torch.stack([
                     den_d, nden_d, dropped_d.to(torch.float32),
                     (sl.sorted_key[d] + d * nc_loc).view(torch.float32),
-                    sl.order[d].view(torch.float32)], dim=1))
-            got0 = _to_shard0(mesh, sorted_pack)
-            per_row = _by_owner(got0[:, :, :3], owner)
-            den, nden = per_row[:, 0].contiguous(), per_row[:, 1].contiguous()
-            dropped = per_row[:, 2] > 0
-            scol, order = _global_sort(got0[:, :, 3:], owner)
-            pred0 = pred[0].contiguous()
-            vel0 = vel[0].contiguous()
-            r = grid_mod.rescue_density(pred0, dropped, overflow[0], den,
-                                        nden, scol, order, p0, c0, cfg)
-            unrescued = [o - torch.clamp_max(o, r.sel.shape[0])
-                         for o in overflow]
+                    sl.order[d].view(torch.float32)], dim=1)
+
+            got0 = _to_shard0(mesh, mesh.each(pack))
+            with mesh.shard(0):
+                per_row = _by_owner(got0[:, :, :3], owner)
+                den = per_row[:, 0].contiguous()
+                nden = per_row[:, 1].contiguous()
+                dropped = per_row[:, 2] > 0
+                scol, order = _global_sort(got0[:, :, 3:], owner)
+                pred0 = pred[0].contiguous()
+                vel0 = vel[0].contiguous()
+                r = grid_mod.rescue_density(pred0, dropped, overflow[0], den,
+                                            nden, scol, order, p0, c0, cfg)
+                corrected0 = torch.stack([den, nden], dim=1)
+            unrescued = mesh.each(lambda d: overflow[d] - torch.clamp_max(
+                overflow[d], r.sel.shape[0]))
             # the corrected densities to every slab, before its force pass
-            corrected = mesh.all_gather(
-                [torch.stack([den, nden], dim=1)]
-                + [den.new_zeros((0, 2))] * (size - 1))
-            for d in range(size):
+            corrected = mesh.all_gather(mesh.each(lambda d: torch.zeros(
+                (0, 2), device=mesh.devices[d]) if d else corrected0))
+
+            def correct(d):
                 den_c = grid_mod._to_cells(dens[d][0], addr[d],
                                            corrected[d][:, 0])
                 nden_c = grid_mod._to_cells(dens[d][1], addr[d],
                                             corrected[d][:, 1])
-                dens[d] = [den_c, nden_c,
-                           ps[d].pressure_scalar
-                           * (den_c - ps[d].target_density),
-                           ps[d].near_pressure_scalar * nden_c]
+                return [den_c, nden_c,
+                        ps[d].pressure_scalar
+                        * (den_c - ps[d].target_density),
+                        ps[d].near_pressure_scalar * nden_c]
+
+            dens = mesh.each(correct)
 
         # 3b. force over each slab's occupied cells
-        fx = _with_halo(mesh, [torch.cat([g.cell_vel, torch.stack(x)])
-                               for g, x in zip(sl.grids, dens)],
-                        H, [0.0] * (dim + 4))
-        packs = []
-        for d in range(size):
+        fx = _with_halo(mesh, mesh.each(lambda d: torch.cat([
+            sl.grids[d].cell_vel, torch.stack(dens[d])])), H,
+            [0.0] * (dim + 4))
+
+        def force(d):
             g = grid_mod.BucketGrid(cell_pos=pm[d][:dim],
                                     cell_vel=fx[d][:dim],
                                     cell_mask=pm[d][dim], addr=None,
@@ -306,40 +336,41 @@ def make_sharded_step(mesh: Mesh, cfg: SimConfig):
                                                coeffs[d], cfg, query[d])
             acc_d = grid_mod._from_cells(acc_c[:, :, local], addr[d], 0.0)
             if rescue:
-                packs.append(acc_d)
-            else:
-                packs.append(torch.cat([torch.stack([
-                    grid_mod._from_cells(dens[d][0], addr[d],
-                                         ps[d].target_density),
-                    grid_mod._from_cells(dens[d][1], addr[d],
-                                         DENSITY_PADDING),
-                    grid_mod._from_cells(dens[d][2], addr[d], 0.0),
-                    grid_mod._from_cells(dens[d][3], addr[d], 0.0)],
-                    dim=1), acc_d], dim=1))
-        per_row = _by_owner(_to_shard0(mesh, packs), owner)
+                return acc_d
+            return torch.cat([torch.stack([
+                grid_mod._from_cells(dens[d][0], addr[d],
+                                     ps[d].target_density),
+                grid_mod._from_cells(dens[d][1], addr[d], DENSITY_PADDING),
+                grid_mod._from_cells(dens[d][2], addr[d], 0.0),
+                grid_mod._from_cells(dens[d][3], addr[d], 0.0)],
+                dim=1), acc_d], dim=1)
 
-        # 4b. the rescue's force half on shard 0
-        if rescue:
-            acc = per_row.contiguous()
-            prs = p0.pressure_scalar * (den - p0.target_density)
-            nprs = p0.near_pressure_scalar * nden
-            grid_mod.rescue_force(pred0, vel0, den, nden, prs, nprs, acc, r,
-                                  p0, c0, cfg)
-            per_row = torch.cat([torch.stack([den, nden, prs, nprs], dim=1),
-                                 acc], dim=1)
+        got0 = _to_shard0(mesh, mesh.each(force))
+        with mesh.shard(0):
+            per_row = _by_owner(got0, owner)
+            # 4b. the rescue's force half on shard 0
+            if rescue:
+                acc = per_row.contiguous()
+                prs = p0.pressure_scalar * (den - p0.target_density)
+                nprs = p0.near_pressure_scalar * nden
+                grid_mod.rescue_force(pred0, vel0, den, nden, prs, nprs, acc,
+                                      r, p0, c0, cfg)
+                per_row = torch.cat([torch.stack([den, nden, prs, nprs],
+                                                 dim=1), acc], dim=1)
 
         # 5. results home; each shard integrates its rows
-        home = mesh.all_to_all(
-            [[per_row[d * m:(d + 1) * m] for d in range(size)]]
-            + [[per_row[:0]] * size] * (size - 1))
-        out = []
-        for d, (s, p) in enumerate(zip(states, ps)):
-            res = home[d]
+        home = mesh.all_to_all(mesh.each(lambda s: [
+            per_row[d * m:(d + 1) * m] if s == 0
+            else torch.empty((0, per_row.shape[1]), device=mesh.devices[s])
+            for d in range(size)]))
+
+        def integrate(d):
+            s, p, res = states[d], ps[d], home[d]
             acc = res[:, 4:].contiguous()
             t_new = s.time + p.dt
             pos, vel_new, predicted = integrate_mod.integrate(
                 s.pos, s.vel, acc, p, t_new)
-            out.append(FluidState(
+            return FluidState(
                 pos=pos, vel=vel_new, predicted=predicted, acc=acc,
                 density=res[:, 0].contiguous(),
                 near_density=res[:, 1].contiguous(),
@@ -349,8 +380,9 @@ def make_sharded_step(mesh: Mesh, cfg: SimConfig):
                 overflow=unrescued[d],
                 overflow_total=s.overflow_total
                 + unrescued[d].to(torch.float32),
-                ids=s.ids))
-        return out
+                ids=s.ids)
+
+        return mesh.each(integrate)
 
     return sharded_step
 
@@ -381,9 +413,11 @@ def make_sharded_rollout(mesh: Mesh, cfg: SimConfig):
     counterpart of JAX's jitted ``lax.scan`` over the sharded step. Each
     call steps a ``ShardedGraph`` over copies of its inputs (they stay as
     they were): on a mesh whose shards share one CUDA device it warms up,
-    captures one step and replays it once a step; elsewhere it steps
-    eagerly. Raises ValueError ("not divisible") when ``grid_dims[0]``
-    does not divide by the mesh size, as JAX's does."""
+    captures one step, a branch a shard on the shards' streams, and
+    replays it once a step, the slabs' passes running concurrently (one
+    after another on a ``serial`` mesh); elsewhere it steps eagerly.
+    Raises ValueError ("not divisible") when ``grid_dims[0]`` does not
+    divide by the mesh size, as JAX's does."""
     step = make_sharded_step(mesh, cfg)
 
     def sharded_rollout(states: list[FluidState], params: SimParams,

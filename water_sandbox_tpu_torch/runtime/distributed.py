@@ -10,7 +10,8 @@ mesh in one process.
 
 It owns a ``DomainGraph`` (``ops/cuda/graph.py``): with every shard on one
 CUDA device the first ``run`` warms the step up and captures it, and every
-step after is one replay of that graph; a mesh over several devices (or
+step after is one replay of that graph, whose shards run concurrently on
+their own streams (``parallel/mesh.py``); a mesh over several devices (or
 the CPU) steps eagerly into the same buffers.
 """
 
