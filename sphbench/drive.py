@@ -1,0 +1,328 @@
+"""The one traffic generator: set-up and the measured window of a cell,
+driven by its traffic file's parameters.
+
+``loop: "closed"`` (a user's offline run): set-up steps the start state
+``settle_steps`` steps (the first ``Simulation.run`` builds the kernels
+and captures the step); the window enqueues ``Simulation.run`` replays in
+chunks of ``chunk``, keeping one chunk in flight, until ``--seconds`` have
+passed and every sample is taken, and stops the clock at a final
+synchronisation.
+
+``loop: "open"`` (an interactive user): one frame is due every
+1 / ``rate_hz`` seconds; a frame applies the reset or the HUD key due at
+it, runs one step (``Simulation.run(1)``, which synchronises) and reads
+``reads`` back (``positions``, ``velocities``, ``stats``). A frame is
+timed from its due time, so a late frame counts its wait. A reset is due
+every ``reset_every`` frames; a key every ``key_every`` frames at phase
+``key_phase``. Each of ``key_pairs`` is a HUD key and the key that undoes
+it: a user tries a value and sets it back. The keys are taken in turn
+from blocks that press every key of the pairs once, in an order drawn
+from the seed with each pair's first key before its second, so every
+seed presses the same keys in another order and a parameter moves by one
+step at most.
+
+Correctness samples are drawn from the seed (``samples`` of them): in the
+closed loop at chunk boundaries at times drawn over the window, in the
+open loop among the frames, with at least one first step after a reset,
+two from the ``landing`` range of steps after a reset, and one frame with
+a key. A sample keeps the program's state before and after its step, and
+the frame's reads. With ``--trace 1`` a span of the window
+(``trace_from_chunk`` / ``trace_chunks``, ``trace_from_frame`` /
+``trace_frames``) runs under the profiler; samples are not taken there.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from . import inputs
+from .trace import traced
+
+
+@dataclasses.dataclass
+class Sample:
+    index: int            # the frame, or the chunk of the closed loop
+    steps_done: int       # steps since the start or the last reset
+    keys: list            # HUD keys pressed before the step
+    pre: object           # the program's state before the step (a clone)
+    post: object          # and after it
+    reads: dict           # the frame's reads
+    params: dict          # the program's parameter values at the step
+
+
+@dataclasses.dataclass
+class Run:
+    loop: str
+    n: int
+    device_name: str
+    setup_s: float = 0.0
+    attempted: int = 0
+    failed: int = 0
+    steps: int = 0
+    wall_s: float = 0.0
+    frame_ms: list = dataclasses.field(default_factory=list)
+    late_ms: list = dataclasses.field(default_factory=list)
+    spans: dict = dataclasses.field(default_factory=dict)
+    samples: list = dataclasses.field(default_factory=list)
+    start_gap: float = 0.0
+    prof: object = None
+    traced_steps: int = 0
+    traced_pred: list = dataclasses.field(default_factory=list)
+    trace: object = None
+    pairs: list = dataclasses.field(default_factory=list)
+    memory_peak_bytes: int = 0
+    power: str = "not measured"
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    keys: dict
+    resets: frozenset
+    samples: tuple
+
+
+def plan(tr: dict, seed: int, frames: int) -> Plan:
+    """The open loop's keys, resets and sampled frames for ``seed``."""
+    rng = np.random.default_rng([int(seed), 11])
+    slots = [f for f in range(frames)
+             if f % tr["key_every"] == tr["key_phase"]]
+    pairs = tr["key_pairs"]
+    seq: list = []
+    while len(seq) < len(slots):
+        block = "".join(rng.permutation(list("".join(pairs))))
+        if all(block.index(a) < block.index(b) for a, b in pairs):
+            seq += list(block)
+    keys = dict(zip(slots, seq))
+    every = tr["reset_every"]
+    resets = frozenset(f for f in range(1, frames) if f % every == 0)
+    lo, hi = tr["landing"]
+    picks: list = []
+
+    def take(pool, k):
+        pool = [f for f in pool if f not in picks]
+        if pool:
+            picks.extend(int(f) for f in rng.choice(pool, min(k, len(pool)),
+                                                    replace=False))
+    take([f for f in range(frames) if f % every == 0], 1)
+    take([f for f in range(frames) if lo <= f % every < hi], 2)
+    take(slots, 1)
+    take(range(frames), tr["samples"] - len(picks))
+    return Plan(keys, resets, tuple(sorted(picks)))
+
+
+class Snapshots:
+    """State buffers made in set-up, so that a sample taken in the window
+    copies into memory it already has and allocates nothing."""
+
+    def __init__(self, state, count: int):
+        self.free = [state.clone() for _ in range(count)]
+
+    def take(self, state):
+        buf = self.free.pop()
+        for f in dataclasses.fields(buf):
+            getattr(buf, f.name).copy_(getattr(state, f.name))
+        return buf
+
+
+def _params(sim) -> dict:
+    p = sim.params
+    out = {k: float(getattr(p, k)) for k in inputs.PARAM_NAMES}
+    out["gravity"] = [float(x) for x in p.gravity]
+    return out
+
+
+def _wait(due: float) -> None:
+    left = due - time.perf_counter()
+    if left > 0.002:
+        time.sleep(left - 0.002)
+    while time.perf_counter() < due:
+        pass
+
+
+def _label(name: str, on: bool):
+    return (torch.profiler.record_function(name) if on
+            else contextlib.nullcontext())
+
+
+def setup(cell, seed: int, device) -> tuple:
+    """(sim, start gap, snapshots): the program built from the inputs for
+    ``seed`` and warmed up as the cell's traffic needs; the start gap is
+    the largest difference between the program's start state and the
+    inputs (0 when the constructors keep them exactly); buffers for the
+    window's samples and the traced span's two states."""
+    conf, tr = cell.config, cell.traffic
+    pos = inputs.start_positions(conf, seed, device)
+    sim = inputs.simulation(conf, pos.clone(), conf["name"])
+    s = sim.state
+    ids = torch.arange(conf["n"], device=device)
+    gap = max(float((s.pos - pos).abs().max()),
+              float((s.predicted - pos).abs().max()),
+              float(s.vel.abs().max()), float(s.step_count),
+              float(s.time.abs()), float((s.ids.long() - ids).abs().max()))
+    del pos, ids
+    snaps = Snapshots(s, 2 * tr["samples"] + 2)
+    if tr["loop"] == "closed":
+        sim.run(tr["settle_steps"])
+        _bad(s, s.overflow_total.clone())
+    else:
+        sim.run(1)
+        for name in tr["reads"]:
+            getattr(sim, name)()
+        sim.tune(pressure_scalar=float(sim.params.pressure_scalar))
+        float(s.overflow_total)
+        sim.reset()
+    snaps.free.append(snaps.take(s))
+    _sync(sim)
+    return sim, gap, snaps
+
+
+def _sync(sim) -> None:
+    if sim.device.type == "cuda":
+        torch.cuda.synchronize(sim.device)
+
+
+def _bad(s, last) -> torch.Tensor:
+    """() bool on the device: a particle went non-finite, or the step left
+    particles uncomputed since ``last`` (overflow_total grew)."""
+    return ((s.overflow_total > last) | ~torch.isfinite(s.pos).all()
+            | ~torch.isfinite(s.vel).all())
+
+
+def closed(sim, tr: dict, seconds: float, seed: int, trace: bool,
+           run: Run, snaps: Snapshots) -> None:
+    cuda = sim.device.type == "cuda"
+    chunk = tr["chunk"]
+    rng = np.random.default_rng([int(seed), 7])
+    due = sorted(rng.uniform(0.0, seconds, tr["samples"]).tolist())
+    t_from = tr["trace_from_chunk"] if trace else -1
+    t_end = t_from + tr["trace_chunks"] if trace else -1
+    s = sim.state
+    last = s.overflow_total.clone()
+    failed = torch.zeros((), dtype=torch.int64, device=sim.device)
+    covered, steps, c = 0, 0, 0
+
+    def check():
+        failed.add_(_bad(s, last).long() * covered)
+        last.copy_(s.overflow_total)
+    events: list = []
+    stack = contextlib.ExitStack()
+    t0 = time.perf_counter()
+    while True:
+        now = time.perf_counter() - t0
+        if now >= seconds and not due and not (trace and c < t_end):
+            break
+        if c == t_from:
+            check()
+            covered = 0
+            run.traced_pred.append(snaps.take(s))
+            run.prof = stack.enter_context(traced())
+        tracing = t_from <= c < t_end
+        if not tracing and due and now >= due[0]:
+            due.pop(0)
+            pre = snaps.take(s)
+            sim.run(1, block=False)
+            run.samples.append(Sample(c, tr["settle_steps"] + steps, [], pre,
+                                      snaps.take(s), {}, {}))
+            sim.run(chunk - 1, block=False)
+        else:
+            with _label("sphbench.chunk", tracing):
+                sim.run(chunk, block=False)
+        steps += chunk
+        covered += chunk
+        c += 1
+        if c == t_end:
+            _sync(sim)
+            stack.close()
+            run.traced_pred.append(snaps.take(s))
+            run.traced_steps = tr["trace_chunks"] * chunk
+        elif not tracing:
+            check()
+            covered = 0
+        if cuda:
+            ev = torch.cuda.Event()
+            ev.record()
+            events.append(ev)
+            if len(events) > 1:
+                events.pop(0).synchronize()
+    _sync(sim)
+    run.wall_s = time.perf_counter() - t0
+    check()
+    run.steps = run.attempted = steps
+    run.failed = int(failed)
+    for sm in run.samples:
+        sm.params = _params(sim)
+
+
+def open_loop(sim, tr: dict, seconds: float, seed: int, trace: bool,
+              run: Run, snaps: Snapshots) -> None:
+    from water_sandbox_tpu_torch.runtime.keymap import apply_key
+    rate = tr["rate_hz"]
+    frames = max(1, int(round(seconds * rate)))
+    p = plan(tr, seed, frames)
+    t_from = tr["trace_from_frame"] if trace else -1
+    t_end = t_from + tr["trace_frames"] if trace else -1
+    s = sim.state
+    last = float(s.overflow_total)
+    since_reset, keys = 0, []
+    spans = {"step_ms": [], "readback_ms": []}
+    stack = contextlib.ExitStack()
+    sample = set(p.samples)
+    t0 = time.perf_counter() + 0.05
+    for f in range(frames):
+        if f == t_from:
+            # the frame clock stops while the profiler starts and stops
+            paused = time.perf_counter()
+            run.traced_pred.append(snaps.take(s))
+            run.prof = stack.enter_context(traced())
+            t0 += time.perf_counter() - paused
+        tracing = t_from <= f < t_end
+        pre = snaps.take(s) if f in sample else None
+        due = t0 + f / rate
+        with _label("sphbench.wait", tracing):
+            _wait(due)
+        start = time.perf_counter()
+        if f in p.resets:
+            with _label("sphbench.reset", tracing):
+                sim.reset()
+            since_reset = 0
+        if f in p.keys:
+            with _label("sphbench.key", tracing):
+                apply_key(sim, p.keys[f])
+            keys.append(p.keys[f])
+        t_step = time.perf_counter()
+        with _label("sphbench.step", tracing):
+            sim.run(1)
+        t_read = time.perf_counter()
+        with _label("sphbench.readback", tracing):
+            out = {name: getattr(sim, name)() for name in tr["reads"]}
+        end = time.perf_counter()
+        run.frame_ms.append(1e3 * (end - due))
+        run.late_ms.append(1e3 * (start - due))
+        if not tracing:
+            spans["step_ms"].append(1e3 * (t_read - t_step))
+            spans["readback_ms"].append(1e3 * (end - t_read))
+        if f == t_end - 1:
+            paused = time.perf_counter()
+            _sync(sim)
+            stack.close()
+            run.traced_pred.append(snaps.take(s))
+            run.traced_steps = tr["trace_frames"]
+            t0 += time.perf_counter() - paused
+        total = float(s.overflow_total)
+        if total > last or not bool(torch.isfinite(s.pos).all()
+                                    & torch.isfinite(s.vel).all()):
+            run.failed += 1
+        last = total
+        if f in sample:
+            run.samples.append(Sample(f, since_reset, list(keys), pre,
+                                      snaps.take(s), out, _params(sim)))
+        since_reset += 1
+    run.wall_s = time.perf_counter() - t0
+    run.steps = frames
+    run.attempted = frames
+    run.spans = spans
