@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare DIR   # this tree against an older one
+    python3 chip_smoke.py --replay-cost DIR  # replays' device time, both trees
     python3 chip_smoke.py --trace-margin TRIALS  # profiler traces' drops
 
 
@@ -85,7 +86,8 @@ the front end: ``python -m water_sandbox_tpu_torch.cli`` as subprocesses
 (``scenes``; ``run`` at its default 2-D scene and at ``reference-cube``,
 each with a trajectory and a checkpoint; ``resume`` held by id against the
 same steps in this process; ``bench``), ``runtime/profiling.py``'s trace of
-``Simulation.run`` (the step's four kernels once a step), ``viz/live.py`` on a stub
+``Simulation.run`` (the step's four kernels once a step, its six phase
+markers in order, no program span among the device events), ``viz/live.py`` on a stub
 terminal, ``viz/server.py`` over HTTP (a density raster at the flagship,
 points at ``dam-break-2d-4k``), and ``python -m
 water_sandbox_tpu_torch.bench`` at its defaults. Each
@@ -3207,7 +3209,9 @@ def phase_profile(paths: dict) -> None:
     replays of the captured step: the trace must hold each of the step's
     four kernels (K1, K2, R1, R2) 5 times. The launch counts on a replayed
     path are the capture's counts times the replays, so this trace is what
-    shows the replays run every kernel."""
+    shows the replays run every kernel. The replays also carry the step's
+    phase markers (``profiling.phase``), six a step in order, and no
+    program span (``wst.*``, host only) is among the device's events."""
     import water_sandbox_tpu_torch as wst
     from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
     from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
@@ -3222,8 +3226,24 @@ def phase_profile(paths: dict) -> None:
     check_launches("profile", launches, 5)
     paths["profile"] = (launches, 5)
     with open(logdir / "trace.json") as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("cat") == "kernel"]
+        every = json.load(f)["traceEvents"]
+    events = [e for e in every if e.get("cat") == "kernel"]
+    marks = [e["name"][len("wst_phase_"):]
+             for e in sorted(events, key=lambda e: e["ts"])
+             if e["name"].startswith("wst_phase_")]
+    step = ["build", "density", "rescue", "force", "rescue", "integrate"]
+    # a profiler session after others in one process can lose its first
+    # device events (PERF.md §7): only the head of the first replay may lack
+    lost = len(step) * 5 - len(marks)
+    check(0 <= lost < len(step) and marks == (step * 5)[lost:],
+          f"profile: phase markers {marks[:12]}")
+    on_device = {e["name"] for e in every
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset",
+                                     "gpu_user_annotation")}
+    check(not [n for n in on_device if n.startswith("wst.")],
+          "profile: a program span among the device's events")
+    check("wst.run" in {e.get("name") for e in every},
+          "profile: no wst.run span")
     # the names may be mangled C++ names: match the kernel's name inside
     found = {k: [e for e in events if k in e["name"]]
              for k in ("sph_density_kernel", "sph_force_kernel",
@@ -3237,7 +3257,8 @@ def phase_profile(paths: dict) -> None:
                      f"({sum(e['dur'] for e in evs) / 5e3:.4f} ms a step)"
                      for k, evs in found.items())
     log(f"[profile] reference-cube steps 6-10 under device_trace: "
-        f"{len(events)} kernels in the trace, {each}, all kernels "
+        f"{len(events)} kernels in the trace ({len(marks)} phase markers "
+        f"in order, {lost} lost at the trace's head), {each}, all kernels "
         f"{total_us / 5e3:.4f} ms a step, launches {launches}")
 
 
@@ -3526,6 +3547,101 @@ print(json.dumps(res))
 """ % (COMPARE_BUDGETS,)
 
 
+# One process a tree for replay_cost: the settled flagship, then a window
+# of replays a line read from stdin ("off N" or "on N": N replays enqueued
+# at once, timed by CUDA events from before the first to after the last;
+# "on" with a CPU-only profiler open, which turns the step's phase markers
+# on), its device ms a step printed as a line.
+REPLAYS = """
+import contextlib, json, sys, torch
+from torch.profiler import ProfilerActivity, profile
+import water_sandbox_tpu_torch as wst
+sim = wst.Simulation.from_scene("moving-container-256k")
+sim.run(600)
+torch.cuda.synchronize()
+print(json.dumps({"ready": True}), flush=True)
+for line in sys.stdin:
+    mode, n = line.split()
+    n = int(n)
+    prof = (profile(activities=[ProfilerActivity.CPU]) if mode == "on"
+            else contextlib.nullcontext())
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    with prof:
+        a.record()
+        sim.run(n, block=False)
+        b.record()
+        b.synchronize()
+    print(json.dumps({"ms": a.elapsed_time(b) / n}), flush=True)
+"""
+REPLAY_WINDOW = 250
+REPLAY_ROUNDS = 8
+
+
+def replay_cost(other: Path, rounds: int = REPLAY_ROUNDS,
+                window: int = REPLAY_WINDOW) -> dict:
+    """``--replay-cost DIR`` (and the end of ``--compare DIR``): the
+    settled flagship's device time a step in this tree and in DIR, both
+    processes alive at once and taking turns on the card (REPLAYS), in
+    ``rounds`` rounds of four windows of ``window`` replays each: the
+    markers off, then on (a CPU-only profiler open), in each tree, the
+    tree that goes first alternating from round to round. Reports each
+    tree's median ms a step by mode, and per round the change's cost
+    against DIR (off, on) and the markers' cost in this tree (on - off),
+    as medians over the rounds."""
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True).stdout.strip())
+    procs = {}
+    for label, tree in (("parent", other.resolve()), ("change", ROOT)):
+        procs[label] = subprocess.Popen(
+            [sys.executable, "-c", REPLAYS], cwd=tree, env=_front_env(),
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+    try:
+        for label, p in procs.items():
+            line = p.stdout.readline()
+            check(bool(line) and json.loads(line).get("ready"),
+                  f"replay-cost: {label} did not start")
+        ms = {(label, mode): [] for label in procs for mode in ("off", "on")}
+        for r in range(rounds):
+            order = ("parent", "change") if r % 2 == 0 else ("change",
+                                                              "parent")
+            for label in order:
+                for mode in ("off", "on"):
+                    p = procs[label]
+                    p.stdin.write(f"{mode} {window}\n")
+                    p.stdin.flush()
+                    line = p.stdout.readline()
+                    check(bool(line), f"replay-cost: {label} stopped")
+                    ms[(label, mode)].append(json.loads(line)["ms"])
+    finally:
+        for p in procs.values():
+            p.stdin.close()
+            p.wait(timeout=120)
+
+    def pct(a, b):
+        return [100.0 * (x / y - 1.0) for x, y in zip(a, b)]
+    out = {f"{label} {mode}": statistics.median(v)
+           for (label, mode), v in ms.items()}
+    out["change vs parent, off (%)"] = statistics.median(
+        pct(ms[("change", "off")], ms[("parent", "off")]))
+    out["change vs parent, on (%)"] = statistics.median(
+        pct(ms[("change", "on")], ms[("parent", "on")]))
+    out["markers on - off, change (us)"] = statistics.median(
+        1e3 * (a - b) for a, b in zip(ms[("change", "on")],
+                                      ms[("change", "off")]))
+    out["profiler on - off, parent (us)"] = statistics.median(
+        1e3 * (a - b) for a, b in zip(ms[("parent", "on")],
+                                      ms[("parent", "off")]))
+    out["replays a tree and mode"] = rounds * window
+    log(f"[replay-cost] moving-container-256k settled, device ms a step by "
+        f"CUDA events, {rounds} rounds of {window}-replay windows: "
+        + json.dumps(out))
+    log("[replay-cost] rounds: " + json.dumps(
+        {f"{k[0]} {k[1]}": v for k, v in ms.items()}))
+    return out
+
+
 def compare(other: Path) -> int:
     """``--compare DIR``: this tree against the checkout in DIR (an older
     commit unpacked with ``git archive``) on one card, in the order DIR,
@@ -3539,7 +3655,7 @@ def compare(other: Path) -> int:
     and the incremental step's ms/step at k = 8 (INCREMENTAL). Checks that
     the sorted step's rescue at cell capacity 8 gives the same bits in
     every run; reports whether the flagship's, the domain step's and the
-    incremental step's do."""
+    incremental step's do. Ends with ``replay_cost``."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3628,6 +3744,7 @@ def compare(other: Path) -> int:
             if scene == "cube":
                 check(same, f"--compare: {label}'s rescue step at cell "
                       "capacity 8 differs from the first parent run")
+    replay_cost(other)
     log(smi)
     return 0
 
@@ -3832,6 +3949,9 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--compare"]:
         sys.exit(compare(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["--replay-cost"]:
+        replay_cost(Path(sys.argv[2]))
+        sys.exit(0)
     if sys.argv[1:2] == ["--trace-margin"]:
         sys.exit(trace_margin(int(sys.argv[2])))
     sys.exit(main())

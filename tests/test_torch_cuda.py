@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import cuda_device  # noqa: F401 (fixture)
 import water_sandbox_tpu_torch as wt
 from water_sandbox_tpu_torch.core.params import (DENSITY_PADDING,
                                                  KernelCoeffs, SimConfig)
@@ -21,13 +22,6 @@ from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
 from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
 
 TOL = dict(rtol=2e-4, atol=2e-4)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    return torch.device("cuda")
 
 
 def _at(planes, occ):

@@ -27,6 +27,8 @@
 //       have another layout) it writes den and nden only, and the caller
 //       updates its planes. Dropped-but-unrescued rows keep their fill
 //       values.
+//   Thread 0 of block 0 adds count to `rescued` (when not null): the
+//   rescued-rows counter of the graph that owns the step.
 // R2 (in place on acc): the same two parts for the pair forces of every
 // pair that touches a rescued row: (a) a rescued row's whole acceleration
 // (self and beyond-budget rows excluded, +y at d == 0), (b) a resident's
@@ -106,9 +108,13 @@ rescue_density_kernel(const float* __restrict__ pred, int n,
                       const int* __restrict__ addr,
                       const float* __restrict__ prm, float* __restrict__ den,
                       float* __restrict__ nden, float* __restrict__ dens,
-                      long long PL, Cols g, int blocks_a) {
+                      long long* __restrict__ rescued, long long PL, Cols g,
+                      int blocks_a) {
   const int count = *count_ptr;
   if (count <= 0) return;  // the gate: nothing to rescue this step
+  if (rescued != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    *rescued += count;  // the one writer: the owner's running total
+  }
   const float h = prm[P_H];
   const float pow2 = prm[P_POW2];
   const float pow3 = prm[P_POW3];
@@ -372,7 +378,8 @@ int rows_grid(int n, int blocks_a) {
 // over [0, count); slot: (n,) i32; count: () i32 on the device; addr: (n,)
 // i32 plane addresses; prm: (16,) f32; den, nden: (n,) f32 and dens: (6,
 // cap_p, L) f32, all three updated in place (addr and dens may both be
-// null: then den and nden only); S_pad, gx, gy, gz: the column
+// null: then den and nden only); rescued: () i64 on the device, which
+// gains count, or null; S_pad, gx, gy, gz: the column
 // keys' grid (gz unused in 2-D); blocks_a: blocks of part (a). Launches on
 // `stream` of `device` and returns cudaGetLastError().
 extern "C" int wst_sph_rescue_density(const float* pred, int n,
@@ -380,7 +387,8 @@ extern "C" int wst_sph_rescue_density(const float* pred, int n,
                                       const int* rpos, const int* slot,
                                       const int* count, const int* addr,
                                       const float* prm, float* den,
-                                      float* nden, float* dens, int dim,
+                                      float* nden, float* dens,
+                                      long long* rescued, int dim,
                                       int cap_p, int L, int S_pad, int gx,
                                       int gy, int gz, int blocks_a,
                                       int device, void* stream) {
@@ -394,11 +402,11 @@ extern "C" int wst_sph_rescue_density(const float* pred, int n,
   if (dim == 3) {
     wst::rescue_density_kernel<3><<<grid, wst::kBlock, 0, s>>>(
         pred, n, scol, order, rpos, slot, count, addr, prm, den, nden, dens,
-        PL, g, blocks_a);
+        rescued, PL, g, blocks_a);
   } else if (dim == 2) {
     wst::rescue_density_kernel<2><<<grid, wst::kBlock, 0, s>>>(
         pred, n, scol, order, rpos, slot, count, addr, prm, den, nden, dens,
-        PL, g, blocks_a);
+        rescued, PL, g, blocks_a);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

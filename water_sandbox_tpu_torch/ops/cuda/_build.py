@@ -43,8 +43,8 @@ _ENTRY_POINTS = {
     "bitonic_sort": ("wst_bitonic_sort", [_P, _P, _P, _P, _I, _I, _I, _P]),
     "sph_rescue": [
         ("wst_sph_rescue_density",
-         [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-          _I, _I, _I, _I, _I, _P]),
+         [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+          _I, _I, _I, _I, _I, _I, _P]),
         ("wst_sph_rescue_force",
          [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
           _I, _I, _I, _I, _I, _P]),
@@ -60,6 +60,8 @@ _ENTRY_POINTS = {
     # not a kernel port: the IF conditional node of graph.py::device_if
     "graph_if": [("wst_if_begin", [_P, _P, _I, _P]),
                  ("wst_if_end", [_I, _P])],
+    # not a kernel port: the phase markers of runtime/profiling.py::phase
+    "trace_mark": ("wst_phase_mark", [_I, _I, _P]),
 }
 
 

@@ -58,6 +58,7 @@ import torch
 from ...core import device as device_mod
 from ...core.params import SimConfig, SimParams
 from ...core.state import FluidState
+from ...runtime import profiling
 
 # Eager steps on a side stream before the capture.
 WARMUP_STEPS = 2
@@ -110,18 +111,35 @@ class _Graph:
     out and back, ``device`` is where they live, ``captures`` whether
     ``run`` replays a graph or steps eagerly, and ``streams`` the streams
     the step forks into (a mesh's shard streams), which the warm-up and
-    capture streams must not be."""
+    capture streams must not be.
+
+    With ``marked`` (``StepGraph``) the step has phase markers
+    (``runtime/profiling.py::phase``), which ``graph`` leaves out: the
+    replays made while no profiler records are the step alone. ``capture``
+    then captures the step a second time with its markers (``traced``),
+    into the first graph's memory pool and on its capture stream, so that
+    it reuses the first graph's intermediates, and the runs made while a
+    profiler records replay that graph. Each ``run`` reads once whether
+    one records."""
 
     streams: tuple = ()
+    marked = False
 
     def __init__(self):
         self.graph = None
+        self.traced = None             # the graph with the phase markers
+        self.markers: list = []        # the phases it marks, in order
         self.per_replay: dict = {}     # kernel launches a replay
-        self.capture_s = 0.0           # warm-up and capture, wall seconds
+        self.capture_s = 0.0           # warm-up and captures, wall s
+        self._stream = None            # the capture stream
 
     def capture(self) -> None:
         """Warm up, restore the buffers, capture one step. Raises if the
         step cannot be captured."""
+        with profiling.span("wst.capture"):
+            self._capture()
+
+    def _capture(self) -> None:
         dev = self.device
         t0 = time.perf_counter()
         before = _read_counters()
@@ -137,13 +155,30 @@ class _Graph:
         self._restore(saved)
         del saved
         _set_counters(before)
+        self._stream = device_mod.pool_stream(dev, taken)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph,
-                              stream=device_mod.pool_stream(dev, taken)):
+        with torch.cuda.graph(graph, stream=self._stream):
             self._advance()
         self.per_replay = _launches_since(before)
         self.graph = graph
+        if self.marked:
+            self._capture_traced()
         self.capture_s = time.perf_counter() - t0
+
+    def _capture_traced(self) -> None:
+        """Capture the step with its phase markers into ``traced``, after
+        ``graph``; the launch counters stay as they were."""
+        before = _read_counters()
+        dev = self.device
+        index = dev.index if dev.index is not None else (
+            torch.cuda.current_device())
+        graph = torch.cuda.CUDAGraph()
+        with profiling.marking(index) as markers, torch.cuda.graph(
+                graph, pool=self.graph.pool(), stream=self._stream):
+            self._advance()
+        _set_counters(before)
+        self.markers = list(markers)
+        self.traced = graph
 
     def _warm_up(self) -> None:
         for _ in range(WARMUP_STEPS):
@@ -158,8 +193,11 @@ class _Graph:
             return
         if self.graph is None:
             self.capture()
+        graph = self.graph
+        if self.marked and profiling.recording():
+            graph = self.traced
         for _ in range(num_steps):
-            self.graph.replay()
+            graph.replay()
         _add_launches(self.per_replay, num_steps)
 
 
@@ -169,7 +207,10 @@ class StepGraph(_Graph):
     step, on the CPU n eager steps. The step is the rebuild step of any
     neighbour mode (the kernel pipeline's without ``incremental_rebuild``,
     which ``IncrementalGraph`` runs). The buffers are the caller's: hand
-    over a state and params it owns (``FluidState.clone``)."""
+    over a state and params it owns (``FluidState.clone``). ``rescued``,
+    a () i64 device counter of the graph's own, sums the rows the rescue
+    took in (R1 adds each step's count, ``rescue.counting``). The kernel
+    pipeline's step has phase markers (``marked``)."""
 
     def __init__(self, state: FluidState, params: SimParams,
                  cfg: SimConfig):
@@ -183,6 +224,10 @@ class StepGraph(_Graph):
         super().__init__()
         self.state = state
         self.params = params
+        self.rescued = torch.zeros((), dtype=torch.int64,
+                                   device=state.device)
+        from .. import step as step_mod
+        self.marked = step_mod.marked(self.cfg)
 
     @property
     def device(self) -> torch.device:
@@ -194,14 +239,17 @@ class StepGraph(_Graph):
 
     def _advance(self) -> None:
         from .. import step as step_mod
-        copy_state(self.state, step_mod.step(self.state, self.params,
-                                             self.cfg))
+        from . import rescue
+        with rescue.counting(self.rescued):
+            copy_state(self.state, step_mod.step(self.state, self.params,
+                                                 self.cfg))
 
     def _save(self):
-        return self.state.clone()
+        return self.state.clone(), self.rescued.clone()
 
     def _restore(self, saved) -> None:
-        copy_state(self.state, saved)
+        copy_state(self.state, saved[0])
+        self.rescued.copy_(saved[1])
 
 
 class DomainGraph(_Graph):
@@ -417,7 +465,9 @@ class IncrementalGraph(_Graph):
     The buffers are the caller's state and params and the graph's own
     cache (``cache``: planes, addr, origin, ticks) and flag. ``branches``
     counts the replays where each branch ran; ``run`` reads the counts once
-    at its end and adds each body's launches that many times."""
+    at its end and adds each body's launches that many times. ``rescued``
+    sums the rows the drop step's rescue took in, as ``StepGraph``'s does.
+    Its step carries no phase markers."""
 
     BRANCHES = ("rebuild", "drop", "drop_force", "materialize")
 
@@ -437,6 +487,8 @@ class IncrementalGraph(_Graph):
                                        device=state.device)
         self.branches = Branches(state.device, self.BRANCHES)
         self._seen = {k: 0 for k in self.BRANCHES}
+        self.rescued = torch.zeros((), dtype=torch.int64,
+                                   device=state.device)
 
     @property
     def device(self) -> torch.device:
@@ -461,10 +513,11 @@ class IncrementalGraph(_Graph):
             self._copy_cache(cache)
 
     def _advance(self) -> None:
-        from . import incremental
-        state, cache = incremental.step_inc(
-            self.state, self.cache, self.params, self.cfg,
-            materialize=self.materialize, branches=self.branches)
+        from . import incremental, rescue
+        with rescue.counting(self.rescued):
+            state, cache = incremental.step_inc(
+                self.state, self.cache, self.params, self.cfg,
+                materialize=self.materialize, branches=self.branches)
         copy_state(self.state, state)
         self._copy_cache(cache)
 
@@ -481,14 +534,16 @@ class IncrementalGraph(_Graph):
 
     def _save(self):
         return (self.state.clone(), [t.clone() for t in self.cache],
-                {k: v.clone() for k, v in self.branches.fired.items()})
+                {k: v.clone() for k, v in self.branches.fired.items()},
+                self.rescued.clone())
 
     def _restore(self, saved) -> None:
-        state, cache, fired = saved
+        state, cache, fired, rescued = saved
         copy_state(self.state, state)
         self._copy_cache(cache)
         for k, v in fired.items():
             self.branches.fired[k].copy_(v)
+        self.rescued.copy_(rescued)
 
     def fired(self) -> dict:
         """The runs of each branch so far (one host read)."""

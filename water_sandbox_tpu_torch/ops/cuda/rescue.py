@@ -18,6 +18,8 @@ counts its launches in ``LAUNCHES``.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import NamedTuple
 
 import torch
@@ -39,6 +41,28 @@ _BLOCKS_A = 1024
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+class _Counter(threading.local):
+    rows = None      # the () i64 device counter of ``counting``, or None
+
+
+_COUNTER = _Counter()
+
+
+@contextlib.contextmanager
+def counting(rows: torch.Tensor):
+    """Inside the block, each ``rescue_density`` on this thread adds its
+    rescued count to ``rows``, a () i64 counter on the device (a graph's
+    rescued rows): R1 adds it itself, so a captured step adds it on every
+    replay; the plain version adds it with one more op."""
+    if rows.dtype != torch.int64 or rows.dim() != 0:
+        raise ValueError("the counter is a () int64 tensor")
+    was, _COUNTER.rows = _COUNTER.rows, rows
+    try:
+        yield
+    finally:
+        _COUNTER.rows = was
 
 
 class Walk(NamedTuple):
@@ -162,11 +186,15 @@ def rescue_density(predicted, sel, slot, count, addr, den, nden, dens,
     ``nden`` and in their six rows of the density planes ``dens`` (6,
     cap_p, L) at ``addr``. ``addr`` and ``dens`` None: the planes are the
     caller's to update (``ops/grid.py``'s bucket planes have another
-    layout). Nothing changes when ``count`` is 0. Plain version on the CPU,
-    kernel (walking ``walk``) on CUDA."""
+    layout). Nothing changes when ``count`` is 0. Inside ``counting``,
+    ``count`` is added to its counter. Plain version on the CPU, kernel
+    (walking ``walk``) on CUDA."""
     dim = cfg.dim
     _check_inputs({"predicted": (predicted, (dim,)), "den": (den, ()),
                    "nden": (nden, ())}, sel, slot, count, params_vec, walk)
+    rescued = _COUNTER.rows
+    if rescued is not None and rescued.device != slot.device:
+        raise ValueError("kernel inputs must share one device")
     if (addr is None) != (dens is None):
         raise ValueError("addr and dens come together")
     cap_p = L = 0
@@ -180,14 +208,17 @@ def rescue_density(predicted, sel, slot, count, addr, den, nden, dens,
     if slot.device.type == "cpu":
         density_plain(predicted, sel, slot, count, addr, den, nden, dens,
                       params, coeffs, cfg)
+        if rescued is not None:
+            rescued.add_(count)
         return
     ptrs, grid = _walk_args(walk, cfg)
     _launch("sph_rescue_density", predicted.data_ptr(), slot.shape[0],
             *ptrs, slot.data_ptr(), count.data_ptr(),
             None if addr is None else addr.data_ptr(),
             params_vec.data_ptr(), den.data_ptr(), nden.data_ptr(),
-            None if dens is None else dens.data_ptr(), dim, cap_p, L, *grid,
-            _blocks_a(sel), slot.device.index or 0,
+            None if dens is None else dens.data_ptr(),
+            None if rescued is None else rescued.data_ptr(), dim, cap_p, L,
+            *grid, _blocks_a(sel), slot.device.index or 0,
             torch.cuda.current_stream(slot.device).cuda_stream)
 
 

@@ -29,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from ...core.params import DENSITY_PADDING, KernelCoeffs, SimConfig, SimParams
+from ...runtime import profiling
 from .. import hashing
 
 _FAR = 1.0e15
@@ -571,14 +572,16 @@ def sph_passes(planes, counts, addr, dropped, overflow, predicted, vel,
     read nothing on the host, so the step can be captured as a CUDA graph.
     ``sorted_col`` and ``order`` are the build's sort (``_build_core``),
     which the rescue walks; ``order`` None where the rows are in that
-    order. Returns (den, nden, prs, nprs, acc, unrescued) in the row order
-    of ``addr``."""
+    order. Each phase begins with ``profiling.phase``. Returns (den, nden,
+    prs, nprs, acc, unrescued) in the row order of ``addr``."""
     from . import rescue as rescue_k
 
+    profiling.phase("density")
     params_vec = _param_vector(params, coeffs)
     dens = run_density(planes, counts, addr, params_vec, cfg)
     rescue = cfg.rescue_capacity > 0
     if rescue:
+        profiling.phase("rescue")
         # the kernels read rows through raw pointers: the sorted step's
         # rows are column views of one gathered block
         predicted, vel = predicted.contiguous(), vel.contiguous()
@@ -590,11 +593,13 @@ def sph_passes(planes, counts, addr, dropped, overflow, predicted, vel,
         den, nden = gather_density(dens, addr, dropped, params)
         unrescued = overflow
 
+    profiling.phase("force")
     out_c = run_force(planes, dens, counts, addr, params_vec, cfg)
     acc = gather_results(out_c, addr, dropped, params)[2].contiguous()
     prs = params.pressure_scalar * (den - params.target_density)
     nprs = params.near_pressure_scalar * nden
     if rescue:
+        profiling.phase("rescue")
         rescue_k.rescue_force(predicted, vel, den, nden, prs, nprs, sel,
                               slot, count, acc, params, coeffs, params_vec,
                               cfg, walk)

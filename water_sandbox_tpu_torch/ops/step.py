@@ -29,6 +29,7 @@ import torch
 
 from ..core.params import KernelCoeffs, SimConfig, SimParams, _map_tensors
 from ..core.state import FluidState
+from ..runtime import profiling
 from . import dense, grid as grid_mod, integrate as integrate_mod
 from .cuda import graph as graph_mod, incremental, sph_bucket
 
@@ -36,8 +37,23 @@ from .cuda import graph as graph_mod, incremental, sph_bucket
 def step(state: FluidState, params: SimParams, cfg: SimConfig) -> FluidState:
     """Advance one dt. ``cfg.sorted_state`` returns rows in this step's
     bucket order (identity on ``state.ids``); otherwise rows keep the
-    caller's order."""
+    caller's order. The kernel pipeline's step marks its phases
+    (``runtime/profiling.py::phase``): build, density, rescue, force,
+    rescue, integrate."""
     cfg = cfg.resolved()
+    with profiling.phases(marked(cfg)):
+        return _step(state, params, cfg)
+
+
+def marked(cfg: SimConfig) -> bool:
+    """Whether ``step`` marks its phases under ``cfg``: in the kernel
+    pipeline."""
+    return cfg.resolved().neighbor_mode == "pallas"
+
+
+def _step(state: FluidState, params: SimParams,
+          cfg: SimConfig) -> FluidState:
+    profiling.phase("build")
     coeffs = KernelCoeffs.from_radius(params.smoothing_radius, cfg.dim)
     if cfg.sorted_state:
         return _sorted_pallas_step(state, params, coeffs, cfg)
@@ -62,6 +78,7 @@ def step(state: FluidState, params: SimParams, cfg: SimConfig) -> FluidState:
             grid_mod.hash_sph(predicted, state.vel, params, coeffs, cfg))
     else:
         raise ValueError(f"unknown neighbor_mode {cfg.neighbor_mode!r}")
+    profiling.phase("integrate")
     t_new = state.time + params.dt
     pos, vel, predicted = integrate_mod.integrate(
         state.pos, state.vel, acc, params, t_new)
@@ -79,6 +96,7 @@ def _sorted_pallas_step(state: FluidState, params: SimParams,
      s_pos, s_vel, s_ids) = sph_bucket.bucket_sph_sorted(
         state.pos, state.vel, state.predicted, state.ids, params, coeffs,
         cfg, time=state.time)
+    profiling.phase("integrate")
     t_new = state.time + params.dt
     pos, vel, predicted = integrate_mod.integrate(s_pos, s_vel, acc, params,
                                                   t_new)

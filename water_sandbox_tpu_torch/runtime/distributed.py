@@ -28,7 +28,7 @@ from ..core.state import FluidState
 from ..models import scenes as scene_registry
 from ..ops.cuda import graph as graph_mod
 from ..parallel import domain, mesh as mesh_mod
-from . import metrics as metrics_mod
+from . import metrics as metrics_mod, profiling
 from .runner import tune_buffers
 
 
@@ -105,16 +105,17 @@ class DistributedSimulation:
         return "captured" if self.graph.captures else "eager"
 
     def _sync(self):
-        for dev in set(self.mesh.devices):
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+        with profiling.span("wst.sync"):
+            for dev in set(self.mesh.devices):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
 
     def run(self, num_steps: int = 1, block: bool = True):
         """Advance num_steps. Every step's migration losses go into a
         device-side sum, read back when ``block`` (and by ``stats``)."""
         if num_steps <= 0:
             return self
-        with self.lock:
+        with self.lock, profiling.span("wst.run"):
             t0 = _time.perf_counter()
             self.graph.run(num_steps)
             if block:

@@ -19,7 +19,7 @@ from ..core.params import SimConfig, SimParams, _map_tensors
 from ..core.state import FluidState
 from ..models import scenes as scene_registry
 from ..ops.cuda import graph as graph_mod
-from . import metrics as metrics_mod
+from . import metrics as metrics_mod, profiling
 
 
 class SimPhase(enum.Enum):
@@ -49,7 +49,13 @@ class Simulation:
     on another thread (the viewer's request handlers) never lands a copy
     between two steps of one ``run``, or inside a capture: a reset is
     whole or not yet begun. Hold ``lock`` around a read-then-tune, or
-    around reads that must see one state."""
+    around reads that must see one state.
+
+    While a profiler records, ``run``, ``reset``, ``tune``, ``stats`` and
+    the reads put host spans on its trace (``runtime/profiling.py``:
+    ``wst.run``, ``wst.sync``, ``wst.reset``, ``wst.tune``, ``wst.stats``,
+    ``wst.read.copy`` then ``wst.read.reorder``), and the replays carry
+    the step's phase markers."""
 
     def __init__(self, cfg: SimConfig, params: SimParams, state: FluidState,
                  name: str = "custom", device=None):
@@ -83,12 +89,13 @@ class Simulation:
 
     def _sync(self):
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with profiling.span("wst.sync"):
+                torch.cuda.synchronize(self.device)
 
     def run(self, num_steps: int = 1, block: bool = True) -> "Simulation":
         """Advance num_steps (on CUDA: num_steps replays of the captured
         step, in every neighbour mode). Respects PAUSED."""
-        with self.lock:
+        with self.lock, profiling.span("wst.run"):
             if self.phase is SimPhase.PAUSED:
                 return self
             self.phase = SimPhase.RUNNING
@@ -116,9 +123,11 @@ class Simulation:
         return self
 
     def reset(self) -> "Simulation":
-        """Restore the initial particle state, keep the live-tuned params."""
-        with self.lock:
+        """Restore the initial particle state, keep the live-tuned params;
+        the count of rescued rows starts again from 0."""
+        with self.lock, profiling.span("wst.reset"):
             graph_mod.copy_state(self.state, self._initial_state)
+            self.graph.rescued.zero_()
             self.phase = SimPhase.READY
         return self
 
@@ -129,7 +138,7 @@ class Simulation:
         e.g. ``sim.tune(viscosity_strength=0.2)`` or
         ``sim.tune(field={'strength': -20, 'radius': 3})``. The values are
         copied into the parameter buffers the step reads."""
-        with self.lock:
+        with self.lock, profiling.span("wst.tune"):
             tune_buffers(self.params, kw)
         return self
 
@@ -143,37 +152,47 @@ class Simulation:
 
     # -- observation -------------------------------------------------------
 
-    def _by_id(self, arr: np.ndarray) -> np.ndarray:
-        """Rows in particle-id order (the sorted-state step keeps device rows
-        in bucket order; the reorder happens here, on the host)."""
-        ids = self.state.ids.cpu().numpy()
-        out = np.empty_like(arr)
-        out[ids] = arr
+    def _by_id(self, rows: torch.Tensor) -> np.ndarray:
+        """``rows`` on the host in particle-id order (the sorted-state step
+        keeps device rows in bucket order; the reorder happens here, on the
+        host, after the copy)."""
+        with profiling.span("wst.read.copy"):
+            arr = rows.cpu().numpy()
+            ids = self.state.ids.cpu().numpy()
+        with profiling.span("wst.read.reorder"):
+            out = np.empty_like(arr)
+            out[ids] = arr
         return out
 
     def positions(self) -> np.ndarray:
-        return self._by_id(self.state.pos.cpu().numpy())
+        return self._by_id(self.state.pos)
 
     def velocities(self) -> np.ndarray:
-        return self._by_id(self.state.vel.cpu().numpy())
+        return self._by_id(self.state.vel)
 
     def snapshot(self) -> dict:
         """Full host-side state dict (also the checkpoint payload)."""
         return convert.state_to_numpy(self.state)
 
     def stats(self) -> dict:
-        s = self.state
-        speed2 = (s.vel ** 2).sum(dim=1)
-        out = {
-            "step": int(s.step_count),
-            "time": float(s.time),
-            "kinetic_energy": float(0.5 * speed2.sum()),
-            "max_speed": float(speed2.max().sqrt()),
-            "mean_density": float(s.density.mean()),
-            "max_density": float(s.density.max()),
-            "mean_pressure": float(s.pressure.mean()),
-        }
-        out.update(self.metrics.summary())
+        """The JAX package's keys, and ``rescued_rows``: the rows the
+        rescue took in since the start or the last ``reset``, summed over
+        the steps (the graph's device counter; more than 0 means cells
+        overflowed their capacity)."""
+        with profiling.span("wst.stats"):
+            s = self.state
+            speed2 = (s.vel ** 2).sum(dim=1)
+            out = {
+                "step": int(s.step_count),
+                "time": float(s.time),
+                "kinetic_energy": float(0.5 * speed2.sum()),
+                "max_speed": float(speed2.max().sqrt()),
+                "mean_density": float(s.density.mean()),
+                "max_density": float(s.density.max()),
+                "mean_pressure": float(s.pressure.mean()),
+                "rescued_rows": int(self.graph.rescued),
+            }
+            out.update(self.metrics.summary())
         return out
 
 
