@@ -146,8 +146,8 @@ FRONT_PATHS = ("cli run dam-break-2d-4k", "cli run reference-cube",
 RESCUE_SWEEP = (64, 512, 2048)
 
 # The kernels every single-device step launches once.
-STEP_KERNELS = ("sph_density", "sph_force", "sph_rescue_density",
-                "sph_rescue_force")
+STEP_KERNELS = ("sph_build", "sph_density", "sph_force",
+                "sph_rescue_density", "sph_rescue_force")
 
 # The domain step's kernels beside K1 and K3: the cross-shard rescue's
 # halves, each once a shard a step.
@@ -231,6 +231,19 @@ KERNELS = {
         replaces="water_sandbox_tpu/parallel/domain.py:689"),
     # on no step path, as in the JAX package: its launches a step are read
     # from every step path's run all the same
+    # the build after the sort (slot ranks, row gather, planes, counts):
+    # no pallas_call in the JAX package (XLA ops, a cummax and the "stack"
+    # scatter)
+    "sph_build": dict(
+        counter="sph_build", path="moving-container-256k",
+        paths=("reference-cube", "moving-container-256k",
+               "reference-cube incremental",
+               "reference-cube incremental cap 8") + GOLDEN_PATHS
+        + FRONT_PATHS,
+        at="moving-container-256k step 600",
+        source="water_sandbox_tpu_torch/csrc/sph_build.cu",
+        replaces="none: XLA ops, water_sandbox_tpu/ops/pallas/"
+                 "sph_bucket.py:268"),
     "bitonic_sort": dict(
         counter="bitonic_sort", path="argsort_keys",
         paths=("reference-cube", "moving-container-256k", "sharded-1m",
@@ -247,21 +260,25 @@ def reset_launches() -> None:
     """Every kernel wrapper's launch count to 0."""
     from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
     from water_sandbox_tpu_torch.ops.cuda import domain_rescue as dr
+    from water_sandbox_tpu_torch.ops.cuda import build
     from water_sandbox_tpu_torch.ops.cuda import rescue as rk
     from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
     sb.reset_launches()
     bs.reset_launches()
     rk.reset_launches()
     dr.reset_launches()
+    build.reset_launches()
 
 
 def launches_now() -> dict:
     """Every kernel wrapper's launch count."""
     from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
     from water_sandbox_tpu_torch.ops.cuda import domain_rescue as dr
+    from water_sandbox_tpu_torch.ops.cuda import build
     from water_sandbox_tpu_torch.ops.cuda import rescue as rk
     from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
-    return {**sb.LAUNCHES, **bs.LAUNCHES, **rk.LAUNCHES, **dr.LAUNCHES}
+    return {**sb.LAUNCHES, **bs.LAUNCHES, **rk.LAUNCHES, **dr.LAUNCHES,
+            **build.LAUNCHES}
 
 
 def log(msg: str) -> None:
@@ -737,6 +754,96 @@ def rescue_kernels(label, cfg, params, state, record, sweep=()) -> None:
                 f"({rec['sweep_bound_by']}; {facts['tests']} distance-test "
                 f"flops) library_ms=none{zero_part} (n {n}, pairs within h "
                 f"of a rescued row {facts['p_h']})")
+
+
+def build_args(state, params, cfg) -> tuple:
+    """The inputs the sorted step hands the build after its sort
+    (``build.run_build``), recorded by patching the wrapper around one
+    eager step from ``state``: the carry is its two blocks, the positions
+    and the bit-cast ids."""
+    import water_sandbox_tpu_torch as wst
+    from water_sandbox_tpu_torch.ops.cuda import build
+    seen = []
+    real = build.run_build
+
+    def rec(*args):
+        seen.append(tuple(tuple(b.clone() for b in a) if isinstance(a, tuple)
+                          else a.clone() if isinstance(a, torch.Tensor)
+                          else a for a in args))
+        return real(*args)
+
+    build.run_build = rec
+    try:
+        wst.step(state, params, cfg)
+    finally:
+        build.run_build = real
+    check(len(seen) == 1, f"build: the step called the build {len(seen)} "
+          "times")
+    check([b.shape[1] for b in seen[0][4]] == [cfg.dim, 1],
+          f"build: carried blocks {[b.shape for b in seen[0][4]]}")
+    return seen[0]
+
+
+def build_bytes(args) -> int:
+    """Bytes the build after the sort moves at least: the planes written
+    whole, the rows read once and written sorted, the keys (4 B) and the
+    permutation (8 B) read, the addresses and the order written (4 B
+    each), the counts written."""
+    _, _, pred, _, carry, _, cap_p, L, _ = args
+    n, dim = pred.shape
+    width = 2 * dim + sum(b.shape[1] for b in carry)
+    return 4 * (2 * dim * cap_p * L + 2 * n * width + L) + 20 * n
+
+
+def phase_build(record, cfg, params, state100) -> None:
+    """The build's kernel (csrc/sph_build.cu, with the wrapper's two plane
+    fills and one memset) against the ATen chain (``build.build_plain``)
+    at reference-cube step 100 and the flagship's step 600, with the
+    sorted step's carry: bit for bit on all six outputs, one launch a
+    call; event ms and profiler device ms of the whole build after the
+    sort and of the kernel alone, the plain chain's, the bound from the
+    bytes."""
+    import water_sandbox_tpu_torch as wst
+    from water_sandbox_tpu_torch.ops.cuda import build
+    cfg3, params3, state3 = wst.scenes.build("moving-container-256k",
+                                             device="cuda")
+    state3 = wst.rollout(state3, params3, cfg3, 600)
+    for label, c, prm, st in (
+            ("reference-cube step 100", cfg, params, state100),
+            ("moving-container-256k step 600", cfg3, params3, state3)):
+        args = build_args(st, prm, c)
+        build.reset_launches()
+        got = build.run_build(*args)
+        want = build.build_plain(*args)
+        torch.cuda.synchronize()
+        check(build.LAUNCHES == {"sph_build": 1},
+              f"build {label}: launches {build.LAUNCHES}")
+        for name, a, b in zip(("planes", "counts", "flat", "order",
+                               "srows", "overflow"), got, want):
+            check(same_bits(a, b), f"build {label}: {name} differs from "
+                  "the plain chain")
+        nbytes = build_bytes(args)
+        b_ms, b_by = bound(0, nbytes)
+
+        def run():
+            return build.run_build(*args)
+
+        def plain():
+            return build.build_plain(*args)
+
+        rec = dict(max_abs_err=0.0, ms=cuda_ms(run),
+                   device_ms=device_ms(run, "sph_build_kernel"),
+                   all_device_ms=device_ms(run, ""), plain_ms=cuda_ms(plain),
+                   plain_device_ms=device_ms(plain, ""), bound_ms=b_ms,
+                   bound_by=b_by)
+        log(f"[build] {label}: bit-identical to the plain chain, 1 launch; "
+            f"kernel_ms (fills + kernel)={rec['ms']:.4f} device_ms (kernel)="
+            f"{fmt(rec['device_ms'])} device_ms (fills + kernel)="
+            f"{fmt(rec['all_device_ms'])} plain_ms={rec['plain_ms']:.4f} "
+            f"its device_ms={fmt(rec['plain_device_ms'])} bound_ms="
+            f"{b_ms:.3e} ({b_by}: {nbytes} B) library_ms=none (n "
+            f"{args[2].shape[0]}, overflow {int(got[5])})")
+        record.setdefault("sph_build", {})[label] = rec
 
 
 def phase_rescue_flagship(cfg, params, state, record) -> None:
@@ -2095,7 +2202,7 @@ def phase_incremental(record, paths) -> None:
     check(rescued8 == 10, f"incremental cap 8: the rescue ran on {rescued8} "
           "of 10 steps")
     check_launches("reference-cube incremental cap 8", launches, 10,
-                   rescued8)
+                   rescued8, rebuilt8)
     check(bool(torch.isfinite(sim8.state.pos).all()),
           "incremental cap 8: non-finite")
     paths["reference-cube incremental cap 8"] = (launches, 10)
@@ -2116,7 +2223,7 @@ def phase_incremental(record, paths) -> None:
     check(captured is not None and sim.graph.graph is captured,
           "incremental: Simulation.run did not replay its first capture")
     check_launches("reference-cube incremental", launches, steps,
-                   rescue_steps)
+                   rescue_steps, rebuilt)
     paths["reference-cube incremental"] = (launches, steps)
     s = sim.state
     check(bool(torch.isfinite(s.pos).all()), "incremental: non-finite")
@@ -3051,14 +3158,17 @@ from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
 from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
 from water_sandbox_tpu_torch.ops.cuda import rescue as rk
 from water_sandbox_tpu_torch.ops.cuda import domain_rescue as dr
+from water_sandbox_tpu_torch.ops.cuda import build
 sb.reset_launches()
 bs.reset_launches()
 rk.reset_launches()
 dr.reset_launches()
+build.reset_launches()
 sys.argv = sys.argv[1:]
 runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
 print("[launches] " + json.dumps({**sb.LAUNCHES, **bs.LAUNCHES,
-                                  **rk.LAUNCHES, **dr.LAUNCHES}))
+                                  **rk.LAUNCHES, **dr.LAUNCHES,
+                                  **build.LAUNCHES}))
 """
 
 ROOT = Path(__file__).resolve().parent
@@ -3087,16 +3197,24 @@ def run_front(module: str, *argv: str, timeout: float = 600.0):
 
 
 def check_launches(path: str, launches: dict, steps: int,
-                   rescue_steps: int | None = None) -> None:
-    """The four main-path kernels once a step (the density and force
-    kernels and both halves of the rescue, which gate themselves on the
-    device), the sort never. The incremental path launches the rescue's
-    two only inside its drop-step branch, on the ``rescue_steps`` steps
-    that have dropped particles (the graph's device counts)."""
+                   rescue_steps: int | None = None,
+                   rebuilt: int | None = None) -> None:
+    """The five main-path kernels once a step (the build's, the density
+    and force kernels and both halves of the rescue, which gate themselves
+    on the device), the sort never. The incremental path (one ``run()``,
+    ``rescue_steps`` and ``rebuilt`` given, from the graph's device counts)
+    launches the rescue's two only inside its drop-step branch, on the
+    steps that have dropped particles, and the build once on entry (the
+    cache built from the state) and once a rebuild step."""
     for k in STEP_KERNELS:
-        want = (steps if rescue_steps is None or k in ("sph_density",
-                                                       "sph_force")
-                else rescue_steps)
+        if rescue_steps is None:
+            want = steps
+        elif k == "sph_build":
+            want = rebuilt + 1
+        elif k in ("sph_density", "sph_force"):
+            want = steps
+        else:
+            want = rescue_steps
         check(launches[k] == want,
               f"{path}: {k} launched {launches[k]} times in {steps} steps "
               f"(expected {want})")
@@ -3207,11 +3325,12 @@ def phase_profile(paths: dict) -> None:
     """runtime/profiling.py's device_trace around 5 steps of
     Simulation.from_scene("reference-cube").run after 5 of warm-up, five
     replays of the captured step: the trace must hold each of the step's
-    four kernels (K1, K2, R1, R2) 5 times. The launch counts on a replayed
-    path are the capture's counts times the replays, so this trace is what
-    shows the replays run every kernel. The replays also carry the step's
-    phase markers (``profiling.phase``), six a step in order, and no
-    program span (``wst.*``, host only) is among the device's events."""
+    five kernels (the build's, K1, K2, R1, R2) 5 times. The launch counts
+    on a replayed path are the capture's counts times the replays, so this
+    trace is what shows the replays run every kernel. The replays also
+    carry the step's phase markers (``profiling.phase``), six a step in
+    order, and no program span (``wst.*``, host only) is among the device's
+    events."""
     import water_sandbox_tpu_torch as wst
     from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
     from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
@@ -3246,8 +3365,9 @@ def phase_profile(paths: dict) -> None:
           "profile: no wst.run span")
     # the names may be mangled C++ names: match the kernel's name inside
     found = {k: [e for e in events if k in e["name"]]
-             for k in ("sph_density_kernel", "sph_force_kernel",
-                       "rescue_density_kernel", "rescue_force_kernel")}
+             for k in ("sph_build_kernel", "sph_density_kernel",
+                       "sph_force_kernel", "rescue_density_kernel",
+                       "rescue_force_kernel")}
     for k, evs in found.items():
         check(len(evs) == 5, f"profile: {k} {len(evs)} times in the trace "
               f"of {len(events)} kernels (first names: "
@@ -3863,6 +3983,9 @@ def main() -> int:
                      record, crossing=True)
     phase_rescue_flagship(cfg3, params3, state3, record)
     del state3
+
+    # 3b. the build after the sort against its plain version
+    phase_build(record, cfg, params, state100)
 
     # 4. exact rescue on the card, its kernels against their plain versions
     phase_rescue(state100, record)

@@ -1,7 +1,8 @@
 """The port's bucket build against the JAX package's, bit for bit: planes,
 counts, sorted-row addresses, sort order, sorted rows (with a carry) and
-overflow — at n = 500 with cell capacity 4, so capacity-overflow sentinels
-are present — and the helpers around the kernels."""
+overflow — at n = 500 with cell capacities 1 and 4, so capacity-overflow
+sentinels are present, and 8, which no cell's run passes — and the helpers
+around the kernels."""
 
 import dataclasses
 
@@ -17,6 +18,7 @@ from water_sandbox_tpu.core.params import Container as JContainer
 from water_sandbox_tpu.ops.pallas import sph_bucket as jsb
 from water_sandbox_tpu_torch.core import convert
 from water_sandbox_tpu_torch.core.params import SimConfig
+from water_sandbox_tpu_torch.ops.cuda import build
 from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
 
 
@@ -37,9 +39,14 @@ def _case(frame="world", n=500, cap=4, seed=11):
     return pred, vel, jparams, jcfg, params, cfg
 
 
+@pytest.mark.parametrize("cap, overflows", [(1, True), (4, True),
+                                             (8, False)])
 @pytest.mark.parametrize("frame", ["world", "container"])
-def test_build_core_bit_identical(frame):
-    pred, vel, jparams, jcfg, params, cfg = _case(frame)
+def test_build_core_bit_identical(frame, cap, overflows):
+    """With the sorted step's carry (positions and bit-cast ids, two
+    blocks), at capacities whose runs are longer than cap (1, 4) and one
+    that no run passes (8)."""
+    pred, vel, jparams, jcfg, params, cfg = _case(frame, cap=cap)
     n = pred.shape[0]
     ids = np.random.default_rng(3).permutation(n).astype(np.int32)
     pos = pred + np.float32(0.01)
@@ -50,9 +57,8 @@ def test_build_core_bit_identical(frame):
         axis=1)
     want = jsb._build_core(jnp.asarray(pred), jnp.asarray(vel), jparams,
                            jcfg, carry=jcarry, time=jnp.asarray(t))
-    tcarry = torch.cat([torch.from_numpy(pos),
-                        torch.from_numpy(ids).view(torch.float32)[:, None]],
-                       dim=1)
+    tcarry = (torch.from_numpy(pos),
+              torch.from_numpy(ids).view(torch.float32)[:, None])
     got = sb._build_core(torch.from_numpy(pred), torch.from_numpy(vel),
                          params, cfg, carry=tcarry, time=torch.tensor(t))
     names = ("planes", "counts", "flat", "order", "srows", "overflow")
@@ -62,7 +68,7 @@ def test_build_core_bit_identical(frame):
         # bit patterns, so the bit-cast ids in srows compare exactly too
         np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32),
                                       err_msg=name)
-    assert int(got[5]) > 0, "the case must exercise overflow sentinels"
+    assert (int(got[5]) > 0) == overflows
     cap_pl = sb._cap_pad(cfg.cell_capacity) * sb._geometry(cfg).L
     assert (got[2].numpy() == cap_pl).sum() == int(got[5])
     # ids ride the row gather: the carried ids are the permuted ids
@@ -82,6 +88,38 @@ def test_build_slab_buckets_bit_identical():
         np.testing.assert_array_equal(a.numpy(), np.asarray(b),
                                       err_msg=name)
     assert int(got[3]) > 0
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32).numpy()
+
+
+@pytest.mark.parametrize("carry", ["none", "two blocks"])
+def test_build_wrapper_on_cpu_is_the_plain_chain(carry):
+    """On CPU tensors the build's wrapper (``build.run_build``) is
+    ``build_plain`` and launches nothing, without a carry and with the
+    sorted step's (positions and bit-cast ids, two blocks), whose columns
+    ride the row gather in order."""
+    pred, vel, _, _, params, cfg = _case()
+    p, v = torch.from_numpy(pred), torch.from_numpy(vel)
+    ids = torch.from_numpy(
+        np.random.default_rng(3).permutation(pred.shape[0]).astype(np.int32))
+    blocks = {"none": (),
+              "two blocks": (p + 0.01, ids.view(torch.float32)[:, None])}[
+                  carry]
+    build.reset_launches()
+    got = sb._build_core(p, v, params, cfg, carry=blocks)
+    g = sb._geometry(cfg)
+    order = got[3].long()
+    args = (got[6], order, p, v, blocks, cfg.cell_capacity,
+            sb._cap_pad(cfg.cell_capacity), g.L, g.PAD)
+    direct = build.run_build(*args)
+    assert build.LAUNCHES == {"sph_build": 0}
+    for a, b, c in zip(direct, build.build_plain(*args), got):
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+        np.testing.assert_array_equal(_bits(a), _bits(c))
+    np.testing.assert_array_equal(
+        _bits(got[4]), _bits(torch.cat([p, v, *blocks], dim=1)[order]))
 
 
 def test_stable_sort_ties_follow_row_order():

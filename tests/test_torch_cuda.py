@@ -1,8 +1,9 @@
 """The port's CUDA kernels on a CUDA device: each kernel against its plain
-PyTorch version (the rescue's two kernels too), one main-path step on the
-card against the same step on the CPU (plain versions), and the step
-captured as a CUDA graph against the eager step. Without a CUDA device each test skips (the
-``cuda_device`` fixture decides, at run time). This file imports no JAX, so
+PyTorch version (the rescue's two kernels and the build's too), one
+main-path step on the card against the same step on the CPU (plain
+versions), and the step captured as a CUDA graph against the eager step.
+Without a CUDA device each test skips (the ``cuda_device`` fixture decides,
+at run time). This file imports no JAX, so
 it also runs where JAX is absent:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -199,10 +200,13 @@ def test_step_matches_cpu(cuda_device):
                                          sorted_state=True,
                                          rescue_capacity=64)
     state = wt.rollout(state, params, cfg, 20)
+    from water_sandbox_tpu_torch.ops.cuda import build
     sb.reset_launches()
+    build.reset_launches()
     got = wt.step(state.to(cuda_device), params.to(cuda_device), cfg)
     torch.cuda.synchronize()
     assert sb.LAUNCHES == {"sph_density": 1, "sph_force": 1}
+    assert build.LAUNCHES == {"sph_build": 1}
     want = wt.step(state, params, cfg)
     np.testing.assert_array_equal(got.ids.cpu().numpy(), want.ids.numpy())
     for f in ("pos", "vel", "acc", "density", "near_density", "pressure"):
@@ -341,6 +345,103 @@ def test_wrappers_refuse_mixed_devices(cuda_device):
 def _same_bits(a, b):
     """Bit for bit (the planes' unwritten slots may hold NaN)."""
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _record_build(monkeypatch):
+    """Patch the build's wrapper (``ops/cuda/build.py::run_build``) to keep
+    a copy of every call's inputs and outputs, as (inputs, outputs)."""
+    from water_sandbox_tpu_torch.ops.cuda import build
+    calls = []
+    real = build.run_build
+
+    def rec(*args):
+        ins = [tuple(_cloned(b) for b in a) if isinstance(a, tuple)
+               else _cloned(a) for a in args]
+        out = real(*args)
+        calls.append((ins, tuple(_cloned(t) for t in out)))
+        return out
+
+    monkeypatch.setattr(build, "run_build", rec)
+    return calls
+
+
+def _hold_build(got, args):
+    """``_build_core``'s seven outputs, made by the build's kernel, against
+    the plain chain (``build_plain``) on the kernel's inputs ``args``, bit
+    for bit."""
+    from water_sandbox_tpu_torch.ops.cuda import build
+    want = (*build.build_plain(*args), args[0])
+    for name, a, b in zip(("planes", "counts", "flat", "order", "srows",
+                           "overflow", "sorted_col"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert _same_bits(a, b), name
+
+
+@pytest.mark.parametrize("carry", [False, True])
+@pytest.mark.parametrize("cap", [3, 96])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_build_kernel_matches_plain(cuda_device, monkeypatch, dim, cap,
+                                    carry):
+    """The build's kernel (csrc/sph_build.cu) against the plain chain on
+    the same sort, bit for bit on all seven outputs: 3,001 rows (not a
+    multiple of the kernel's 256-row block), at a capacity that overflows
+    (runs longer than cap) and one that does not, with the sorted step's
+    carry (positions and bit-cast ids, two blocks) and without; then the
+    same keys with one row's position NaN, which holds its slot and is left
+    out of its lane's count."""
+    from water_sandbox_tpu_torch.ops.cuda import build
+    rng = np.random.default_rng(20 + dim + cap)
+    n = 3001
+    pred = ((rng.random((n, dim)) - 0.5) * 2.0).astype(np.float32)
+    vel = rng.standard_normal((n, dim)).astype(np.float32)
+    params = wt.SimParams.create(dim=dim, device=cuda_device)
+    cfg = SimConfig(n=n, dim=dim, grid_dims=(14,) * dim, cell_capacity=cap)
+    p, v = (torch.from_numpy(pred).to(cuda_device),
+            torch.from_numpy(vel).to(cuda_device))
+    blocks = ()
+    if carry:
+        ids = torch.from_numpy(rng.permutation(n).astype(np.int32))
+        blocks = (p + 0.01, ids.to(cuda_device).view(torch.float32)[:, None])
+    calls = _record_build(monkeypatch)
+    build.reset_launches()
+    got = sb._build_core(p, v, params, cfg, carry=blocks)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES == {"sph_build": 1}
+    _hold_build(got, calls[0][0])
+    assert (int(got[5]) > 0) == (cap == 3)
+    assert int(got[4].shape[1]) == 2 * dim + (dim + 1 if carry else 0)
+
+    sorted_col, order, _, v_, carry_, *geom = calls[0][0]
+    L = sb._geometry(cfg).L
+    held = (got[2] < sb._cap_pad(cap) * L).nonzero()[:, 0]
+    row = int(order[held[len(held) // 2]])         # a row with a slot
+    p_nan = p.clone()
+    p_nan[row, 0] = float("nan")
+    args = [sorted_col, order, p_nan, v_, carry_, *geom]
+    nan_got = build.run_build(*args)
+    torch.cuda.synchronize()
+    _hold_build((*nan_got, sorted_col), args)
+    assert float(nan_got[1].sum()) == float(got[1].sum()) - 1
+
+
+def test_build_kernel_matches_plain_at_the_settled_flagship(cuda_device,
+                                                            monkeypatch):
+    """The build's kernel against the plain chain bit for bit at the
+    flagship's state after 600 steps, on the call the sorted step makes
+    (its inputs and outputs recorded in one eager step): the carry is the
+    positions and the bit-cast ids, two blocks."""
+    cfg, params, state = wt.scenes.build("moving-container-256k",
+                                         device=cuda_device)
+    state = wt.rollout(state, params, cfg, 600)
+    calls = _record_build(monkeypatch)
+    wt.step(state, params, cfg)
+    torch.cuda.synchronize()
+    assert len(calls) == 1
+    args, out = calls[0]
+    assert [tuple(b.shape) for b in args[4]] == [(cfg.n, 3), (cfg.n, 1)]
+    _hold_build((*out, args[0]), args)
+    assert out[0].shape[1:] == (sb._cap_pad(cfg.cell_capacity),
+                                sb._geometry(cfg).L)
 
 
 def _crowded_rescue(device, dim):
@@ -540,17 +641,21 @@ def test_captured_rollout_matches_eager(cuda_device):
             s = wt.step(s, params, cfg)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+    from water_sandbox_tpu_torch.ops.cuda import build
     sb.reset_launches()
+    build.reset_launches()
     got = wt.rollout(state, params, cfg, 6)
     torch.cuda.synchronize()
     for f in ("pos", "vel", "density", "ids", "acc", "overflow_total"):
         assert torch.equal(getattr(got, f), getattr(s, f)), f
     assert float(s.overflow_total) > 0
     assert sb.LAUNCHES == {"sph_density": 6, "sph_force": 6}
+    assert build.LAUNCHES == {"sph_build": 6}
     g = graph.StepGraph(state.clone(), params, cfg)
     g.run(1)
-    assert g.per_replay == {"sph_density": 1, "sph_force": 1,
-                            "sph_rescue_density": 1, "sph_rescue_force": 1}
+    assert g.per_replay == {"sph_build": 1, "sph_density": 1,
+                            "sph_force": 1, "sph_rescue_density": 1,
+                            "sph_rescue_force": 1}
     sim = wt.Simulation(cfg, params, state)
     sim.run(3)
     sim.tune(viscosity_strength=0.5)

@@ -1,12 +1,14 @@
 """Bucket-grid SPH on the GPU — the counterpart of
 ``water_sandbox_tpu/ops/pallas/sph_bucket.py``.
 
-* Build (torch ops): cell keys, one stable sort carrying the permutation,
-  running-max slot ranks, one row gather, the slot-major "stack" scatter of
-  the feature planes, per-lane occupancy counts. The layout is the JAX
-  package's slab-padded ``Geom``: flat lane ``PAD + x·S_pad + y·gz + z``,
-  planes ``(2·dim, cap_p, L)`` with ``_FAR`` in empty position slots, so
-  planes, counts, addresses and order compare with JAX bit for bit.
+* Build: cell keys and one stable sort carrying the permutation (torch
+  ops), then slot ranks, one row gather, the slot-major scatter of the
+  feature planes and per-lane occupancy counts (``build.run_build``: one
+  kernel, ``csrc/sph_build.cu``, on CUDA; the ATen chain on the CPU). The
+  layout is the JAX package's slab-padded ``Geom``: flat lane ``PAD +
+  x·S_pad + y·gz + z``, planes ``(2·dim, cap_p, L)`` with ``_FAR`` in empty
+  position slots, so planes, counts, addresses and order compare with JAX
+  bit for bit.
 * Kernels: ``run_density`` (``csrc/sph_density.cu``) and ``run_force``
   (``csrc/sph_force.cu``), hand-written CUDA for Hopper. Each wrapper runs
   its plain PyTorch version (``density_plain`` / ``force_plain``) for CPU
@@ -151,26 +153,28 @@ def _scatter_planes(srows: torch.Tensor, flat: torch.Tensor, dim: int,
     return torch.stack(out)
 
 
-def _build_core(predicted, vel, params, cfg: SimConfig, carry=None,
+def _build_core(predicted, vel, params, cfg: SimConfig, carry=(),
                 origin=None, time=None):
-    """The bucket build, scattering directly into the kernels' layout.
+    """The bucket build, scattering directly into the kernels' layout: the
+    cell keys and their stable sort here, the rest in ``build.run_build``
+    (one kernel on CUDA, the ATen chain on the CPU).
 
-    ``carry`` appends (n, k) f32 columns that ride the sorted row gather but
-    are not scattered into planes. ``origin`` pins the grid anchor instead
-    of deriving it from the data (the incremental step keeps it frozen
-    between rebuilds so cell keys stay comparable). ``time`` poses the box
-    for container-frame keys.
+    ``carry`` is a sequence of (n, k) f32 column blocks that ride the sorted
+    row gather, in order, but are not scattered into planes (the kernel
+    reads each where it lies, with no concatenation). ``origin``
+    pins the grid anchor instead of deriving it from the data (the
+    incremental step keeps it frozen between rebuilds so cell keys stay
+    comparable). ``time`` poses the box for container-frame keys.
 
     Returns (planes (2·dim, cap_p, L), counts (1, L) f32, flat (n,) i32 each
     SORTED row's plane address — cap_p·L for capacity-overflow rows —,
     order (n,) i32 the sort permutation, srows (n, 2·dim + k), overflow ()
     i32, sorted_col (n,) i32 each sorted row's column, non-decreasing: the
     cell order the rescue's kernels walk)."""
-    n, dim = predicted.shape
+    dim = predicted.shape[1]
     h = params.smoothing_radius
     cap = cfg.cell_capacity
     g = _geometry(cfg)
-    dev = predicted.device
 
     kpred = hashing.key_coords(predicted, params, cfg, time)
     if origin is None:
@@ -188,25 +192,9 @@ def _build_core(predicted, vel, params, cfg: SimConfig, carry=None,
 
     # stable: ties keep ascending row order, as jax.lax.sort((col, iota))
     sorted_col, order = torch.sort(col, stable=True)
-    ranks = torch.arange(n, dtype=torch.int32, device=dev)
-    first = torch.ones(n, dtype=torch.bool, device=dev)
-    first[1:] = sorted_col[1:] != sorted_col[:-1]
-    run_start = torch.cummax(torch.where(first, ranks, 0), dim=0).values
-    slot = ranks - run_start
-    cap_p = _cap_pad(cap)
-    ok = slot < cap
-    flat = torch.where(ok, slot * g.L + g.PAD + sorted_col, cap_p * g.L)
-
-    feats = [predicted, vel] + ([carry] if carry is not None else [])
-    srows = torch.cat(feats, dim=1)[order]            # ONE row gather
-
-    planes = _scatter_planes(srows[:, :2 * dim], flat, dim, cap_p, g.L)
-    # occupied slots per lane, from the position plane (slots fill from 0)
-    counts = (planes[0] < _FAR * 0.5).sum(
-        dim=0, dtype=predicted.dtype)[None, :]
-    overflow = (n - ok.sum()).to(torch.int32)
-    return (planes, counts, flat, order.to(torch.int32), srows, overflow,
-            sorted_col)
+    from . import build
+    return (*build.run_build(sorted_col, order, predicted, vel, carry, cap,
+                             _cap_pad(cap), g.L, g.PAD), sorted_col)
 
 
 def _particle_addr(flat, order):
@@ -623,14 +611,15 @@ def bucket_sph_sorted(pos, vel, predicted, ids, params: SimParams,
                       coeffs: KernelCoeffs, cfg: SimConfig, time=None):
     """``bucket_sph`` for the sorted-state step: every result comes back in
     THIS step's bucket order with the same-order (pos, vel, ids) rows. pos
-    and ids (bit-cast int32 → f32) ride the build's one row gather.
+    and ids (bit-cast int32 → f32) ride the build's one row gather, as two
+    carried blocks.
 
     Returns (den, nden, prs, nprs, acc, unrescued, s_pos, s_vel, s_ids)."""
     dim = cfg.dim
     L = _geometry(cfg).L
-    carry = torch.cat([pos, ids.view(torch.float32)[:, None]], dim=1)
     planes, counts, flat, _, srows, overflow, sorted_col = _build_core(
-        predicted, vel, params, cfg, carry=carry, time=time)
+        predicted, vel, params, cfg,
+        carry=(pos, ids.view(torch.float32)[:, None]), time=time)
     dropped = flat == _cap_pad(cfg.cell_capacity) * L
     s_pred = srows[:, :dim]
     s_vel = srows[:, dim:2 * dim]
