@@ -6,7 +6,13 @@ driven by its traffic file's parameters.
 and captures the step); the window enqueues ``Simulation.run`` replays in
 chunks of ``chunk``, keeping one chunk in flight, until ``--seconds`` have
 passed and every sample is taken, and stops the clock at a final
-synchronisation.
+synchronisation. With ``reset_every`` (steps, a whole number of chunks) the
+user drops the scene again and again: set-up ends with
+``Simulation.reset``, so the window starts at a drop; the window enqueues
+a reset between replays every ``reset_every`` steps and ends with a whole
+drop. The rows the program's rescue took in over the window (its graph's
+``rescued`` counter, added up on the device before each reset zeroes it)
+are read once, after the final synchronisation.
 
 ``loop: "open"`` (an interactive user): one frame is due every
 1 / ``rate_hz`` seconds; a frame applies the reset or the HUD key due at
@@ -22,13 +28,17 @@ seed presses the same keys in another order and a parameter moves by one
 step at most.
 
 Correctness samples are drawn from the seed (``samples`` of them): in the
-closed loop at chunk boundaries at times drawn over the window, in the
-open loop among the frames, with at least one first step after a reset,
-two from the ``landing`` range of steps after a reset, and one frame with
+closed loop at times drawn over the window, at the first chunk boundary
+after each time, or with ``reset_every`` in the first drop that starts
+after it, at a step of the drop drawn as the open loop draws its frames;
+in the open loop among the frames. Drawn steps of a drop, like the open
+loop's frames, hold at least one first step after a reset and two from the
+``landing`` range of steps after a reset; the open loop's, one frame with
 a key. A sample keeps the program's state before and after its step, and
 the frame's reads. With ``--trace 1`` a span of the window
 (``trace_from_chunk`` / ``trace_chunks``, ``trace_from_frame`` /
 ``trace_frames``) runs under the profiler; samples are not taken there.
+With ``reset_every`` the traced span is whole drops from a reset.
 """
 
 from __future__ import annotations
@@ -77,6 +87,8 @@ class Run:
     pairs: list = dataclasses.field(default_factory=list)
     memory_peak_bytes: int = 0
     power: str = "not measured"
+    rescued_rows: int | None = None     # the closed loop's, over the window
+    resets: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +96,14 @@ class Plan:
     keys: dict
     resets: frozenset
     samples: tuple
+
+
+def _take(rng, picks: list, pool, k: int) -> None:
+    """Add ``k`` picks drawn from ``pool`` that ``picks`` does not hold."""
+    pool = [f for f in pool if f not in picks]
+    if pool:
+        picks.extend(int(f) for f in rng.choice(pool, min(k, len(pool)),
+                                                replace=False))
 
 
 def plan(tr: dict, seed: int, frames: int) -> Plan:
@@ -102,17 +122,50 @@ def plan(tr: dict, seed: int, frames: int) -> Plan:
     resets = frozenset(f for f in range(1, frames) if f % every == 0)
     lo, hi = tr["landing"]
     picks: list = []
-
-    def take(pool, k):
-        pool = [f for f in pool if f not in picks]
-        if pool:
-            picks.extend(int(f) for f in rng.choice(pool, min(k, len(pool)),
-                                                    replace=False))
-    take([f for f in range(frames) if f % every == 0], 1)
-    take([f for f in range(frames) if lo <= f % every < hi], 2)
-    take(slots, 1)
-    take(range(frames), tr["samples"] - len(picks))
+    _take(rng, picks, [f for f in range(frames) if f % every == 0], 1)
+    _take(rng, picks, [f for f in range(frames) if lo <= f % every < hi], 2)
+    _take(rng, picks, slots, 1)
+    _take(rng, picks, range(frames), tr["samples"] - len(picks))
     return Plan(keys, resets, tuple(sorted(picks)))
+
+
+def drop_steps(tr: dict, seed: int) -> list:
+    """The closed loop's sampled steps of a drop (steps since a reset) for
+    ``seed``, one a sample, in the order the samples come due: the first
+    step, two from ``landing`` and the rest over the drop."""
+    rng = np.random.default_rng([int(seed), 13])
+    every = tr["reset_every"]
+    lo, hi = tr["landing"]
+    picks: list = []
+    _take(rng, picks, [0], 1)
+    _take(rng, picks, range(lo, hi), 2)
+    _take(rng, picks, range(every), tr["samples"] - len(picks))
+    return [int(f) for f in rng.permutation(picks)]
+
+
+def check_traffic(tr: dict) -> None:
+    """Refuse a closed loop's ``reset_every`` that is not a whole number
+    of chunks or holds fewer steps than ``samples``, a ``landing`` outside
+    a drop, or a traced span that is not whole drops from a reset."""
+    if tr["loop"] != "closed" or "reset_every" not in tr:
+        return
+    every, chunk = tr["reset_every"], tr["chunk"]
+    if every <= 0 or every % chunk:
+        raise ValueError(f"reset_every {every} is not a whole number of "
+                         f"chunks of {chunk} steps")
+    if tr["samples"] > every:
+        raise ValueError(f"{tr['samples']} samples do not fit distinct "
+                         f"steps of a drop of {every}")
+    lo, hi = tr["landing"]
+    if not 0 <= lo < hi <= every:
+        raise ValueError(f"landing {[lo, hi]} lies outside a drop of "
+                         f"{every} steps")
+    if ((tr["trace_from_chunk"] * chunk) % every
+            or (tr["trace_chunks"] * chunk) % every
+            or tr["trace_chunks"] <= 0):
+        raise ValueError(f"the traced span (chunks {tr['trace_from_chunk']}"
+                         f" + {tr['trace_chunks']} of {chunk} steps) is not "
+                         f"whole drops of {every} steps from a reset")
 
 
 class Snapshots:
@@ -156,6 +209,7 @@ def setup(cell, seed: int, device) -> tuple:
     inputs (0 when the constructors keep them exactly); buffers for the
     window's samples and the traced span's two states."""
     conf, tr = cell.config, cell.traffic
+    check_traffic(tr)
     pos = inputs.start_positions(conf, seed, device)
     sim = inputs.simulation(conf, pos.clone(), conf["name"])
     s = sim.state
@@ -169,6 +223,8 @@ def setup(cell, seed: int, device) -> tuple:
     if tr["loop"] == "closed":
         sim.run(tr["settle_steps"])
         _bad(s, s.overflow_total.clone())
+        if "reset_every" in tr:
+            sim.reset()
     else:
         sim.run(1)
         for name in tr["reads"]:
@@ -197,14 +253,21 @@ def closed(sim, tr: dict, seconds: float, seed: int, trace: bool,
            run: Run, snaps: Snapshots) -> None:
     cuda = sim.device.type == "cuda"
     chunk = tr["chunk"]
+    every = tr.get("reset_every")
     rng = np.random.default_rng([int(seed), 7])
     due = sorted(rng.uniform(0.0, seconds, tr["samples"]).tolist())
+    where = drop_steps(tr, seed) if every else None
     t_from = tr["trace_from_chunk"] if trace else -1
     t_end = t_from + tr["trace_chunks"] if trace else -1
     s = sim.state
     last = s.overflow_total.clone()
     failed = torch.zeros((), dtype=torch.int64, device=sim.device)
+    rescued = sim.graph.rescued
+    # the rows rescued in the window: the counter's start taken off, and
+    # each drop's count added before its reset zeroes the counter
+    held = rescued.neg()
     covered, steps, c = 0, 0, 0
+    todo: list = []          # sampled steps of this chunk or drop, ascending
 
     def check():
         failed.add_(_bad(s, last).long() * covered)
@@ -214,24 +277,49 @@ def closed(sim, tr: dict, seconds: float, seed: int, trace: bool,
     t0 = time.perf_counter()
     while True:
         now = time.perf_counter() - t0
-        if now >= seconds and not due and not (trace and c < t_end):
+        if (now >= seconds and not due and not todo
+                and not (trace and c < t_end)
+                and not (every and steps % every)):
             break
+        tracing = t_from <= c < t_end
+        if every and steps % every == 0:
+            if steps:
+                if covered:
+                    check()
+                    covered = 0
+                held.add_(rescued)
+                sim.reset()
+                last.copy_(s.overflow_total)
+                run.resets += 1
+            while not tracing and due and now >= due[0]:
+                due.pop(0)
+                todo.append(where.pop(0))
+            todo.sort()
+        elif not every and not tracing and due and now >= due[0]:
+            due.pop(0)
+            todo.append(tr["settle_steps"] + steps)
         if c == t_from:
             check()
             covered = 0
             run.traced_pred.append(snaps.take(s))
             run.prof = stack.enter_context(traced())
-        tracing = t_from <= c < t_end
-        if not tracing and due and now >= due[0]:
-            due.pop(0)
+        # steps since the last reset, or since the start without resets
+        at = steps % every if every else tr["settle_steps"] + steps
+        done = 0
+        while todo and todo[0] < at + chunk:
+            k = todo.pop(0) - at
+            if k > done:
+                sim.run(k - done, block=False)
             pre = snaps.take(s)
             sim.run(1, block=False)
-            run.samples.append(Sample(c, tr["settle_steps"] + steps, [], pre,
-                                      snaps.take(s), {}, {}))
-            sim.run(chunk - 1, block=False)
-        else:
+            run.samples.append(Sample(c, at + k, [], pre, snaps.take(s), {},
+                                      {}))
+            done = k + 1
+        if done == 0:
             with _label("sphbench.chunk", tracing):
                 sim.run(chunk, block=False)
+        elif done < chunk:
+            sim.run(chunk - done, block=False)
         steps += chunk
         covered += chunk
         c += 1
@@ -254,6 +342,7 @@ def closed(sim, tr: dict, seconds: float, seed: int, trace: bool,
     check()
     run.steps = run.attempted = steps
     run.failed = int(failed)
+    run.rescued_rows = int(held + rescued)
     for sm in run.samples:
         sm.params = _params(sim)
 

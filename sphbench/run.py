@@ -91,6 +91,9 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     log(f"[run] {cell.name} seed {seed}: {run.attempted} attempted, "
         f"{run.failed} failed, {run.steps} steps in {run.wall_s:.3f} s, "
         f"setup {run.setup_s:.3f} s, peak {run.memory_peak_bytes} B")
+    if run.rescued_rows is not None:
+        log(f"[run] {run.rescued_rows} rows rescued in the window, "
+            f"{run.resets} resets")
     if run.frame_ms:
         q = statistics.quantiles(run.frame_ms, n=100, method="inclusive")
         log(f"[run] frame ms p50 {q[49]:.4f} p90 {q[89]:.4f} p95 {q[94]:.4f}"

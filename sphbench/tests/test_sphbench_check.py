@@ -5,6 +5,7 @@ underneath, which the check has to call not correct."""
 
 import copy
 import json
+import sys
 import time
 from pathlib import Path
 
@@ -145,14 +146,36 @@ PARKED = {"cube.frames60": ("reference-cube", "frames60",
                             [{"name": "frame_ms_p95", "unit": "ms"},
                              {"name": "setup_s", "unit": "s"}])}
 
+# The upstream cube dropped again and again: the closed loop with a reset
+# every 300 steps, its traffic here and its limits the cube's numbers of
+# the closed loop (no cell runs it yet).
+DROP = {"loop": "closed", "settle_steps": 50, "chunk": 50,
+        "reset_every": 300, "landing": [65, 85], "samples": 6,
+        "trace_from_chunk": 0, "trace_chunks": 6}
+CLOSED_NUMBERS = ("start", "params", "clock", "density", "acc", "pos", "vel")
+
 
 def _load_cell(workload):
+    if workload == "cube.drop":
+        limits = _load("limits/cube.frames60.json")
+        return cell_mod.Cell(
+            workload, 1, _load("configs/reference-cube.json"), dict(DROP),
+            {k: limits[k] for k in CLOSED_NUMBERS},
+            [{"name": "ms_per_step", "unit": "ms"},
+             {"name": "setup_s", "unit": "s"}], [])
     if workload not in PARKED:
         return cell_mod.load(workload, ROOT)
     config, traffic, e2e = PARKED[workload]
     return cell_mod.Cell(workload, 1, _load(f"configs/{config}.json"),
                          _load(f"traffic/{traffic}.json"),
                          _load(f"limits/{workload}.json"), e2e, [])
+
+
+# The drop at a test's size: the cube lands near step 12 of a 20-step drop
+# (lowered 1 m in the box), with cells of capacity 3, so the rescue takes
+# rows in at the start and in the landing.
+SMALL_DROP = {"settle_steps": 5, "chunk": 5, "reset_every": 20,
+              "landing": [10, 15], "trace_from_chunk": 0, "trace_chunks": 4}
 
 
 def _cell(workload):
@@ -163,6 +186,10 @@ def _cell(workload):
     if tr["loop"] == "open":
         tr.update(reset_every=20, landing=[5, 10], key_every=6, key_phase=3,
                   trace_from_frame=4, trace_frames=3)
+    elif "reset_every" in tr:
+        tr.update(SMALL_DROP)
+        conf["lattice_center"] = [0.0, -1.0, 0.0]
+        conf["sim_config"]["cell_capacity"] = 3
     else:
         tr.update(settle_steps=5, chunk=5)
     return cell_mod.Cell(c.name, c.chips, conf, tr, c.limits, c.end_to_end,
@@ -175,7 +202,8 @@ def _run(workload, seconds=0.5, control=False):
                     time.perf_counter(), control=control)
 
 
-@pytest.mark.parametrize("workload", ["flagship.settled", "cube.frames60"])
+@pytest.mark.parametrize("workload", ["flagship.settled", "cube.frames60",
+                                      "cube.drop"])
 def test_a_sound_run_is_correct_and_its_control_is_not(workload):
     out = _run(workload, control=True)
     assert out["correct"], out["checks"]
@@ -222,17 +250,229 @@ def _altered(real):
     return step
 
 
-@pytest.mark.parametrize("workload", ["flagship.settled", "cube.frames60"])
+def _in_landing(real, broken):
+    """The step broken only in the small drop's landing."""
+    lo, hi = SMALL_DROP["landing"]
+
+    def step(state, params, cfg):
+        if lo <= int(state.step_count) < hi:
+            return broken(state, params, cfg)
+        return real(state, params, cfg)
+    return step
+
+
+@pytest.mark.parametrize("workload", ["flagship.settled", "cube.frames60",
+                                      "cube.drop"])
 @pytest.mark.parametrize("fault", [_unchanged, _half, _altered])
 def test_a_broken_step_is_not_correct(workload, fault, monkeypatch):
     """The timed path broken underneath: a step that returns its state
     unchanged, half of the particles left out, an answer altered where it
-    is produced. (The cells run on one chip: no exchange between chips to
-    leave out.)"""
+    is produced; in the drop, only inside its landing. (The cells run on
+    one chip: no exchange between chips to leave out.)"""
     from water_sandbox_tpu_torch.ops import step as step_mod
-    monkeypatch.setattr(step_mod, "step", fault(step_mod.step))
+    broken = fault(step_mod.step)
+    if workload == "cube.drop":
+        broken = _in_landing(step_mod.step, broken)
+    monkeypatch.setattr(step_mod, "step", broken)
     out = _run(workload)
     assert not out["correct"], out["checks"]
+
+
+def test_a_reset_that_does_nothing_is_not_correct(monkeypatch):
+    from water_sandbox_tpu_torch.runtime.runner import Simulation
+    monkeypatch.setattr(Simulation, "reset", lambda self: self)
+    out = _run("cube.drop")
+    assert not out["correct"], out["checks"]
+
+
+# --------------------------------------------------------- the drop loop --
+
+class _Clock:
+    """A host clock that moves only when the fake program steps."""
+    def __init__(self):
+        self.t = 0.0
+
+    def perf_counter(self):
+        return self.t
+
+
+class _Program:
+    """Stands in for ``Simulation`` in the closed loop's schedule: each step
+    moves the clock by ``step_s`` and adds ``rows`` to the rescue's
+    counter, and step ``lost`` after a reset leaves a row uncomputed; a
+    reset zeroes the step count, the counter and ``overflow_total``."""
+
+    def __init__(self, clock, step_s, rows=0, lost=None):
+        from water_sandbox_tpu_torch.core.state import init_state
+        self.clock, self.step_s, self.rows = clock, step_s, rows
+        self.lost = lost
+        self.device = torch.device("cpu")
+        self.state = init_state(torch.zeros(4, 3), device="cpu")
+        self.params = type("P", (), dict(dict.fromkeys(inputs.PARAM_NAMES,
+                                                       0.0),
+                                         gravity=[0.0, -9.8, 0.0]))()
+        self.graph = type("G", (), {})()
+        self.graph.rescued = torch.zeros((), dtype=torch.int64)
+
+    def run(self, n, block=True):
+        done = int(self.state.step_count)
+        self.clock.t += n * self.step_s
+        self.state.step_count.add_(n)
+        self.graph.rescued.add_(self.rows * n)
+        if self.lost is not None and done <= self.lost < done + n:
+            self.state.overflow_total.add_(1.0)
+
+    def reset(self):
+        self.state.step_count.zero_()
+        self.state.overflow_total.zero_()
+        self.graph.rescued.zero_()
+
+
+def _schedule(tr, seed, step_s, trace=False, rows=0, lost=None,
+              monkeypatch=None):
+    clock = _Clock()
+    monkeypatch.setattr(drive, "time", clock)
+    sim = _Program(clock, step_s, rows, lost)
+    if "reset_every" in tr:
+        sim.reset()
+    run = drive.Run(loop="closed", n=4, device_name="cpu")
+    drive.closed(sim, tr, 20.0, seed, trace, run,
+                 drive.Snapshots(sim.state, 2 * tr["samples"] + 2))
+    return run
+
+
+@pytest.mark.parametrize("trace", [False, True])
+def test_the_settled_loop_samples_the_same_steps_as_before(trace,
+                                                           monkeypatch):
+    """flagship.settled's traffic, at 0.88 ms a step on a clock that moves
+    only with the steps: the chunks and steps of its samples, as the loop
+    took them before it could reset."""
+    run = _schedule(_load("traffic/settled.json"), 2**31 + 17, 0.88e-3,
+                    trace, monkeypatch=monkeypatch)
+    assert [(sm.index, sm.steps_done) for sm in run.samples] == [
+        (16, 1400), (158, 8500), (171, 9150), (258, 13500)]
+    assert run.steps == 22750 and run.resets == 0
+    assert run.traced_steps == (100 if trace else 0)
+
+
+@pytest.mark.parametrize("trace", [False, True])
+def test_a_drop_is_sampled_at_its_first_step_and_in_its_landing(trace,
+                                                               monkeypatch):
+    """The drop's traffic at 0.4 ms a step: each sample lies at its drawn
+    step of a drop, none in the traced drops; the steps since the reset
+    are the program's own count; the rescued rows are every step's."""
+    run = _schedule(DROP, 2**31 + 31, 0.4e-3, trace, rows=3,
+                    monkeypatch=monkeypatch)
+    every, chunk = DROP["reset_every"], DROP["chunk"]
+    done = [sm.steps_done for sm in run.samples]
+    assert sorted(done) == sorted(drive.drop_steps(DROP, 2**31 + 31))
+    lo, hi = DROP["landing"]
+    assert 0 in done and sum(lo <= d < hi for d in done) >= 2
+    assert len(done) == DROP["samples"] == len(set(done))
+    traced = DROP["trace_chunks"] * chunk if trace else 0
+    for sm in run.samples:
+        assert int(sm.pre.step_count) == sm.steps_done
+        assert int(sm.post.step_count) == sm.steps_done + 1
+        assert sm.index * chunk % every <= sm.steps_done
+        assert sm.steps_done < sm.index * chunk % every + chunk
+        assert sm.index * chunk >= traced
+    assert run.steps % every == 0 and run.resets == run.steps // every - 1
+    assert run.rescued_rows == 3 * run.steps
+    assert run.traced_steps == traced
+
+
+@pytest.mark.parametrize("lost", [10, 70])
+def test_a_row_left_uncomputed_fails_in_every_drop(lost, monkeypatch):
+    """A reset puts ``overflow_total`` back to the start's: the check takes
+    its baseline again, so each drop's lost row fails its chunk, in the
+    drop's first chunk too."""
+    run = _schedule(DROP, 2**31 + 37, 0.4e-3, lost=lost,
+                    monkeypatch=monkeypatch)
+    assert run.resets > 10
+    assert run.failed == DROP["chunk"] * (run.resets + 1)
+
+
+@pytest.mark.parametrize("bad", [
+    {"reset_every": 310},                     # not whole chunks of 50
+    {"trace_chunks": 3},                      # half a drop traced
+    {"trace_from_chunk": 2},                  # traced from inside a drop
+    {"landing": [280, 320]},                  # beyond the drop
+    {"samples": 400, "reset_every": 350}])    # more samples than steps
+def test_a_drop_that_is_not_whole_chunks_or_traced_in_whole_drops_is_refused(
+        bad):
+    c = _load_cell("cube.drop")
+    tr = dict(c.traffic, **bad)
+    with pytest.raises(ValueError):
+        drive.setup(cell_mod.Cell(c.name, 1, c.config, tr, c.limits,
+                                  c.end_to_end, []), 1, "cpu")
+    drive.check_traffic(c.traffic)
+
+
+def test_a_drop_run_counts_its_rescued_rows_and_reads_nothing_in_the_window(
+        monkeypatch):
+    """At a cell capacity that overflows: the run's rescued rows are the
+    per-step counts of the window's steps summed across its resets; its
+    samples hold a first step after a reset and two landing steps, each
+    with the steps since the reset; and ``drive.closed`` reads no tensor
+    on the host before its final synchronisation."""
+    from sphbench.run import run_cell
+    from water_sandbox_tpu_torch.ops import step as step_mod
+    from water_sandbox_tpu_torch.ops.cuda import rescue
+    real, counts, at = step_mod.step, [], []
+
+    def step(state, params, cfg):
+        before = int(rescue._COUNTER.rows)
+        at.append(int(state.step_count))
+        new = real(state, params, cfg)
+        counts.append(int(rescue._COUNTER.rows) - before)
+        return new
+    monkeypatch.setattr(step_mod, "step", step)
+    reads, synced = [], []
+    for name in ("item", "__bool__", "__int__", "__float__"):
+        orig = getattr(torch.Tensor, name)
+
+        def read(self, *a, _orig=orig, _name=name):
+            f = sys._getframe(1)
+            if f.f_code.co_filename == drive.__file__ and not synced:
+                reads.append((_name, f.f_code.co_name, f.f_lineno))
+            return _orig(self, *a)
+        monkeypatch.setattr(torch.Tensor, name, read)
+    real_closed, real_sync, runs = drive.closed, drive._sync, []
+
+    def closed(sim, tr, seconds, seed, trace, run, snaps):
+        reads.clear()
+        synced.clear()
+        runs.append(run)
+        real_closed(sim, tr, seconds, seed, trace, run, snaps)
+
+    def sync(sim):
+        real_sync(sim)
+        synced.append(True)
+    monkeypatch.setattr(drive, "closed", closed)
+    monkeypatch.setattr(drive, "_sync", sync)
+    c = _cell("cube.drop")
+    out = run_cell(c, 2**31 + 29, 0.5, False, "cpu", time.perf_counter())
+    assert out["correct"], out["checks"]
+    assert reads == []
+    # set-up's steps, then the window's
+    window = counts[-out["attempted"]:]
+    assert len(counts) == c.traffic["settle_steps"] + out["attempted"]
+    assert out["attempted"] >= 2 * c.traffic["reset_every"]
+    every = c.traffic["reset_every"]
+    # the window starts at a drop and resets every ``every`` steps
+    assert at[-len(window):] == [k % every for k in range(len(window))]
+    drops = [sum(window[k:k + every]) for k in range(0, len(window), every)]
+    assert all(d > 0 for d in drops), drops
+    run, = runs
+    assert run.rescued_rows == sum(window)
+    assert run.resets == len(drops) - 1
+    done = [sm.steps_done for sm in run.samples]
+    lo, hi = c.traffic["landing"]
+    assert 0 in done and sum(lo <= d < hi for d in done) >= 2
+    assert len(done) == c.traffic["samples"] == len(set(done))
+    for sm in run.samples:
+        assert int(sm.pre.step_count) == sm.steps_done
+        assert int(sm.post.step_count) == sm.steps_done + 1
 
 
 def test_an_altered_readback_is_not_correct(monkeypatch):
@@ -257,7 +497,8 @@ def card():
     return "cuda:0"
 
 
-@pytest.mark.parametrize("workload", ["flagship.settled", "cube.frames60"])
+@pytest.mark.parametrize("workload", ["flagship.settled", "cube.frames60",
+                                      "cube.drop"])
 def test_on_the_card_the_cell_is_correct_and_its_control_is_not(card,
                                                                  workload):
     from sphbench.run import run_cell

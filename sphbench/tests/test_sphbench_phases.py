@@ -2,7 +2,8 @@
 ``metrics/replay_gap_us.py``) on synthetic traces: the partition adds up
 to the window over the steps, the rescue's two segments are summed, a
 step without a rescue reads 0.0 there, and a trace with no marker reads
-None."""
+None. The readers of the step's kernels (``kernels_per_step``,
+``library_ms_per_step``) leave the markers out."""
 
 from pathlib import Path
 
@@ -110,3 +111,25 @@ def test_markers_are_found_by_prefix_whatever_follows_the_phase():
             for n, a, b in STEP]
     assert _read(_trace(2, step=step)) == _read(_trace(2))
     assert phases.split(_trace(2))["steps"] == 2
+
+
+def test_the_markers_are_neither_kernels_of_the_step_nor_library_time():
+    """Of a step with six markers, a memcpy, a set, the build kernel and
+    the port's other kernels, ``kernels_per_step`` counts the kernels that
+    are no marker, and ``library_ms_per_step`` the time of what is neither
+    a marker nor one of the port's kernels."""
+    step = STEP + [("void wst::sph_build_kernel<3>(int const*)", 28.0, 0.5),
+                   ("Memcpy DtoD (Device -> Device)", 9.0, 0.5),
+                   ("Memset (Device)", 2.0, 0.5)]
+    tr = _trace(3, step=step)
+    marks = [e for e in step if e[0].startswith(phases.PREFIX)]
+    assert len(marks) == 6
+    kernels = cell_mod.reader("kernels_per_step", ROOT)(Run(tr))
+    assert kernels == len(step) - len(marks) - 2 == 11
+    library = cell_mod.reader("library_ms_per_step", ROOT)(Run(tr))
+    aten = ("cummax_scan", "cat_copy", "gather", "gather_results",
+            "integrate", "copy_back", "Memcpy DtoD (Device -> Device)",
+            "Memset (Device)")
+    want = sum(length for name, length, _ in step if name in aten)
+    assert want == 600 + 150 + 4 + 20 + 60 + 30 + 9 + 2
+    assert library * 1e3 == pytest.approx(want)
