@@ -8,7 +8,8 @@
 
 
 Builds the port's CUDA kernels from ``water_sandbox_tpu_torch/csrc``, holds
-each against its plain PyTorch version at the main path's shapes, checks
+each against its plain PyTorch version at the main path's shapes (the build's
+and the integrate's bit for bit: [build], [integrate]), checks
 the exact overflow rescue (the step on the card against the CPU, and the
 rescue's two kernels against their plain versions at ~5k dropped rows, at
 64, 512 and 2,048 of them, at count 0 and at the flagship forced past its
@@ -147,7 +148,7 @@ RESCUE_SWEEP = (64, 512, 2048)
 
 # The kernels every single-device step launches once.
 STEP_KERNELS = ("sph_build", "sph_density", "sph_force",
-                "sph_rescue_density", "sph_rescue_force")
+                "sph_rescue_density", "sph_rescue_force", "sph_integrate")
 
 # The domain step's kernels beside K1 and K3: the cross-shard rescue's
 # halves, each once a shard a step.
@@ -244,6 +245,17 @@ KERNELS = {
         source="water_sandbox_tpu_torch/csrc/sph_build.cu",
         replaces="none: XLA ops, water_sandbox_tpu/ops/pallas/"
                  "sph_bucket.py:268"),
+    # the integrate phase (field, velocity, speed clamp, box collision,
+    # prediction): no pallas_call in the JAX package (XLA ops)
+    "sph_integrate": dict(
+        counter="sph_integrate", path="moving-container-256k",
+        paths=("reference-cube", "moving-container-256k", "sharded-1m",
+               "reference-cube incremental",
+               "reference-cube incremental cap 8") + GOLDEN_PATHS
+        + GRID_PATHS + FRONT_PATHS,
+        at="moving-container-256k step 600",
+        source="water_sandbox_tpu_torch/csrc/sph_integrate.cu",
+        replaces="none: XLA ops, water_sandbox_tpu/ops/integrate.py:167"),
     "bitonic_sort": dict(
         counter="bitonic_sort", path="argsort_keys",
         paths=("reference-cube", "moving-container-256k", "sharded-1m",
@@ -261,6 +273,7 @@ def reset_launches() -> None:
     from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
     from water_sandbox_tpu_torch.ops.cuda import domain_rescue as dr
     from water_sandbox_tpu_torch.ops.cuda import build
+    from water_sandbox_tpu_torch.ops.cuda import integrate as ik
     from water_sandbox_tpu_torch.ops.cuda import rescue as rk
     from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
     sb.reset_launches()
@@ -268,6 +281,7 @@ def reset_launches() -> None:
     rk.reset_launches()
     dr.reset_launches()
     build.reset_launches()
+    ik.reset_launches()
 
 
 def launches_now() -> dict:
@@ -275,10 +289,11 @@ def launches_now() -> dict:
     from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
     from water_sandbox_tpu_torch.ops.cuda import domain_rescue as dr
     from water_sandbox_tpu_torch.ops.cuda import build
+    from water_sandbox_tpu_torch.ops.cuda import integrate as ik
     from water_sandbox_tpu_torch.ops.cuda import rescue as rk
     from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
     return {**sb.LAUNCHES, **bs.LAUNCHES, **rk.LAUNCHES, **dr.LAUNCHES,
-            **build.LAUNCHES}
+            **build.LAUNCHES, **ik.LAUNCHES}
 
 
 def log(msg: str) -> None:
@@ -846,6 +861,131 @@ def phase_build(record, cfg, params, state100) -> None:
         record.setdefault("sph_build", {})[label] = rec
 
 
+def integrate_args(state, params, cfg) -> tuple:
+    """The inputs the sorted step hands the integrate (pos and vel, column
+    slices of the build's sorted rows; acc, the results' gather; params;
+    t_new), recorded by patching ``ops/integrate.py::integrate`` around one
+    eager step from ``state``: held as they were passed, strides and all."""
+    import water_sandbox_tpu_torch as wst
+    from water_sandbox_tpu_torch.ops import integrate as integ
+    seen = []
+    real = integ.integrate
+
+    def rec(*args):
+        seen.append(args)
+        return real(*args)
+
+    integ.integrate = rec
+    try:
+        wst.step(state, params, cfg)
+    finally:
+        integ.integrate = real
+    check(len(seen) == 1, f"integrate: the step called it {len(seen)} times")
+    check(not (seen[0][0].is_contiguous() or seen[0][1].is_contiguous()),
+          "integrate: the sorted step's pos and vel are not strided slices")
+    return seen[0]
+
+
+def kernels_per_call(fn, reps: int = 10) -> int:
+    """Device kernels a call of ``fn`` launches, from torch.profiler over
+    ``reps`` calls (a later profiler session of a process can lose 1-3
+    device events, so one call's count is not to be trusted)."""
+    from torch.autograd import DeviceType
+    from water_sandbox_tpu_torch.runtime.profiling import traced
+    fn()
+    with traced() as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return round(sum(1 for e in prof.events()
+                     if e.device_type == DeviceType.CUDA) / reps)
+
+
+def phase_integrate(record, cfg, params, state100) -> None:
+    """The integrate kernel (csrc/sph_integrate.cu) against the ATen chain
+    (``integrate_plain``) at reference-cube step 100 and the flagship's
+    step 600, on the sorted step's own call (strided rows): bit for bit on
+    pos, vel and predicted, one launch a call; event ms and profiler device
+    ms of the kernel and of the chain, the device kernels a call of each,
+    the bound from the bytes (a row reads pos, vel, acc and writes pos,
+    vel, predicted: 18 f32 in 3-D), and the launches a replay of the
+    scene's captured step. Then the 1,000 steps of each scene's card pin
+    (golden.run) with the kernel against the same steps with the chain
+    patched in: every state field bit for bit."""
+    import dataclasses
+    import water_sandbox_tpu_torch as wst
+    from water_sandbox_tpu_torch import golden
+    from water_sandbox_tpu_torch.core.params import _map_tensors
+    from water_sandbox_tpu_torch.ops import integrate as integ
+    from water_sandbox_tpu_torch.ops.cuda import graph as graph_mod
+    from water_sandbox_tpu_torch.ops.cuda import integrate as ik
+    cfg3, params3, state3 = wst.scenes.build("moving-container-256k",
+                                             device="cuda")
+    state3 = wst.rollout(state3, params3, cfg3, 600)
+    for label, c, prm, st in (
+            ("reference-cube step 100", cfg, params, state100),
+            ("moving-container-256k step 600", cfg3, params3, state3)):
+        args = integrate_args(st, prm, c)
+        ik.reset_launches()
+        got = ik.run_integrate(*args)
+        want = integ.integrate_plain(*args)
+        torch.cuda.synchronize()
+        check(ik.LAUNCHES == {"sph_integrate": 1},
+              f"integrate {label}: launches {ik.LAUNCHES}")
+        for name, a, b in zip(("pos", "vel", "predicted"), got, want):
+            check(same_bits(a, b), f"integrate {label}: {name} differs from "
+                  "the ATen chain")
+        n, dim = args[0].shape
+        nbytes = 4 * 6 * dim * n
+        b_ms, b_by = bound(0, nbytes)
+
+        def run():
+            return ik.run_integrate(*args)
+
+        def plain():
+            return integ.integrate_plain(*args)
+
+        g = graph_mod.StepGraph(st.clone(), _map_tensors(prm, torch.clone),
+                                c.resolved())
+        g.capture()
+        check(g.per_replay.get("sph_integrate") == 1,
+              f"integrate {label}: launches a replay {g.per_replay}")
+        del g
+        rec = dict(max_abs_err=0.0, ms=cuda_ms(run),
+                   device_ms=device_ms(run, "sph_integrate_kernel"),
+                   plain_ms=cuda_ms(plain),
+                   plain_device_ms=device_ms(plain, ""), bound_ms=b_ms,
+                   bound_by=b_by, kernels=kernels_per_call(run),
+                   plain_kernels=kernels_per_call(plain))
+        log(f"[integrate] {label}: bit-identical to the ATen chain, 1 "
+            f"launch; kernel_ms={rec['ms']:.4f} device_ms="
+            f"{fmt(rec['device_ms'])} plain_ms={rec['plain_ms']:.4f} its "
+            f"device_ms={fmt(rec['plain_device_ms'])} device kernels a call "
+            f"{rec['kernels']} (the chain's {rec['plain_kernels']}) bound_ms="
+            f"{b_ms:.3e} ({b_by}: {nbytes} B, 18 f32 a row in 3-D) "
+            f"library_ms=none (n {n}, strides pos {args[0].stride()} vel "
+            f"{args[1].stride()} acc {args[2].stride()}); the captured "
+            f"step launches sph_integrate once a replay")
+        record.setdefault("sph_integrate", {})[label] = rec
+    del state3
+    for scene in GOLDEN_1K:
+        key = (scene, "pallas", 1000)
+        t0 = time.perf_counter()
+        _, _, kernel = golden.run(*key, device="cuda")
+        saved = integ.integrate
+        integ.integrate = integ.integrate_plain
+        try:
+            _, _, chain = golden.run(*key, device="cuda")
+        finally:
+            integ.integrate = saved
+        same = all(same_bits(getattr(kernel, f.name), getattr(chain, f.name))
+                   for f in dataclasses.fields(kernel))
+        log(f"[integrate] {scene} 1000 steps (golden.run) with the kernel "
+            f"and with the ATen chain: {'bit for bit' if same else 'differ'}"
+            f" ({time.perf_counter() - t0:.1f} s)")
+        check(same, f"integrate {scene}: 1000 steps differ from the chain's")
+
+
 def phase_rescue_flagship(cfg, params, state, record) -> None:
     """The flagship past its own rescue budget (16,384): the highest cell
     capacity below the scene's that overflows more rows than the budget,
@@ -1019,9 +1159,10 @@ def phase_golden_1k(scene: str, paths: dict, steps: int = 1000) -> None:
     check(differ, f"golden {scene}: the runs of G = 1, 2, 4 do not all "
           "differ (a graph replayed another context's step)")
     tripped = golden.check(picked, pin)
+    margins = golden.margins(picked, pin)
     log(f"[golden] {scene}: the picker's order (G = {group}) against the pin "
         f"made on {pin['made_on']}: tripped {tripped}, margins "
-        f"{json.dumps(rounded(golden.margins(picked, pin)))}")
+        f"{json.dumps(rounded(margins))}, worst {max(margins.values())!r}")
     check(tripped == [], f"golden {scene}: the picker's order tripped "
           f"{tripped}")
     for g, got in orders.items():
@@ -1140,13 +1281,14 @@ def alternate(eager, captured, pairs: int = 3, steps: int = 5) -> tuple:
 
 
 def grid_launches(label: str, paths: dict, launches: dict, steps: int,
-                  fired: bool) -> None:
+                  fired: bool, shards: int = 1) -> None:
     """A bucket_grid path's launches: R1 and R2 once a step (their gate
-    decides on the device whether they work), no other kernel; recorded
-    as ``paths[label]``."""
+    decides on the device whether they work), the integrate kernel once a
+    shard a step, no other kernel; recorded as ``paths[label]``."""
     check(launches.get("sph_rescue_density") == steps
           and launches.get("sph_rescue_force") == steps
-          and sum(launches.values()) == 2 * steps,
+          and launches.get("sph_integrate") == shards * steps
+          and sum(launches.values()) == (2 + shards) * steps,
           f"{label}: launches {launches} over {steps} steps")
     check(fired, f"{label}: no row was rescued")
     paths[label] = (launches, steps)
@@ -1361,7 +1503,8 @@ def phase_gspmd(state100, single, record, paths: dict, shards: int = 4,
     g.run(steps)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    grid_launches("gspmd reference-cube", paths, launches_now(), steps, True)
+    grid_launches("gspmd reference-cube", paths, launches_now(), steps, True,
+                  shards)
     check(all(same_state(a, b) and same_bits(a.acc, b.acc)
               for a, b in zip(g.states, e)),
           "gspmd: captured != eager")
@@ -1415,7 +1558,7 @@ def phase_gspmd(state100, single, record, paths: dict, shards: int = 4,
     g8.run(5)
     torch.cuda.synchronize()
     grid_launches("gspmd reference-cube cap 8", paths, launches_now(), 5,
-                  True)
+                  True, shards)
     got8 = gspmd.unshard_state(g8.states)
     single8 = wst.rollout(state100, params, cfg8, 5)
     err8 = float((got8.pos - single8.pos).abs().max())
@@ -1437,12 +1580,12 @@ def mode_state(mode: str, scene: str, start: int, steps: int = 10,
     (``kw`` replaces SimConfig fields) from the state ``start`` steps past
     the lattice: the eager step under sync debug "error", ``steps``
     replays of its captured step (a StepGraph) against ``steps`` eager
-    steps bit for bit, launching no hand kernel, warm-up and capture
-    seconds, peak memory above the scene's tensors (eager and captured),
-    ms/step eager and captured in alternated 5-step windows, the kernels a
-    replay and busy share of 20 traced replays, and the hash runs
-    truncated (``overflow``: the emulation's limit, as in the JAX
-    package)."""
+    steps bit for bit, launching no hand kernel but the integrate's,
+    warm-up and capture seconds, peak memory above the scene's tensors
+    (eager and captured), ms/step eager and captured in alternated 5-step
+    windows, the kernels a replay and busy share of 20 traced replays, and
+    the hash runs truncated (``overflow``: the emulation's limit, as in the
+    JAX package)."""
     import water_sandbox_tpu_torch as wst
     from water_sandbox_tpu_torch.core.params import _map_tensors
     from water_sandbox_tpu_torch.ops.cuda import graph as graph_mod
@@ -1480,7 +1623,8 @@ def mode_state(mode: str, scene: str, start: int, steps: int = 10,
     check(same_state(g.state, e) and same_bits(g.state.acc, e.acc)
           and same_bits(g.state.overflow_total, e.overflow_total),
           f"[modes] {label}: {steps} captured steps != {steps} eager steps")
-    check(not launches and not g.per_replay,
+    check(launches == {"sph_integrate": steps}
+          and g.per_replay == {"sph_integrate": 1},
           f"[modes] {label}: hand kernels launched {launches}")
     check(bool(torch.isfinite(g.state.pos).all()),
           f"[modes] {label}: non-finite positions")
@@ -1497,7 +1641,8 @@ def mode_state(mode: str, scene: str, start: int, steps: int = 10,
     prof = profile_replays(g, names=())
     log(f"[modes] {label}: n={cfg.n}, dim {cfg.dim}, eager step under sync "
         f"debug \"error\", {steps} captured steps = {steps} eager bit for "
-        f"bit, no hand kernel; warm-up + capture {g.capture_s:.2f} s; peak "
+        f"bit, no hand kernel but the integrate's (once a replay); warm-up "
+        f"+ capture {g.capture_s:.2f} s; peak "
         f"memory above the scene's tensors: captured (capture + {steps} "
         f"replays) {peak:.1f} MiB, {steps} eager steps {peak_eager:.1f} MiB; "
         f"ms/step eager {ms_e} captured {ms_c} (host clock, alternated "
@@ -1527,7 +1672,7 @@ def phase_modes() -> None:
     ``mode_state`` for each of MODE_STATES; the bench's fingerprint of a
     short ``bench.measure`` in each mode says ``"step": "captured"``; one
     ``cli run mini-3d --neighbor-mode dense --steps 4`` subprocess, which
-    launches no hand kernel."""
+    launches no hand kernel but the integrate's, once a step."""
     from water_sandbox_tpu_torch import bench
     t_phase = time.perf_counter()
     for mode, scene, start, kw in MODE_STATES:
@@ -1547,10 +1692,13 @@ def phase_modes() -> None:
                                 "--scene", "mini-3d", "--neighbor-mode",
                                 "dense", "--steps", "4")
     stats = json.loads(next(ln for ln in lines if ln.startswith("{")))
-    check(stats["step"] == 4 and not any(launches.values()),
+    check(stats["step"] == 4
+          and {k: v for k, v in launches.items() if v} == {
+              "sph_integrate": 4},
           f"[modes] cli run dense: step {stats['step']}, launches {launches}")
     log(f"[modes] cli run mini-3d --neighbor-mode dense --steps 4: step 4, "
-        f"ke {stats['kinetic_energy']:.2f}, no hand kernel "
+        f"ke {stats['kinetic_energy']:.2f}, no hand kernel but the "
+        f"integrate's "
         f"({time.perf_counter() - t0:.1f} s); phase passed in "
         f"{time.perf_counter() - t_phase:.1f} s")
 
@@ -1632,7 +1780,8 @@ def phase_golden_dense(steps: int = 1000) -> None:
         f"margins {json.dumps(rounded(golden.margins(picked, jax_pin)))}")
 
     check(pin is not None, f"golden {scene} {mode}: no pin for {key}")
-    check(not launches, f"golden {scene} {mode}: hand kernels {launches}")
+    check(launches == {"sph_integrate": steps},
+          f"golden {scene} {mode}: hand kernels {launches}")
     check(same, f"golden {scene} {mode}: two runs of one order differ")
     check(differ, f"golden {scene} {mode}: the three orders do not all "
           "differ")
@@ -1648,7 +1797,8 @@ def phase_golden_dense(steps: int = 1000) -> None:
     check(bool(set(tripped) - {"overflow_total"}),
           f"golden {scene} {mode}: the flipped run tripped no statistic")
     log(f"[golden] {scene} {mode}: two runs of the scene's order "
-        f"bit-identical, the three orders all different, no hand kernel, "
+        f"bit-identical, the three orders all different, no hand kernel "
+        f"but the integrate's (once a step), "
         f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -2563,6 +2713,7 @@ def phase_domain_parity(dev, use_pallas=None) -> None:
                 for k in ("sph_density", "sph_force")}
         want.update({k: nsh * steps if kernels and c.rescue_capacity else 0
                      for k in DOMAIN_KERNELS})
+        want["sph_integrate"] = nsh * steps
         check(all(counted[k] == v for k, v in want.items()),
               f"domain {label}: launches {counted}, expected {want}")
         single = wst.rollout(state0, params, c, steps)
@@ -2703,7 +2854,8 @@ def phase_domain_full(record, scene="sharded-1m", dev="cuda",
         f"replay {g.per_replay}, peak memory above the shards' tensors "
         f"{peak:.1f} MiB (capture + {warm} replays)")
     check(err <= DOMAIN_TOL, f"{scene}: parity {err:.3e}")
-    check(g.per_replay == {k: nsh for k in ("sph_density", "sph_force")
+    check(g.per_replay == {k: nsh for k in ("sph_density", "sph_force",
+                                            "sph_integrate")
                            + DOMAIN_KERNELS},
           f"{scene}: launches a replay {g.per_replay}")
     domain_kernels_vs_plain(sim, 1, record)
@@ -2811,7 +2963,7 @@ def phase_domain_full(record, scene="sharded-1m", dev="cuda",
           f"{scene}: particles outside the box")
     check(st["lost_particles"] == 0.0, f"{scene}: lost_total > 0")
     check(st["overflow_total"] == 0.0, f"{scene}: overflow_total > 0")
-    for k in ("sph_density", "sph_force") + DOMAIN_KERNELS:
+    for k in ("sph_density", "sph_force", "sph_integrate") + DOMAIN_KERNELS:
         check(launches[k] == nsh * (warm + same),
               f"{scene}: {k} launched {launches[k]} times in "
               f"{warm + same} steps on {nsh} shards")
@@ -3159,16 +3311,18 @@ from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
 from water_sandbox_tpu_torch.ops.cuda import rescue as rk
 from water_sandbox_tpu_torch.ops.cuda import domain_rescue as dr
 from water_sandbox_tpu_torch.ops.cuda import build
+from water_sandbox_tpu_torch.ops.cuda import integrate as ik
 sb.reset_launches()
 bs.reset_launches()
 rk.reset_launches()
 dr.reset_launches()
 build.reset_launches()
+ik.reset_launches()
 sys.argv = sys.argv[1:]
 runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
 print("[launches] " + json.dumps({**sb.LAUNCHES, **bs.LAUNCHES,
                                   **rk.LAUNCHES, **dr.LAUNCHES,
-                                  **build.LAUNCHES}))
+                                  **build.LAUNCHES, **ik.LAUNCHES}))
 """
 
 ROOT = Path(__file__).resolve().parent
@@ -3199,13 +3353,14 @@ def run_front(module: str, *argv: str, timeout: float = 600.0):
 def check_launches(path: str, launches: dict, steps: int,
                    rescue_steps: int | None = None,
                    rebuilt: int | None = None) -> None:
-    """The five main-path kernels once a step (the build's, the density
-    and force kernels and both halves of the rescue, which gate themselves
-    on the device), the sort never. The incremental path (one ``run()``,
-    ``rescue_steps`` and ``rebuilt`` given, from the graph's device counts)
-    launches the rescue's two only inside its drop-step branch, on the
-    steps that have dropped particles, and the build once on entry (the
-    cache built from the state) and once a rebuild step."""
+    """The six main-path kernels once a step (the build's, the density
+    and force kernels, both halves of the rescue, which gate themselves on
+    the device, and the integrate kernel), the sort never. The incremental
+    path (one ``run()``, ``rescue_steps`` and ``rebuilt`` given, from the
+    graph's device counts) launches the rescue's two and the integrate
+    kernel (on the dropped rows) only inside its drop-step branches, on
+    the steps that have dropped particles, and the build once on entry
+    (the cache built from the state) and once a rebuild step."""
     for k in STEP_KERNELS:
         if rescue_steps is None:
             want = steps
@@ -3325,12 +3480,12 @@ def phase_profile(paths: dict) -> None:
     """runtime/profiling.py's device_trace around 5 steps of
     Simulation.from_scene("reference-cube").run after 5 of warm-up, five
     replays of the captured step: the trace must hold each of the step's
-    five kernels (the build's, K1, K2, R1, R2) 5 times. The launch counts
-    on a replayed path are the capture's counts times the replays, so this
-    trace is what shows the replays run every kernel. The replays also
-    carry the step's phase markers (``profiling.phase``), six a step in
-    order, and no program span (``wst.*``, host only) is among the device's
-    events."""
+    six kernels (the build's, K1, K2, R1, R2, the integrate's) 5 times.
+    The launch counts on a replayed path are the capture's counts times the
+    replays, so this trace is what shows the replays run every kernel. The
+    replays also carry the step's phase markers (``profiling.phase``), six
+    a step in order, and no program span (``wst.*``, host only) is among
+    the device's events."""
     import water_sandbox_tpu_torch as wst
     from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
     from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
@@ -3367,7 +3522,7 @@ def phase_profile(paths: dict) -> None:
     found = {k: [e for e in events if k in e["name"]]
              for k in ("sph_build_kernel", "sph_density_kernel",
                        "sph_force_kernel", "rescue_density_kernel",
-                       "rescue_force_kernel")}
+                       "rescue_force_kernel", "sph_integrate_kernel")}
     for k, evs in found.items():
         check(len(evs) == 5, f"profile: {k} {len(evs)} times in the trace "
               f"of {len(events)} kernels (first names: "
@@ -3984,8 +4139,10 @@ def main() -> int:
     phase_rescue_flagship(cfg3, params3, state3, record)
     del state3
 
-    # 3b. the build after the sort against its plain version
+    # 3b. the build after the sort and the integrate against their plain
+    # versions
     phase_build(record, cfg, params, state100)
+    phase_integrate(record, cfg, params, state100)
 
     # 4. exact rescue on the card, its kernels against their plain versions
     phase_rescue(state100, record)

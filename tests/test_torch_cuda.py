@@ -444,6 +444,133 @@ def test_build_kernel_matches_plain_at_the_settled_flagship(cuda_device,
                                 sb._geometry(cfg).L)
 
 
+def _integrate_params(dev, dim, box, field, limit):
+    """Parameters of the integrate kernel's cases: a box translating and
+    yawing or static, the field active (strength 25) or of strength 0, the
+    speed limiter at 3.0 or off (0)."""
+    moving = box == "moving"
+    container = wt.Container.create(
+        (0.3, -0.2, 0.1)[:dim], (6.0, 4.0, 5.0)[:dim],
+        velocity=(0.4, 0.1, -0.2)[:dim] if moving else None,
+        angular_velocity=0.3 if moving else 0.0,
+        angle=0.25 if moving else 0.0, device=dev)
+    fld = wt.InteractionField.create((0.5, 0.0, -0.5)[:dim],
+                                     25.0 if field == "on" else 0.0, 2.0,
+                                     device=dev)
+    return wt.SimParams.create(dim=dim, max_speed=3.0 if limit == "on"
+                               else 0.0, container=container, field=fld,
+                               device=dev)
+
+
+def _integrate_rows(dev, dim, n, seed):
+    """(pos, vel, acc) as the sorted step hands them over: pos and vel
+    column slices of a wider block of sorted rows, acc a transposed
+    gather. Positions spread to twice the box's size (rows beyond every
+    wall, on both sides); row 0 sits on the field's centre (r == 0)."""
+    rng = np.random.default_rng(seed)
+    block = torch.from_numpy((rng.standard_normal((n, 3 * dim + 1)) * 4.0)
+                             .astype(np.float32)).to(dev)
+    block[0, 2 * dim:3 * dim] = torch.tensor((0.5, 0.0, -0.5)[:dim])
+    acc = torch.from_numpy((rng.standard_normal((dim, n)) * 30.0)
+                           .astype(np.float32)).to(dev)
+    return block[:, 2 * dim:3 * dim], block[:, dim:2 * dim], acc.T
+
+
+@pytest.mark.parametrize("limit", ["on", "off"])
+@pytest.mark.parametrize("field", ["on", "off"])
+@pytest.mark.parametrize("box", ["moving", "static"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_integrate_kernel_matches_chain(cuda_device, dim, box, field, limit):
+    """The integrate kernel (csrc/sph_integrate.cu) against the ATen chain
+    (``integrate_plain``) on the same CUDA tensors, bit for bit on pos, vel
+    and predicted: strided inputs as the sorted step passes them and their
+    contiguous copies, n = 1 and 3,001 (not a multiple of the 256-row
+    block), at two times of the box's pose; one launch a call, contiguous
+    (n, dim) outputs."""
+    from water_sandbox_tpu_torch.ops import integrate as integ
+    from water_sandbox_tpu_torch.ops.cuda import integrate as ik
+    params = _integrate_params(cuda_device, dim, box, field, limit)
+    half = params.container.half_size.cpu()
+    for n in (1, 3001):
+        pos, vel, acc = _integrate_rows(cuda_device, dim, n, 30 + dim)
+        if n > 1:
+            assert not (pos.is_contiguous() or vel.is_contiguous()
+                        or acc.is_contiguous())
+            rel = pos.cpu() - params.container.center.cpu()
+            assert bool(((rel < -2 * half).any(0)
+                         & (rel > 2 * half).any(0)).all())
+            assert bool((vel.norm(dim=1) > 3.0).any())
+        for t in (1.37, 250.0):
+            t_new = torch.tensor(t, device=cuda_device)
+            want = integ.integrate_plain(pos, vel, acc, params, t_new)
+            for rows in ((pos, vel, acc),
+                         tuple(x.contiguous() for x in (pos, vel, acc))):
+                ik.reset_launches()
+                got = integ.integrate(*rows, params, t_new)
+                torch.cuda.synchronize()
+                assert ik.LAUNCHES == {"sph_integrate": 1}
+                for name, a, b in zip(("pos", "vel", "predicted"), got,
+                                      want):
+                    assert a.shape == (n, dim) and a.is_contiguous()
+                    assert _same_bits(a, b), (name, n, t)
+
+
+@pytest.mark.parametrize("scene, steps", [("reference-cube", 100),
+                                          ("moving-container-256k", 10)])
+def test_captured_step_integrates_as_the_chain(cuda_device, monkeypatch,
+                                               scene, steps):
+    """A captured StepGraph of the scene, from its start (the cube's 100
+    steps fall through its landing), against the same graph captured with
+    ``integrate`` patched to the ATen chain: every state field bit for
+    bit; the kernel launches once a replay, the chain's graph none."""
+    import dataclasses
+    from water_sandbox_tpu_torch.core.params import _map_tensors
+    from water_sandbox_tpu_torch.core.state import FluidState
+    from water_sandbox_tpu_torch.ops import integrate as integ
+    from water_sandbox_tpu_torch.ops.cuda import graph
+    cfg, params, state = wt.scenes.build(scene, device=cuda_device)
+    cfg = cfg.resolved()
+
+    def run():
+        g = graph.StepGraph(state.clone(), _map_tensors(params, torch.clone),
+                            cfg)
+        g.run(steps)
+        torch.cuda.synchronize()
+        return g
+
+    got = run()
+    monkeypatch.setattr(integ, "integrate", integ.integrate_plain)
+    want = run()
+    assert got.per_replay["sph_integrate"] == 1
+    assert "sph_integrate" not in want.per_replay
+    for f in dataclasses.fields(FluidState):
+        assert _same_bits(getattr(got.state, f.name),
+                          getattr(want.state, f.name)), f.name
+    assert int(got.state.step_count) == steps
+
+
+def test_integrate_wrapper_refuses_what_the_kernel_does_not_take(
+        cuda_device):
+    """A wrong dtype, mismatched shapes, a dim the kernel has no variant
+    for, parameters of another dim and mixed devices raise before any
+    launch."""
+    from water_sandbox_tpu_torch.ops.cuda import integrate as ik
+    params = _integrate_params(cuda_device, 3, "moving", "on", "on")
+    pos, vel, acc = _integrate_rows(cuda_device, 3, 64, 0)
+    t = torch.tensor(1.0, device=cuda_device)
+    wide = torch.zeros((64, 4), device=cuda_device)
+    ik.reset_launches()
+    for args, match in (
+            ((pos.double(), vel, acc, params), "float32"),
+            ((pos, vel[:10], acc, params), "differ"),
+            ((wide, wide, wide, params), "dim must be 2 or 3"),
+            ((pos[:, :2], vel[:, :2], acc[:, :2], params), "parameters"),
+            ((pos, vel, acc.cpu(), params), "one device")):
+        with pytest.raises(ValueError, match=match):
+            ik.run_integrate(*args, t)
+    assert ik.LAUNCHES == {"sph_integrate": 0}
+
+
 def _crowded_rescue(device, dim):
     """A dense random cloud at cell capacity 4 (hundreds of rows overflow)
     with its density planes, gathered densities and rescue selection, on
@@ -625,7 +752,7 @@ def test_captured_rollout_matches_eager(cuda_device):
     """The kernel pipeline's captured step (ops/cuda/graph.py) against the
     eager step on the card, bit for bit over 6 steps with the rescue firing
     past its budget; the eager step runs with no synchronisation (sync
-    debug mode "error"); each replay counts one launch of each of the four
+    debug mode "error"); each replay counts one launch of each of the six
     kernels; a Simulation replays its own graph, and tune takes effect
     without a recapture."""
     cfg, params, state = wt.scenes.build(
@@ -655,7 +782,7 @@ def test_captured_rollout_matches_eager(cuda_device):
     g.run(1)
     assert g.per_replay == {"sph_build": 1, "sph_density": 1,
                             "sph_force": 1, "sph_rescue_density": 1,
-                            "sph_rescue_force": 1}
+                            "sph_rescue_force": 1, "sph_integrate": 1}
     sim = wt.Simulation(cfg, params, state)
     sim.run(3)
     sim.tune(viscosity_strength=0.5)
@@ -814,7 +941,7 @@ def test_domain_graph_replays_the_eager_step(cuda_device):
     torch.cuda.synchronize()
     assert g.per_replay == {"sph_density": 8, "sph_force": 8,
                             "sph_domain_rescue_density": 8,
-                            "sph_domain_rescue_force": 8}
+                            "sph_domain_rescue_force": 8, "sph_integrate": 8}
     assert dr.LAUNCHES["sph_domain_rescue_density"] == 48
     for a, b in zip(g.states, e_states):
         for f in ("pos", "vel", "density", "ids", "acc"):
@@ -993,7 +1120,8 @@ def _bucket_grid_case(dev, cap=3):
 def test_bucket_grid_step_is_device_only(cuda_device):
     """The bucket_grid step raises nothing under sync debug "error", its
     StepGraph replays it bit for bit, and its rescue launches R1 and R2
-    once a step, not their plain versions."""
+    once a step, not their plain versions (and the integrate kernel once a
+    replay)."""
     from water_sandbox_tpu_torch.ops import grid
     from water_sandbox_tpu_torch.ops.cuda import graph, rescue as rk
     cfg, params, state = _bucket_grid_case(cuda_device)
@@ -1013,7 +1141,8 @@ def test_bucket_grid_step_is_device_only(cuda_device):
     g.run(4)
     torch.cuda.synchronize()
     assert g.graph is not None
-    assert g.per_replay == {"sph_rescue_density": 1, "sph_rescue_force": 1}
+    assert g.per_replay == {"sph_rescue_density": 1, "sph_rescue_force": 1,
+                            "sph_integrate": 1}
     for f in ("pos", "vel", "density", "acc", "overflow_total"):
         assert torch.equal(getattr(g.state, f), getattr(s, f)), f
     sim = wt.Simulation(cfg, params, state)
@@ -1093,7 +1222,8 @@ def test_sharded_rollout_captured_equals_eager(cuda_device):
 def test_plain_mode_step_is_captured(cuda_device, mode):
     """The dense and hash_grid steps at mini-3d raise nothing under sync
     debug "error", and 10 replays of their StepGraph equal 10 eager steps
-    bit for bit; a Simulation and rollout replay the same graph."""
+    bit for bit, with the integrate kernel the one hand kernel a replay; a
+    Simulation and rollout replay the same graph."""
     from water_sandbox_tpu_torch.ops.cuda import graph
     cfg, params, state = wt.scenes.build("mini-3d", device=cuda_device,
                                          neighbor_mode=mode)
@@ -1109,7 +1239,7 @@ def test_plain_mode_step_is_captured(cuda_device, mode):
     g = graph.StepGraph(state.clone(), params, cfg)
     g.run(10)
     torch.cuda.synchronize()
-    assert g.graph is not None and g.per_replay == {}
+    assert g.graph is not None and g.per_replay == {"sph_integrate": 1}
     for f in ("pos", "vel", "predicted", "acc", "density", "near_density",
               "pressure", "near_pressure", "overflow_total", "time"):
         assert _same_bits(getattr(g.state, f), getattr(s, f)), f

@@ -120,3 +120,49 @@ def test_static_box_clamps_and_damps():
                                            [0.2, 0.3]], atol=1e-6)
     np.testing.assert_allclose(v.numpy(), [[-0.95, 0.0], [0.0, 1.9],
                                            [0.5, 0.5]], atol=1e-6)
+
+
+def test_integrate_on_cpu_is_the_plain_chain():
+    """On CPU tensors ``integrate`` is the ATen chain (``integrate_plain``)
+    and launches no kernel; the kernel's wrapper refuses CPU tensors."""
+    from water_sandbox_tpu_torch.ops.cuda import integrate as ik
+    _, tp = _params(3)
+    pos, vel, acc = (torch.from_numpy(x) for x in _rows(3))
+    t_new = torch.tensor(1.37)
+    ik.reset_launches()
+    got = tintegrate.integrate(pos, vel, acc, tp, t_new)
+    want = tintegrate.integrate_plain(pos, vel, acc, tp, t_new)
+    assert ik.LAUNCHES == {"sph_integrate": 0}
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="CUDA"):
+        ik.run_integrate(pos, vel, acc, tp, t_new)
+    assert ik.LAUNCHES == {"sph_integrate": 0}
+
+
+def test_integrate_kernel_reads_the_leaves_in_its_order():
+    """The wrapper hands the kernel the parameters in the field order of
+    ``csrc/sph_integrate.cu``'s ``IntegrateParams``, each leaf of
+    ``SimParams`` (and t_new) by name, with the size the kernel reads."""
+    import re
+    from water_sandbox_tpu_torch.ops.cuda import _build
+    from water_sandbox_tpu_torch.ops.cuda import integrate as ik
+    src = (_build.CSRC / "sph_integrate.cu").read_text()
+    body = re.search(r"struct IntegrateParams \{(.*?)\};", src, re.S).group(1)
+    fields = re.findall(r"const float\* (\w+);", body)
+    assert f"constexpr int kLeaves = {len(fields)};" in src
+    _, tp = _params(3)
+    t_new = torch.tensor(1.37)
+    c, f = tp.container, tp.field
+    by_name = {"dt": tp.dt, "gravity": tp.gravity, "max_speed": tp.max_speed,
+               "lookahead": tp.lookahead,
+               "particle_radius": tp.particle_radius,
+               "collision_damping": tp.collision_damping,
+               "center": c.center, "velocity": c.velocity, "angle": c.angle,
+               "angular_velocity": c.angular_velocity,
+               "half_size": c.half_size, "field_position": f.position,
+               "field_strength": f.strength, "field_radius": f.radius,
+               "t_new": t_new}
+    leaves = ik._leaves(tp, t_new, 3)
+    assert [id(t) for t, _ in leaves] == [id(by_name[k]) for k in fields]
+    assert [size for _, size in leaves] == [t.numel() for t, _ in leaves]

@@ -33,9 +33,9 @@ its own.
 
 Kernel launches are counted as the eager step counts them: the wrappers'
 counters (``LAUNCHES`` of ``sph_bucket``, ``rescue``, ``bitonic_sort``,
-``domain_rescue``, ``build``) move only while the step is captured, and
-each replay adds what the capture counted; warm-up launches are not
-counted.
+``domain_rescue``, ``build``, ``integrate``) move only while the step is
+captured, and each replay adds what the capture counted; warm-up launches
+are not counted.
 
 ``IncrementalGraph`` captures the incremental step
 (``ops/cuda/incremental.py``), whose branches the JAX package takes with
@@ -70,9 +70,10 @@ CAPTURED_MODES = ("pallas", "bucket_grid", "dense", "hash_grid")
 
 
 def _counters() -> tuple:
-    from . import bitonic_sort, build, domain_rescue, rescue, sph_bucket
+    from . import (bitonic_sort, build, domain_rescue, integrate, rescue,
+                   sph_bucket)
     return (sph_bucket.LAUNCHES, rescue.LAUNCHES, bitonic_sort.LAUNCHES,
-            domain_rescue.LAUNCHES, build.LAUNCHES)
+            domain_rescue.LAUNCHES, build.LAUNCHES, integrate.LAUNCHES)
 
 
 def _read_counters() -> list:

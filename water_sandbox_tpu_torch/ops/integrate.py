@@ -5,6 +5,10 @@ form (per-axis lists of tensors of any common shape).
     v += (g + a + field)·dt;  optional |v| clamp;  x += v·dt;
     box clamp with velocity flip ×(-damping) in the container's frame;
     predicted = x + v·lookahead
+
+On CUDA tensors ``integrate`` launches one kernel of the same bits
+(``csrc/sph_integrate.cu``); ``integrate_plain`` is the chain on any
+device.
 """
 
 from __future__ import annotations
@@ -129,8 +133,19 @@ def integrate_axes(pos, vel, acc, params: SimParams, t_new):
     return pos, vel, predicted
 
 
-def integrate(pos, vel, acc, params: SimParams, t_new):
-    """One integration step on (n, dim) rows. Returns (pos, vel, predicted)."""
+def integrate_plain(pos, vel, acc, params: SimParams, t_new):
+    """One integration step on (n, dim) rows as the ATen chain of
+    ``integrate_axes``. Returns (pos, vel, predicted)."""
     p, v, pr = integrate_axes(_axes(pos), _axes(vel), _axes(acc), params,
                               t_new)
     return _stack(p), _stack(v), _stack(pr)
+
+
+def integrate(pos, vel, acc, params: SimParams, t_new):
+    """One integration step on (n, dim) rows. Returns (pos, vel, predicted):
+    ``integrate_plain`` for CPU tensors, one kernel of the same bits for
+    CUDA tensors (``ops/cuda/integrate.py::run_integrate``)."""
+    if pos.device.type == "cpu":
+        return integrate_plain(pos, vel, acc, params, t_new)
+    from .cuda.integrate import run_integrate
+    return run_integrate(pos, vel, acc, params, t_new)
