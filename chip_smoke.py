@@ -237,7 +237,7 @@ KERNELS = {
     # scatter)
     "sph_build": dict(
         counter="sph_build", path="moving-container-256k",
-        paths=("reference-cube", "moving-container-256k",
+        paths=("reference-cube", "moving-container-256k", "sharded-1m",
                "reference-cube incremental",
                "reference-cube incremental cap 8") + GOLDEN_PATHS
         + FRONT_PATHS,
@@ -269,31 +269,15 @@ KERNELS = {
 
 
 def reset_launches() -> None:
-    """Every kernel wrapper's launch count to 0."""
-    from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
-    from water_sandbox_tpu_torch.ops.cuda import domain_rescue as dr
-    from water_sandbox_tpu_torch.ops.cuda import build
-    from water_sandbox_tpu_torch.ops.cuda import integrate as ik
-    from water_sandbox_tpu_torch.ops.cuda import rescue as rk
-    from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
-    sb.reset_launches()
-    bs.reset_launches()
-    rk.reset_launches()
-    dr.reset_launches()
-    build.reset_launches()
-    ik.reset_launches()
+    """The port's launch counts (``_build.LAUNCHES``) to 0."""
+    from water_sandbox_tpu_torch.ops.cuda import _build
+    _build.reset_launches()
 
 
 def launches_now() -> dict:
-    """Every kernel wrapper's launch count."""
-    from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
-    from water_sandbox_tpu_torch.ops.cuda import domain_rescue as dr
-    from water_sandbox_tpu_torch.ops.cuda import build
-    from water_sandbox_tpu_torch.ops.cuda import integrate as ik
-    from water_sandbox_tpu_torch.ops.cuda import rescue as rk
-    from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
-    return {**sb.LAUNCHES, **bs.LAUNCHES, **rk.LAUNCHES, **dr.LAUNCHES,
-            **build.LAUNCHES, **ik.LAUNCHES}
+    """A copy of the port's launch counts, by kernel."""
+    from water_sandbox_tpu_torch.ops.cuda import _build
+    return dict(_build.LAUNCHES)
 
 
 def log(msg: str) -> None:
@@ -771,12 +755,9 @@ def rescue_kernels(label, cfg, params, state, record, sweep=()) -> None:
                 f"of a rescued row {facts['p_h']})")
 
 
-def build_args(state, params, cfg) -> tuple:
-    """The inputs the sorted step hands the build after its sort
-    (``build.run_build``), recorded by patching the wrapper around one
-    eager step from ``state``: the carry is its two blocks, the positions
-    and the bit-cast ids."""
-    import water_sandbox_tpu_torch as wst
+def recorded_builds(run) -> list:
+    """The arguments of every ``build.run_build`` call ``run()`` makes,
+    cloned, recorded by patching the wrapper around it."""
     from water_sandbox_tpu_torch.ops.cuda import build
     seen = []
     real = build.run_build
@@ -789,9 +770,19 @@ def build_args(state, params, cfg) -> tuple:
 
     build.run_build = rec
     try:
-        wst.step(state, params, cfg)
+        run()
     finally:
         build.run_build = real
+    torch.cuda.synchronize()
+    return seen
+
+
+def build_args(state, params, cfg) -> tuple:
+    """The inputs the sorted step hands the build after its sort
+    (``build.run_build``), recorded around one eager step from ``state``:
+    the carry is its two blocks, the positions and the bit-cast ids."""
+    import water_sandbox_tpu_torch as wst
+    seen = recorded_builds(lambda: wst.step(state, params, cfg))
     check(len(seen) == 1, f"build: the step called the build {len(seen)} "
           "times")
     check([b.shape[1] for b in seen[0][4]] == [cfg.dim, 1],
@@ -804,61 +795,91 @@ def build_bytes(args) -> int:
     whole, the rows read once and written sorted, the keys (4 B) and the
     permutation (8 B) read, the addresses and the order written (4 B
     each), the counts written."""
-    _, _, pred, _, carry, _, cap_p, L, _ = args
+    _, _, pred, _, carry, _, cap_p, L, _, _ = args
     n, dim = pred.shape
     width = 2 * dim + sum(b.shape[1] for b in carry)
     return 4 * (2 * dim * cap_p * L + 2 * n * width + L) + 20 * n
 
 
-def phase_build(record, cfg, params, state100) -> None:
+def hold_build(label, args, record, note: str = "") -> None:
     """The build's kernel (csrc/sph_build.cu, with the wrapper's two plane
-    fills and one memset) against the ATen chain (``build.build_plain``)
-    at reference-cube step 100 and the flagship's step 600, with the
-    sorted step's carry: bit for bit on all six outputs, one launch a
-    call; event ms and profiler device ms of the whole build after the
-    sort and of the kernel alone, the plain chain's, the bound from the
-    bytes."""
-    import water_sandbox_tpu_torch as wst
+    fills and one memset) against the ATen chain (``build.build_plain``) on
+    ``args``: bit for bit on all six outputs, one launch a call; event ms
+    and profiler device ms of the whole build after the sort and of the
+    kernel alone, the plain chain's, the bound from the bytes."""
     from water_sandbox_tpu_torch.ops.cuda import build
+    reset_launches()
+    got = build.run_build(*args)
+    want = build.build_plain(*args)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in launches_now().items() if v}
+    check(launched == {"sph_build": 1}, f"build {label}: launches {launched}")
+    for name, a, b in zip(("planes", "counts", "flat", "order", "srows",
+                           "overflow"), got, want):
+        check(same_bits(a, b), f"build {label}: {name} differs from the "
+              "plain chain")
+    nbytes = build_bytes(args)
+    b_ms, b_by = bound(0, nbytes)
+
+    def run():
+        return build.run_build(*args)
+
+    def plain():
+        return build.build_plain(*args)
+
+    rec = dict(max_abs_err=0.0, ms=cuda_ms(run),
+               device_ms=device_ms(run, "sph_build_kernel"),
+               all_device_ms=device_ms(run, ""), plain_ms=cuda_ms(plain),
+               plain_device_ms=device_ms(plain, ""), bound_ms=b_ms,
+               bound_by=b_by)
+    log(f"[build] {label}: bit-identical to the plain chain, 1 launch; "
+        f"kernel_ms (fills + kernel)={rec['ms']:.4f} device_ms (kernel)="
+        f"{fmt(rec['device_ms'])} device_ms (fills + kernel)="
+        f"{fmt(rec['all_device_ms'])} plain_ms={rec['plain_ms']:.4f} "
+        f"its device_ms={fmt(rec['plain_device_ms'])} bound_ms="
+        f"{b_ms:.3e} ({b_by}: {nbytes} B) library_ms=none (n "
+        f"{args[2].shape[0]}, overflow {int(got[5])}{note})")
+    record.setdefault("sph_build", {})[label] = rec
+
+
+def phase_build(record, cfg, params, state100) -> None:
+    """The build's kernel against the ATen chain (``hold_build``) at
+    reference-cube step 100 and the flagship's step 600, with the sorted
+    step's carry and no key bound."""
+    import water_sandbox_tpu_torch as wst
     cfg3, params3, state3 = wst.scenes.build("moving-container-256k",
                                              device="cuda")
     state3 = wst.rollout(state3, params3, cfg3, 600)
     for label, c, prm, st in (
             ("reference-cube step 100", cfg, params, state100),
             ("moving-container-256k step 600", cfg3, params3, state3)):
-        args = build_args(st, prm, c)
-        build.reset_launches()
-        got = build.run_build(*args)
-        want = build.build_plain(*args)
-        torch.cuda.synchronize()
-        check(build.LAUNCHES == {"sph_build": 1},
-              f"build {label}: launches {build.LAUNCHES}")
-        for name, a, b in zip(("planes", "counts", "flat", "order",
-                               "srows", "overflow"), got, want):
-            check(same_bits(a, b), f"build {label}: {name} differs from "
-                  "the plain chain")
-        nbytes = build_bytes(args)
-        b_ms, b_by = bound(0, nbytes)
+        hold_build(label, build_args(st, prm, c), record)
 
-        def run():
-            return build.run_build(*args)
 
-        def plain():
-            return build.build_plain(*args)
-
-        rec = dict(max_abs_err=0.0, ms=cuda_ms(run),
-                   device_ms=device_ms(run, "sph_build_kernel"),
-                   all_device_ms=device_ms(run, ""), plain_ms=cuda_ms(plain),
-                   plain_device_ms=device_ms(plain, ""), bound_ms=b_ms,
-                   bound_by=b_by)
-        log(f"[build] {label}: bit-identical to the plain chain, 1 launch; "
-            f"kernel_ms (fills + kernel)={rec['ms']:.4f} device_ms (kernel)="
-            f"{fmt(rec['device_ms'])} device_ms (fills + kernel)="
-            f"{fmt(rec['all_device_ms'])} plain_ms={rec['plain_ms']:.4f} "
-            f"its device_ms={fmt(rec['plain_device_ms'])} bound_ms="
-            f"{b_ms:.3e} ({b_by}: {nbytes} B) library_ms=none (n "
-            f"{args[2].shape[0]}, overflow {int(got[5])})")
-        record.setdefault("sph_build", {})[label] = rec
+def domain_build_vs_plain(sim, shard: int, record) -> None:
+    """The build's kernel against the ATen chain (``hold_build``) on the
+    arguments one eager domain step hands ``build.run_build`` for
+    ``shard`` (``sph_bucket.build_local_slab_buckets``): the shard's key
+    bound end = gx_loc·S_pad, its inactive rows keyed at end and sorted
+    last, where they take no slot and are no overflow."""
+    from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
+    from water_sandbox_tpu_torch.parallel import domain
+    nsh = sim.mesh.size
+    seen = recorded_builds(lambda: sim.graph.step(
+        [s.clone() for s in sim.states], [a.clone() for a in sim.active],
+        sim.params))
+    check(len(seen) == nsh, f"{sim.name}: the domain step called the build "
+          f"{len(seen)} times on {nsh} shards")
+    args = seen[shard]
+    gx_loc = sim.cfg.grid_dims[0] // nsh
+    end = gx_loc * sb._geometry(domain._local_cfg(sim.cfg, gx_loc)).S_pad
+    at_end = int((args[0] == end).sum())
+    inactive = int((sim.active[shard] <= 0).sum())
+    check(args[9] == end and at_end == inactive > 0,
+          f"{sim.name} shard {shard}: key bound {args[9]} (end {end}), "
+          f"{at_end} rows keyed at it, {inactive} inactive rows")
+    hold_build(f"{sim.name} shard {shard} (domain step)", args, record,
+               note=f", key bound {end}, {at_end} inactive rows keyed at it")
 
 
 def integrate_args(state, params, cfg) -> tuple:
@@ -926,12 +947,13 @@ def phase_integrate(record, cfg, params, state100) -> None:
             ("reference-cube step 100", cfg, params, state100),
             ("moving-container-256k step 600", cfg3, params3, state3)):
         args = integrate_args(st, prm, c)
-        ik.reset_launches()
+        reset_launches()
         got = ik.run_integrate(*args)
         want = integ.integrate_plain(*args)
         torch.cuda.synchronize()
-        check(ik.LAUNCHES == {"sph_integrate": 1},
-              f"integrate {label}: launches {ik.LAUNCHES}")
+        launched = {k: v for k, v in launches_now().items() if v}
+        check(launched == {"sph_integrate": 1},
+              f"integrate {label}: launches {launched}")
         for name, a, b in zip(("pos", "vel", "predicted"), got, want):
             check(same_bits(a, b), f"integrate {label}: {name} differs from "
                   "the ATen chain")
@@ -1873,8 +1895,7 @@ DOMAIN_KERNEL_NAMES = ("sph_density_kernel", "sph_force_kernel",
                        "domain_density_kernel", "domain_force_kernel")
 
 
-def profile_replays(g, steps: int = 20, names=STEP_KERNEL_NAMES,
-                    grids=()):
+def profile_replays(g, steps: int = 20, names=STEP_KERNEL_NAMES):
     """torch.profiler (``profiling.traced``: idle margins around the span,
     so that the trace keeps the first replays' events) over ``steps``
     replays of ``g`` (a StepGraph or a DomainGraph), launched back to
@@ -1887,9 +1908,8 @@ def profile_replays(g, steps: int = 20, names=STEP_KERNEL_NAMES,
     gaps between kernels and between replays count as idle). With shards
     on their own streams the summed device time can exceed the union: the
     share reads the union only. Also the pairs of kernels on different
-    streams that overlap in the trace (``stream_overlaps``), the launch
-    grid and block of the kernels whose names hold one of ``grids`` (from
-    the exported trace), and the host clock a step of the traced replays
+    streams that overlap in the trace (``stream_overlaps``), and the host
+    clock a step of the traced replays
     and of as many replays run again without the profiler (launch to
     synchronisation)."""
     from torch.autograd import DeviceType
@@ -1911,17 +1931,6 @@ def profile_replays(g, steps: int = 20, names=STEP_KERNEL_NAMES,
                            + e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     overlaps, streams = stream_overlaps(dev)
-    launch = {}
-    if grids:
-        FRONT_OUT.mkdir(parents=True, exist_ok=True)
-        path = FRONT_OUT / "profile_replays.json"
-        prof.export_chrome_trace(str(path))
-        for ev in json.loads(path.read_text())["traceEvents"]:
-            args = ev.get("args", {})
-            for k in grids:
-                if k in ev.get("name", "") and "grid" in args:
-                    launch.setdefault(k, set()).add(
-                        (tuple(args["grid"]), tuple(args.get("block", ()))))
     t0 = time.perf_counter()
     g.run(steps)
     torch.cuda.synchronize()
@@ -1930,7 +1939,7 @@ def profile_replays(g, steps: int = 20, names=STEP_KERNEL_NAMES,
                 found=found, busy=union_us / span_us if span_us else None,
                 union_ms=union_us / 1e3 / steps,
                 span_ms=span_us / 1e3 / steps, steps=steps,
-                overlaps=overlaps, streams=streams, launch=launch,
+                overlaps=overlaps, streams=streams,
                 wall_ms=alone_ms / steps, traced_ms=traced_ms / steps,
                 top=[(name[:60], us / 1e3 / steps) for name, us in top])
 
@@ -2710,7 +2719,7 @@ def phase_domain_parity(dev, use_pallas=None) -> None:
         after = [int(a.sum()) for a in active]
         counted = launches_now()
         want = {k: nsh * steps if kernels else 0
-                for k in ("sph_density", "sph_force")}
+                for k in ("sph_build", "sph_density", "sph_force")}
         want.update({k: nsh * steps if kernels and c.rescue_capacity else 0
                      for k in DOMAIN_KERNELS})
         want["sph_integrate"] = nsh * steps
@@ -2854,10 +2863,11 @@ def phase_domain_full(record, scene="sharded-1m", dev="cuda",
         f"replay {g.per_replay}, peak memory above the shards' tensors "
         f"{peak:.1f} MiB (capture + {warm} replays)")
     check(err <= DOMAIN_TOL, f"{scene}: parity {err:.3e}")
-    check(g.per_replay == {k: nsh for k in ("sph_density", "sph_force",
-                                            "sph_integrate")
+    check(g.per_replay == {k: nsh for k in ("sph_build", "sph_density",
+                                            "sph_force", "sph_integrate")
                            + DOMAIN_KERNELS},
           f"{scene}: launches a replay {g.per_replay}")
+    domain_build_vs_plain(sim, 1, record)
     domain_kernels_vs_plain(sim, 1, record)
 
     def eager_copy():
@@ -2918,8 +2928,7 @@ def phase_domain_full(record, scene="sharded-1m", dev="cuda",
         f"median ratio {statistics.median(ratios):.3f}; peak memory of "
         f"{window} eager steps above their state {peak_eager:.1f} MiB")
     del e_states, e_active
-    prof = profile_replays(g, names=DOMAIN_KERNEL_NAMES,
-                           grids=("scan_innermost_dim_with_indices",))
+    prof = profile_replays(g, names=DOMAIN_KERNEL_NAMES)
     log(f"[domain] {scene} torch.profiler over {prof['steps']} replays: "
         f"device ms a step {prof['device_ms']:.4f} (events summed), "
         f"kernels a step {prof['kernels']:.1f}, step kernels found "
@@ -2928,9 +2937,7 @@ def phase_domain_full(record, scene="sharded-1m", dev="cuda",
         f"{prof['span_ms']:.4f} ms a step; the summed device ms may "
         f"exceed the union with the shards on their own streams); kernel "
         f"pairs of different streams overlapping in the trace "
-        f"{fmt(prof['overlaps'])} over {prof['streams']} streams; launch "
-        f"(grid, block) of cummax's scan {prof['launch'] or 'not measured'}; "
-        f"host "
+        f"{fmt(prof['overlaps'])} over {prof['streams']} streams; host "
         f"clock a step {prof['wall_ms']:.4f} without the profiler, "
         f"{prof['traced_ms']:.4f} traced; the 8 largest by name, device ms "
         f"a step: " + "; ".join(f"{n} {ms:.4f}" for n, ms in prof["top"]))
@@ -2963,7 +2970,8 @@ def phase_domain_full(record, scene="sharded-1m", dev="cuda",
           f"{scene}: particles outside the box")
     check(st["lost_particles"] == 0.0, f"{scene}: lost_total > 0")
     check(st["overflow_total"] == 0.0, f"{scene}: overflow_total > 0")
-    for k in ("sph_density", "sph_force", "sph_integrate") + DOMAIN_KERNELS:
+    for k in ("sph_build", "sph_density", "sph_force",
+              "sph_integrate") + DOMAIN_KERNELS:
         check(launches[k] == nsh * (warm + same),
               f"{scene}: {k} launched {launches[k]} times in "
               f"{warm + same} steps on {nsh} shards")
@@ -3238,10 +3246,10 @@ def phase_sort(record, dev="cuda") -> int:
     for n in (1, 2, 1000, 1024, 8192, 8193, 50000, 65536):
         for kind in ("random", "descending", "all_equal", "int32_max"):
             keys, vals = sort_case(rng, n, kind)
-            bs.reset_launches()
+            reset_launches()
             gk, gv = bs.sort_pairs(keys, vals)
-            check(bs.LAUNCHES["bitonic_sort"] == 1,
-                  f"sort n={n} {kind}: {bs.LAUNCHES} launches")
+            launches = launches_now()["bitonic_sort"]
+            check(launches == 1, f"sort n={n} {kind}: {launches} launches")
             wk, wv = bs.sort_pairs_plain(keys, vals)
             torch.cuda.synchronize()
             check(bool(torch.equal(gk, wk) and torch.equal(gv, wv)),
@@ -3287,9 +3295,9 @@ def phase_sort(record, dev="cuda") -> int:
                             - hashing.grid_origin(state.predicted, h), h)
     gy, gz = cfg.grid_dims[1], cfg.grid_dims[2]
     keys = (cell[:, 0] * gy + cell[:, 1]) * gz + cell[:, 2]
-    bs.reset_launches()
+    reset_launches()
     sk, order = bs.argsort_keys(keys)
-    launches = bs.LAUNCHES["bitonic_sort"]
+    launches = launches_now()["bitonic_sort"]
     wk, worder = bs.sort_pairs_plain(
         keys, torch.arange(keys.shape[0], dtype=torch.int32, device=dev))
     check(bool(torch.equal(sk, wk) and torch.equal(order, worder)),
@@ -3306,23 +3314,11 @@ def phase_sort(record, dev="cuda") -> int:
 # as its last line after it.
 _COUNTED = """
 import json, runpy, sys
-from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
-from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
-from water_sandbox_tpu_torch.ops.cuda import rescue as rk
-from water_sandbox_tpu_torch.ops.cuda import domain_rescue as dr
-from water_sandbox_tpu_torch.ops.cuda import build
-from water_sandbox_tpu_torch.ops.cuda import integrate as ik
-sb.reset_launches()
-bs.reset_launches()
-rk.reset_launches()
-dr.reset_launches()
-build.reset_launches()
-ik.reset_launches()
+from water_sandbox_tpu_torch.ops.cuda import _build
+_build.reset_launches()
 sys.argv = sys.argv[1:]
 runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
-print("[launches] " + json.dumps({**sb.LAUNCHES, **bs.LAUNCHES,
-                                  **rk.LAUNCHES, **dr.LAUNCHES,
-                                  **build.LAUNCHES, **ik.LAUNCHES}))
+print("[launches] " + json.dumps(_build.LAUNCHES))
 """
 
 ROOT = Path(__file__).resolve().parent

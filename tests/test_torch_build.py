@@ -18,7 +18,7 @@ from water_sandbox_tpu.core.params import Container as JContainer
 from water_sandbox_tpu.ops.pallas import sph_bucket as jsb
 from water_sandbox_tpu_torch.core import convert
 from water_sandbox_tpu_torch.core.params import SimConfig
-from water_sandbox_tpu_torch.ops.cuda import build
+from water_sandbox_tpu_torch.ops.cuda import _build, build
 from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
 
 
@@ -107,14 +107,14 @@ def test_build_wrapper_on_cpu_is_the_plain_chain(carry):
     blocks = {"none": (),
               "two blocks": (p + 0.01, ids.view(torch.float32)[:, None])}[
                   carry]
-    build.reset_launches()
+    _build.reset_launches()
     got = sb._build_core(p, v, params, cfg, carry=blocks)
     g = sb._geometry(cfg)
     order = got[3].long()
     args = (got[6], order, p, v, blocks, cfg.cell_capacity,
-            sb._cap_pad(cfg.cell_capacity), g.L, g.PAD)
+            sb._cap_pad(cfg.cell_capacity), g.L, g.PAD, build._NO_KEY_BOUND)
     direct = build.run_build(*args)
-    assert build.LAUNCHES == {"sph_build": 0}
+    assert not any(_build.LAUNCHES.values())
     for a, b, c in zip(direct, build.build_plain(*args), got):
         np.testing.assert_array_equal(_bits(a), _bits(b))
         np.testing.assert_array_equal(_bits(a), _bits(c))
@@ -194,7 +194,6 @@ def test_kernel_entry_points_declare_every_argument():
     with the `group` argument before `device`."""
     import ctypes
     import re
-    from water_sandbox_tpu_torch.ops.cuda import _build
     for name in _build._ENTRY_POINTS:
         src = (_build.CSRC / f"{name}.cu").read_text()
         entries = _build._entries(name)

@@ -19,10 +19,16 @@ from _torch_fixtures import cuda_device  # noqa: F401 (fixture)
 import water_sandbox_tpu_torch as wt
 from water_sandbox_tpu_torch.core.params import (DENSITY_PADDING,
                                                  KernelCoeffs, SimConfig)
+from water_sandbox_tpu_torch.ops.cuda import _build
 from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
 from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
 
 TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def _launched(*names):
+    """The port's launch counts (``_build.LAUNCHES``) of kernels ``names``."""
+    return tuple(_build.LAUNCHES[k] for k in names)
 
 
 def _at(planes, occ):
@@ -44,11 +50,11 @@ def test_kernels_match_plain(cuda_device, dim):
     pv = sb._param_vector(params, coeffs)
     occ = addr[addr < sb._cap_pad(cfg.cell_capacity)
                * sb._geometry(cfg).L].long()
-    sb.reset_launches()
+    _build.reset_launches()
     dens = sb.run_density(planes, counts, addr, pv, cfg)
     out = sb.run_force(planes, dens, counts, addr, pv, cfg)
     torch.cuda.synchronize()
-    assert sb.LAUNCHES == {"sph_density": 1, "sph_force": 1}
+    assert _launched("sph_density", "sph_force") == (1, 1)
     dens_p = sb.density_plain(planes, counts, addr, pv, cfg)
     out_p = sb.force_plain(planes, dens, counts, addr, pv, cfg)
     np.testing.assert_allclose(_at(dens, occ), _at(dens_p, occ), **TOL)
@@ -102,11 +108,11 @@ def test_density_kernel_groups_match_plain(cuda_device, dim, group):
     occ = addr[addr < sb._cap_pad(cfg.cell_capacity)
                * sb._geometry(cfg).L].long()
     want = _at(sb.density_plain(planes, counts, addr, pv, cfg), occ)
-    sb.reset_launches()
+    _build.reset_launches()
     got = sb._density_kernel(planes, counts, addr, pv, cfg, group)
     again = sb._density_kernel(planes, counts, addr, pv, cfg, group)
     torch.cuda.synchronize()
-    assert sb.LAUNCHES["sph_density"] == 2
+    assert _build.LAUNCHES["sph_density"] == 2
     np.testing.assert_allclose(_at(got, occ), want, rtol=2e-4,
                                atol=2e-4 * max(1.0, np.abs(want).max()))
     np.testing.assert_array_equal(_at(got, occ), _at(again, occ))
@@ -200,13 +206,10 @@ def test_step_matches_cpu(cuda_device):
                                          sorted_state=True,
                                          rescue_capacity=64)
     state = wt.rollout(state, params, cfg, 20)
-    from water_sandbox_tpu_torch.ops.cuda import build
-    sb.reset_launches()
-    build.reset_launches()
+    _build.reset_launches()
     got = wt.step(state.to(cuda_device), params.to(cuda_device), cfg)
     torch.cuda.synchronize()
-    assert sb.LAUNCHES == {"sph_density": 1, "sph_force": 1}
-    assert build.LAUNCHES == {"sph_build": 1}
+    assert _launched("sph_density", "sph_force", "sph_build") == (1, 1, 1)
     want = wt.step(state, params, cfg)
     np.testing.assert_array_equal(got.ids.cpu().numpy(), want.ids.numpy())
     for f in ("pos", "vel", "acc", "density", "near_density", "pressure"):
@@ -224,11 +227,11 @@ def test_incremental_rollout_matches_cpu(cuda_device):
                                          rescue_capacity=64,
                                          incremental_rebuild=4)
     state = wt.step(state, params, cfg)
-    sb.reset_launches()
+    _build.reset_launches()
     got = inc.rollout_inc(state.to(cuda_device), params.to(cuda_device), cfg,
                           6)
     torch.cuda.synchronize()
-    assert sb.LAUNCHES == {"sph_density": 6, "sph_force": 6}
+    assert _launched("sph_density", "sph_force") == (6, 6)
     want = inc.rollout_inc(state, params, cfg, 6)
     for f in ("pos", "vel", "acc", "density", "near_density"):
         np.testing.assert_allclose(getattr(got, f).cpu().numpy(),
@@ -259,10 +262,10 @@ def test_bitonic_sort_matches_plain(cuda_device, n, kind):
     """Keys and values bit-identical, ties included, in one launch: one
     block up to 8,192 pairs, a cluster of up to 8 blocks above."""
     keys, vals = _sort_case(n, kind)
-    bs.reset_launches()
+    _build.reset_launches()
     gk, gv = bs.sort_pairs(keys.to(cuda_device), vals.to(cuda_device))
     torch.cuda.synchronize()
-    assert bs.LAUNCHES == {"bitonic_sort": 1}
+    assert _build.LAUNCHES["bitonic_sort"] == 1
     wk, wv = bs.sort_pairs_plain(keys, vals)
     np.testing.assert_array_equal(gk.cpu().numpy(), wk.numpy())
     np.testing.assert_array_equal(gv.cpu().numpy(), wv.numpy())
@@ -300,14 +303,14 @@ def test_domain_kernels_on_halo_filled_planes(cuda_device):
         [params] * 8, cfg, 3, mesh)
     pv = sb._param_vector(params, KernelCoeffs.from_radius(
         params.smoothing_radius, 3))
-    sb.reset_launches()
+    _build.reset_launches()
     dens = [sb.run_density(feats[d], counts[d], addr[d], pv, cfg_loc)
             for d in range(8)]
     dens = domain._exchange_halo_slabs(dens, 3, g.S_pad, g.PAD, mesh)
     out = [sb.run_force(feats[d], dens[d], counts[d], addr[d], pv, cfg_loc)
            for d in range(8)]
     torch.cuda.synchronize()
-    assert sb.LAUNCHES == {"sph_density": 8, "sph_force": 8}
+    assert _launched("sph_density", "sph_force") == (8, 8)
     halo = 0.0
     for d in range(8):
         occ = addr[d][addr[d] < sb._cap_pad(16) * g.L].long()
@@ -377,18 +380,21 @@ def _hold_build(got, args):
         assert _same_bits(a, b), name
 
 
-@pytest.mark.parametrize("carry", [False, True])
+@pytest.mark.parametrize("rows", ["plain", "carry", "key bound"])
 @pytest.mark.parametrize("cap", [3, 96])
 @pytest.mark.parametrize("dim", [2, 3])
 def test_build_kernel_matches_plain(cuda_device, monkeypatch, dim, cap,
-                                    carry):
+                                    rows):
     """The build's kernel (csrc/sph_build.cu) against the plain chain on
     the same sort, bit for bit on all seven outputs: 3,001 rows (not a
     multiple of the kernel's 256-row block), at a capacity that overflows
-    (runs longer than cap) and one that does not, with the sorted step's
-    carry (positions and bit-cast ids, two blocks) and without; then the
-    same keys with one row's position NaN, which holds its slot and is left
-    out of its lane's count."""
+    (runs longer than cap) and one that does not; as the single-device
+    build without a carry and with the sorted step's (positions and
+    bit-cast ids, two blocks), and as the domain step's per-shard build
+    (``build_local_slab_buckets``), whose inactive quarter of the rows is
+    keyed at the key bound in one run longer than either capacity, takes
+    no slot and is no overflow; then the same keys with one row's position
+    NaN, which holds its slot and is left out of its lane's count."""
     from water_sandbox_tpu_torch.ops.cuda import build
     rng = np.random.default_rng(20 + dim + cap)
     n = 3001
@@ -399,17 +405,26 @@ def test_build_kernel_matches_plain(cuda_device, monkeypatch, dim, cap,
     p, v = (torch.from_numpy(pred).to(cuda_device),
             torch.from_numpy(vel).to(cuda_device))
     blocks = ()
-    if carry:
+    if rows == "carry":
         ids = torch.from_numpy(rng.permutation(n).astype(np.int32))
         blocks = (p + 0.01, ids.to(cuda_device).view(torch.float32)[:, None])
     calls = _record_build(monkeypatch)
-    build.reset_launches()
-    got = sb._build_core(p, v, params, cfg, carry=blocks)
+    _build.reset_launches()
+    if rows == "key bound":
+        active = torch.from_numpy(
+            (rng.random(n) >= 0.25).astype(np.float32)).to(cuda_device)
+        origin = torch.full((dim,), -1.0, device=cuda_device)
+        sb.build_local_slab_buckets(p, v, active, origin, 14, 0, params, cfg)
+        got = (*calls[0][1], calls[0][0][0])
+        inactive = int((got[6] == calls[0][0][-1]).sum())
+        assert inactive == int((active == 0).sum()) > cap
+    else:
+        got = sb._build_core(p, v, params, cfg, carry=blocks)
     torch.cuda.synchronize()
-    assert build.LAUNCHES == {"sph_build": 1}
+    assert _build.LAUNCHES["sph_build"] == 1
     _hold_build(got, calls[0][0])
     assert (int(got[5]) > 0) == (cap == 3)
-    assert int(got[4].shape[1]) == 2 * dim + (dim + 1 if carry else 0)
+    assert int(got[4].shape[1]) == 2 * dim + (dim + 1 if blocks else 0)
 
     sorted_col, order, _, v_, carry_, *geom = calls[0][0]
     L = sb._geometry(cfg).L
@@ -488,7 +503,6 @@ def test_integrate_kernel_matches_chain(cuda_device, dim, box, field, limit):
     block), at two times of the box's pose; one launch a call, contiguous
     (n, dim) outputs."""
     from water_sandbox_tpu_torch.ops import integrate as integ
-    from water_sandbox_tpu_torch.ops.cuda import integrate as ik
     params = _integrate_params(cuda_device, dim, box, field, limit)
     half = params.container.half_size.cpu()
     for n in (1, 3001):
@@ -505,10 +519,10 @@ def test_integrate_kernel_matches_chain(cuda_device, dim, box, field, limit):
             want = integ.integrate_plain(pos, vel, acc, params, t_new)
             for rows in ((pos, vel, acc),
                          tuple(x.contiguous() for x in (pos, vel, acc))):
-                ik.reset_launches()
+                _build.reset_launches()
                 got = integ.integrate(*rows, params, t_new)
                 torch.cuda.synchronize()
-                assert ik.LAUNCHES == {"sph_integrate": 1}
+                assert _build.LAUNCHES["sph_integrate"] == 1
                 for name, a, b in zip(("pos", "vel", "predicted"), got,
                                       want):
                     assert a.shape == (n, dim) and a.is_contiguous()
@@ -559,7 +573,7 @@ def test_integrate_wrapper_refuses_what_the_kernel_does_not_take(
     pos, vel, acc = _integrate_rows(cuda_device, 3, 64, 0)
     t = torch.tensor(1.0, device=cuda_device)
     wide = torch.zeros((64, 4), device=cuda_device)
-    ik.reset_launches()
+    _build.reset_launches()
     for args, match in (
             ((pos.double(), vel, acc, params), "float32"),
             ((pos, vel[:10], acc, params), "differ"),
@@ -568,7 +582,7 @@ def test_integrate_wrapper_refuses_what_the_kernel_does_not_take(
             ((pos, vel, acc.cpu(), params), "one device")):
         with pytest.raises(ValueError, match=match):
             ik.run_integrate(*args, t)
-    assert ik.LAUNCHES == {"sph_integrate": 0}
+    assert _build.LAUNCHES["sph_integrate"] == 0
 
 
 def _crowded_rescue(device, dim):
@@ -632,13 +646,13 @@ def test_rescue_kernels_match_plain(cuda_device, dim):
     prs = params.pressure_scalar * (d - params.target_density)
     nprs = params.near_pressure_scalar * nd
     got, want = acc.clone(), acc.clone()
-    rk.reset_launches()
+    _build.reset_launches()
     rk.rescue_force(p, v, d, nd, prs, nprs, sel, slot, count, got, params,
                     coeffs, pv, cfg, walk)
     rk.force_plain(p, v, d, nd, prs, nprs, sel, slot, count, want, params,
                    coeffs, cfg)
     torch.cuda.synchronize()
-    assert rk.LAUNCHES == {"sph_rescue_density": 0, "sph_rescue_force": 1}
+    assert _launched("sph_rescue_density", "sph_rescue_force") == (0, 1)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
 
     zero = torch.zeros_like(count)
@@ -768,16 +782,13 @@ def test_captured_rollout_matches_eager(cuda_device):
             s = wt.step(s, params, cfg)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    from water_sandbox_tpu_torch.ops.cuda import build
-    sb.reset_launches()
-    build.reset_launches()
+    _build.reset_launches()
     got = wt.rollout(state, params, cfg, 6)
     torch.cuda.synchronize()
     for f in ("pos", "vel", "density", "ids", "acc", "overflow_total"):
         assert torch.equal(getattr(got, f), getattr(s, f)), f
     assert float(s.overflow_total) > 0
-    assert sb.LAUNCHES == {"sph_density": 6, "sph_force": 6}
-    assert build.LAUNCHES == {"sph_build": 6}
+    assert _launched("sph_density", "sph_force", "sph_build") == (6, 6, 6)
     g = graph.StepGraph(state.clone(), params, cfg)
     g.run(1)
     assert g.per_replay == {"sph_build": 1, "sph_density": 1,
@@ -866,12 +877,12 @@ def test_domain_rescue_kernels_match_plain(cuda_device, monkeypatch, dim,
     params, cfg, mesh, states, active = _domain_cloud(
         cuda_device, dim, 2 if case == "overflow" else 64)
     calls = _record_domain_rescue(monkeypatch)
-    dr.reset_launches()
+    _build.reset_launches()
     domain.make_domain_step(mesh, cfg)(states, active, params)
     torch.cuda.synchronize()
     monkeypatch.undo()
-    assert dr.LAUNCHES == {"sph_domain_rescue_density": 4,
-                           "sph_domain_rescue_force": 4}
+    assert _launched("sph_domain_rescue_density",
+                     "sph_domain_rescue_force") == (4, 4)
     gates = [int(a[3].count) for a in calls["density"]]
     assert (min(gates) > 0) if case == "overflow" else (max(gates) == 0)
     for args in calls["density"]:
@@ -911,7 +922,6 @@ def test_domain_graph_replays_the_eager_step(cuda_device):
     over 6 steps; a replay counts one launch of K1, K3, D1 and D2 a shard;
     DistributedSimulation replays, and tune needs no recapture."""
     from water_sandbox_tpu_torch.core.params import Container, _map_tensors
-    from water_sandbox_tpu_torch.ops.cuda import domain_rescue as dr
     from water_sandbox_tpu_torch.ops.cuda import graph
     from water_sandbox_tpu_torch.parallel import domain, mesh as mesh_mod
     from water_sandbox_tpu_torch.runtime.distributed import (
@@ -935,14 +945,13 @@ def test_domain_graph_replays_the_eager_step(cuda_device):
                           [a.clone() for a in active],
                           _map_tensors(params, torch.clone), mesh)
     assert g.captures
-    sb.reset_launches()
-    dr.reset_launches()
+    _build.reset_launches()
     g.run(6)
     torch.cuda.synchronize()
-    assert g.per_replay == {"sph_density": 8, "sph_force": 8,
+    assert g.per_replay == {"sph_build": 8, "sph_density": 8, "sph_force": 8,
                             "sph_domain_rescue_density": 8,
                             "sph_domain_rescue_force": 8, "sph_integrate": 8}
-    assert dr.LAUNCHES["sph_domain_rescue_density"] == 48
+    assert _build.LAUNCHES["sph_domain_rescue_density"] == 48
     for a, b in zip(g.states, e_states):
         for f in ("pos", "vel", "density", "ids", "acc"):
             assert _same_bits(getattr(a, f), getattr(b, f)), f
@@ -1069,7 +1078,6 @@ def test_captured_incremental_step_equals_eager(cuda_device):
     (the branch's device count)."""
     from water_sandbox_tpu_torch.ops.cuda import graph
     from water_sandbox_tpu_torch.ops.cuda import incremental as inc
-    from water_sandbox_tpu_torch.ops.cuda import rescue as rk
     cfg, params, state = wt.scenes.build(
         "mini-3d", device=cuda_device, neighbor_mode="pallas",
         incremental_rebuild=3, cell_capacity=4, rescue_capacity=64)
@@ -1087,8 +1095,7 @@ def test_captured_incremental_step_equals_eager(cuda_device):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     g = graph.IncrementalGraph(state.clone(), params, cfg)
-    sb.reset_launches()
-    rk.reset_launches()
+    _build.reset_launches()
     g.run(7)
     g.run(3)
     torch.cuda.synchronize()
@@ -1101,9 +1108,9 @@ def test_captured_incremental_step_equals_eager(cuda_device):
     assert fired == {k: int(v) for k, v in br.fired.items()}
     assert fired["rebuild"] >= 2 and fired["drop"] >= 5
     assert g.per_replay == {"sph_density": 1, "sph_force": 1}
-    assert sb.LAUNCHES == {"sph_density": 10, "sph_force": 10}
-    assert rk.LAUNCHES == {"sph_rescue_density": fired["drop"],
-                           "sph_rescue_force": fired["drop"]}
+    assert _launched("sph_density", "sph_force") == (10, 10)
+    assert _launched("sph_rescue_density",
+                     "sph_rescue_force") == (fired["drop"],) * 2
 
 
 def _bucket_grid_case(dev, cap=3):
@@ -1123,12 +1130,12 @@ def test_bucket_grid_step_is_device_only(cuda_device):
     once a step, not their plain versions (and the integrate kernel once a
     replay)."""
     from water_sandbox_tpu_torch.ops import grid
-    from water_sandbox_tpu_torch.ops.cuda import graph, rescue as rk
+    from water_sandbox_tpu_torch.ops.cuda import graph
     cfg, params, state = _bucket_grid_case(cuda_device)
     raw = grid.build_bucket_grid(state.predicted, state.vel, params, cfg)
     assert int(raw.overflow) > 0
     torch.cuda.synchronize()
-    rk.reset_launches()
+    _build.reset_launches()
     torch.cuda.set_sync_debug_mode("error")
     try:
         s = state
@@ -1136,7 +1143,7 @@ def test_bucket_grid_step_is_device_only(cuda_device):
             s = wt.step(s, params, cfg)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert rk.LAUNCHES == {"sph_rescue_density": 4, "sph_rescue_force": 4}
+    assert _launched("sph_rescue_density", "sph_rescue_force") == (4, 4)
     g = graph.StepGraph(state.clone(), params, cfg)
     g.run(4)
     torch.cuda.synchronize()

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from water_sandbox_tpu.ops.pallas import bitonic_sort as jbitonic
+from water_sandbox_tpu_torch.ops.cuda import _build
 from water_sandbox_tpu_torch.ops.cuda import bitonic_sort as bs
 
 
@@ -29,9 +30,9 @@ def test_sort_pairs_bit_identical_to_jax(n):
     keys = rng.integers(-300, 300, n).astype(np.int32)
     keys[:3] = [np.iinfo(np.int32).min, np.iinfo(np.int32).max, 0]
     vals = rng.permutation(n).astype(np.int32)
-    bs.reset_launches()
+    _build.reset_launches()
     (gk, gv), (wk, wv) = _both(keys, vals)
-    assert bs.LAUNCHES["bitonic_sort"] == 0       # CPU: the plain version
+    assert _build.LAUNCHES["bitonic_sort"] == 0   # CPU: the plain version
     assert gk.dtype == gv.dtype == torch.int32
     np.testing.assert_array_equal(gk.numpy(), np.asarray(wk))
     np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))

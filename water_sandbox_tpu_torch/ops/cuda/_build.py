@@ -6,6 +6,9 @@ plain C interface, and loads them with ``ctypes``. It runs on first use from
 a CUDA tensor, never on import: the output goes to
 ``build/torch_kernels/<hash of sources and flags>/`` at the root of the
 checkout, so an unchanged tree reuses its build and an edited one rebuilds.
+
+Every kernel wrapper launches through ``launch``, which raises on a CUDA
+error and counts the launch in ``LAUNCHES``, the port's one launch count.
 """
 
 from __future__ import annotations
@@ -74,6 +77,20 @@ def _entries(name: str) -> list:
     hold one entry point or several."""
     spec = _ENTRY_POINTS[name]
     return spec if isinstance(spec, list) else [spec]
+
+
+# Kernel launches made through ``launch``, by kernel: ``<name>`` of every
+# entry point ``wst_<name>`` but those that are no kernel port. A launch
+# made for any purpose counts, so a caller that wants one run's count
+# resets it first.
+LAUNCHES = {entry[len("wst_"):]: 0 for src in _ENTRY_POINTS
+            if src not in ("graph_if", "trace_mark")
+            for entry, _ in _entries(src)}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 class Built(NamedTuple):
@@ -166,3 +183,17 @@ def build() -> Built:
 def entry(name: str):
     """The ctypes function of C entry point ``name`` (building first)."""
     return build().fns[name]
+
+
+def check(err: int, what: str) -> None:
+    """Raise on the non-zero CUDA error ``err`` a C entry point returned;
+    ``what`` says which call failed."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def launch(name: str, *args) -> None:
+    """Launch kernel ``name`` through entry point ``wst_<name>`` and count
+    it in ``LAUNCHES``."""
+    check(entry("wst_" + name)(*args), f"{name} kernel launch failed")
+    LAUNCHES[name] += 1

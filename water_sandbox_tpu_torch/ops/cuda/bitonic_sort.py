@@ -7,25 +7,20 @@ the same compare-exchange network as the TPU kernel, so keys and values
 pads with INT32_MAX keys to ``max(1024, 2^ceil(log2 n))``; more than 65,536
 padded pairs raise, as in the JAX package. On a CUDA tensor it launches
 ``csrc/bitonic_sort.cu`` once (the kernel makes the padding itself and
-writes the n sorted pairs into two fresh tensors) and counts the call in
-``LAUNCHES``; on a CPU tensor it runs ``sort_pairs_plain``, the same network
-in torch ops.
+writes the n sorted pairs into two fresh tensors) through
+``_build.launch``, which counts; on a CPU tensor it runs
+``sort_pairs_plain``, the same network in torch ops.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import _build
+
 _LANES = 128
 _KEY_MAX = 2**31 - 1
 MAX_PAIRS = 65536
-
-# Calls that launched the kernel (see sph_bucket.LAUNCHES).
-LAUNCHES = {"bitonic_sort": 0}
-
-
-def reset_launches() -> None:
-    LAUNCHES["bitonic_sort"] = 0
 
 
 def _n_pad(keys: torch.Tensor, values: torch.Tensor) -> int:
@@ -96,15 +91,10 @@ def sort_pairs(keys: torch.Tensor, values: torch.Tensor):
     values = values.to(torch.int32).contiguous()
     out_k = torch.empty_like(keys)
     out_v = torch.empty_like(values)
-    from . import _build
-    err = _build.entry("wst_bitonic_sort")(
-        keys.data_ptr(), values.data_ptr(), out_k.data_ptr(),
-        out_v.data_ptr(), keys.shape[0], n_pad, keys.device.index or 0,
-        torch.cuda.current_stream(keys.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"bitonic_sort kernel launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES["bitonic_sort"] += 1
+    _build.launch("bitonic_sort", keys.data_ptr(), values.data_ptr(),
+                  out_k.data_ptr(), out_v.data_ptr(), keys.shape[0], n_pad,
+                  keys.device.index or 0,
+                  torch.cuda.current_stream(keys.device).cuda_stream)
     return out_k, out_v
 
 

@@ -16,8 +16,8 @@ come from ``query_walk``.
 Each wrapper runs its plain version (``density_plain`` / ``force_plain``:
 the JAX package's all-pairs sweeps, selected by the gate with
 ``torch.where``) for CPU tensors and launches its kernel for CUDA tensors —
-there is no fallback between the two — and counts its launches in
-``LAUNCHES``. The sweeps (``density_sums``, ``force_sums``) also serve the
+there is no fallback between the two — through ``_build.launch``, which
+counts. The sweeps (``density_sums``, ``force_sums``) also serve the
 plain pair-block path of the domain step.
 """
 
@@ -30,13 +30,10 @@ import torch
 from ...core.params import DENSITY_PADDING, KernelCoeffs, SimConfig, SimParams
 from .. import kernels
 from ..rescue import _chunks
+from . import _build
 from . import sph_bucket as sb
 
 _FAR = sb._FAR
-
-# Kernel launches by the wrappers (callers that need the main path's count
-# reset it first).
-LAUNCHES = {"sph_domain_rescue_density": 0, "sph_domain_rescue_force": 0}
 
 # The column of an invalid query row: above every column and its reach, so
 # it sorts last and lies in no run (csrc/sph_domain_rescue.cu::kNoCol).
@@ -45,11 +42,6 @@ NO_COL = 1 << 30
 # Blocks of part (a) at most, striding a shard's R rows (R <= 256 on the
 # domain step's default).
 _BLOCKS_A = 1024
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 class Rows(NamedTuple):
@@ -258,14 +250,6 @@ def _check_inputs(tensors, n: int, q: Queries, walk: Rows):
         raise ValueError(f"unsupported device {dev}")
 
 
-def _launch(name: str, *args) -> None:
-    from . import _build
-    err = _build.entry("wst_" + name)(*args)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
-
-
 def _geometry_args(cfg_loc: SimConfig, R: int) -> tuple:
     g = sb._geometry(cfg_loc)
     return (cfg_loc.dim, sb._cap_pad(cfg_loc.cell_capacity), g.L, g.PAD,
@@ -303,13 +287,14 @@ def rescue_density(pred, walk: Rows, addr, q: Queries, feats, dens, qden,
         density_plain(pred, walk, addr, q, feats, dens, qden, qnden, params,
                       coeffs, cfg_loc)
         return
-    _launch("sph_domain_rescue_density", pred.data_ptr(), n,
-            walk.skey.data_ptr(), walk.order.data_ptr(), addr.data_ptr(),
-            q.pos.data_ptr(), q.col.data_ptr(), q.scol.data_ptr(),
-            q.qord.data_ptr(), 3 * R, R, feats.data_ptr(),
-            q.count.data_ptr(), params_vec.data_ptr(), dens.data_ptr(),
-            qden.data_ptr(), qnden.data_ptr(), *_geometry_args(cfg_loc, R),
-            *_stream(pred))
+    _build.launch(
+        "sph_domain_rescue_density", pred.data_ptr(), n,
+        walk.skey.data_ptr(), walk.order.data_ptr(), addr.data_ptr(),
+        q.pos.data_ptr(), q.col.data_ptr(), q.scol.data_ptr(),
+        q.qord.data_ptr(), 3 * R, R, feats.data_ptr(),
+        q.count.data_ptr(), params_vec.data_ptr(), dens.data_ptr(),
+        qden.data_ptr(), qnden.data_ptr(), *_geometry_args(cfg_loc, R),
+        *_stream(pred))
 
 
 def active_rows(walk: Rows, cfg_loc: SimConfig) -> torch.Tensor:
@@ -379,14 +364,15 @@ def rescue_force(pred, vel, den, nden, prs, nprs, walk: Rows, slot,
         force_plain(pred, vel, den, nden, prs, nprs, walk, slot, q, qf,
                     feats, dens, acc, params, coeffs, cfg_loc)
         return
-    _launch("sph_domain_rescue_force", pred.data_ptr(), vel.data_ptr(),
-            den.data_ptr(), nden.data_ptr(), prs.data_ptr(), nprs.data_ptr(),
-            n, walk.skey.data_ptr(), walk.order.data_ptr(), slot.data_ptr(),
-            qf.data_ptr(), q.row.data_ptr(), q.col.data_ptr(),
-            q.scol.data_ptr(), q.qord.data_ptr(), 3 * R, R,
-            feats.data_ptr(), dens.data_ptr(), q.count.data_ptr(),
-            params_vec.data_ptr(), acc.data_ptr(),
-            *_geometry_args(cfg_loc, R), *_stream(pred))
+    _build.launch(
+        "sph_domain_rescue_force", pred.data_ptr(), vel.data_ptr(),
+        den.data_ptr(), nden.data_ptr(), prs.data_ptr(), nprs.data_ptr(),
+        n, walk.skey.data_ptr(), walk.order.data_ptr(), slot.data_ptr(),
+        qf.data_ptr(), q.row.data_ptr(), q.col.data_ptr(),
+        q.scol.data_ptr(), q.qord.data_ptr(), 3 * R, R,
+        feats.data_ptr(), dens.data_ptr(), q.count.data_ptr(),
+        params_vec.data_ptr(), acc.data_ptr(),
+        *_geometry_args(cfg_loc, R), *_stream(pred))
 
 
 def force_plain(pred, vel, den, nden, prs, nprs, walk: Rows, slot,

@@ -31,11 +31,10 @@ under, so a graph belongs to its owner and is never shared: a patched
 context (``golden.flipped_near_derivative``, a forced row group) captures
 its own.
 
-Kernel launches are counted as the eager step counts them: the wrappers'
-counters (``LAUNCHES`` of ``sph_bucket``, ``rescue``, ``bitonic_sort``,
-``domain_rescue``, ``build``, ``integrate``) move only while the step is
-captured, and each replay adds what the capture counted; warm-up launches
-are not counted.
+Kernel launches are counted as the eager step counts them: the port's one
+launch count (``_build.LAUNCHES``) moves only while the step is captured,
+and each replay adds what the capture counted; warm-up launches are not
+counted.
 
 ``IncrementalGraph`` captures the incremental step
 (``ops/cuda/incremental.py``), whose branches the JAX package takes with
@@ -51,6 +50,7 @@ body keeps a device count of the replays where it ran, read once after
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -60,6 +60,7 @@ from ...core import device as device_mod
 from ...core.params import SimConfig, SimParams
 from ...core.state import FluidState
 from ...runtime import profiling
+from . import _build
 
 # Eager steps on a side stream before the capture.
 WARMUP_STEPS = 2
@@ -69,36 +70,25 @@ WARMUP_STEPS = 2
 CAPTURED_MODES = ("pallas", "bucket_grid", "dense", "hash_grid")
 
 
-def _counters() -> tuple:
-    from . import (bitonic_sort, build, domain_rescue, integrate, rescue,
-                   sph_bucket)
-    return (sph_bucket.LAUNCHES, rescue.LAUNCHES, bitonic_sort.LAUNCHES,
-            domain_rescue.LAUNCHES, build.LAUNCHES, integrate.LAUNCHES)
-
-
-def _read_counters() -> list:
-    return [dict(c) for c in _counters()]
-
-
-def _set_counters(values: list) -> None:
-    for c, v in zip(_counters(), values):
-        c.update(v)
-
-
-def _launches_since(before: list) -> dict:
-    """The launches counted since ``before`` (``_read_counters``), by
-    kernel; the counters are put back to ``before``."""
-    after = _read_counters()
-    _set_counters(before)
-    return {k: v - b[k] for a, b in zip(after, before) for k, v in a.items()
-            if v != b[k]}
+@contextlib.contextmanager
+def _counted_apart():
+    """The launches made inside go to the dict it yields, by kernel, and
+    not to the port's count (``_build.LAUNCHES``), which is left as it
+    was."""
+    before = dict(_build.LAUNCHES)
+    made: dict = {}
+    try:
+        yield made
+    finally:
+        made.update({k: v - before[k] for k, v in _build.LAUNCHES.items()
+                     if v != before[k]})
+        _build.LAUNCHES.update(before)
 
 
 def _add_launches(launches: dict, times: int) -> None:
-    """``launches`` (by kernel) added ``times`` times to the counters."""
-    for c in _counters():
-        for k in c:
-            c[k] += times * launches.get(k, 0)
+    """``launches`` (by kernel) added ``times`` times to the counts."""
+    for k, v in launches.items():
+        _build.LAUNCHES[k] += times * v
 
 
 def copy_state(dst: FluidState, src: FluidState) -> None:
@@ -144,24 +134,23 @@ class _Graph:
     def _capture(self) -> None:
         dev = self.device
         t0 = time.perf_counter()
-        before = _read_counters()
         saved = self._save()
         taken = {s.cuda_stream for s in self.streams}
         taken.add(torch.cuda.current_stream(dev).cuda_stream)
         side = device_mod.pool_stream(dev, taken)
         taken.add(side.cuda_stream)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), _counted_apart():
             self._warm_up()
         torch.cuda.current_stream(dev).wait_stream(side)
         self._restore(saved)
         del saved
-        _set_counters(before)
         self._stream = device_mod.pool_stream(dev, taken)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self._stream):
+        with _counted_apart() as made, torch.cuda.graph(
+                graph, stream=self._stream):
             self._advance()
-        self.per_replay = _launches_since(before)
+        self.per_replay = made
         self.graph = graph
         if self.marked:
             self._capture_traced()
@@ -169,16 +158,15 @@ class _Graph:
 
     def _capture_traced(self) -> None:
         """Capture the step with its phase markers into ``traced``, after
-        ``graph``; the launch counters stay as they were."""
-        before = _read_counters()
+        ``graph``; the launch counts stay as they were."""
         dev = self.device
         index = dev.index if dev.index is not None else (
             torch.cuda.current_device())
         graph = torch.cuda.CUDAGraph()
-        with profiling.marking(index) as markers, torch.cuda.graph(
-                graph, pool=self.graph.pool(), stream=self._stream):
-            self._advance()
-        _set_counters(before)
+        with _counted_apart(), profiling.marking(index) as markers:
+            with torch.cuda.graph(graph, pool=self.graph.pool(),
+                                  stream=self._stream):
+                self._advance()
         self.markers = list(markers)
         self.traced = graph
 
@@ -422,7 +410,6 @@ def device_if(pred, body, branches: Branches | None = None,
         raise ValueError("device_if under capture needs a Branches")
     if pred.dtype != torch.bool or pred.dim() != 0:
         raise ValueError(f"{name}: the predicate must be a () bool tensor")
-    from . import _build
     dev = pred.device
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     parent = torch.cuda.current_stream(dev)
@@ -431,22 +418,20 @@ def device_if(pred, body, branches: Branches | None = None,
         # torch hands its streams out round robin from a pool, so the
         # body's may be the capturing one: take the next
         child = branches.stream = torch.cuda.Stream(dev)
-    before = _read_counters()
-    err = _build.entry("wst_if_begin")(
-        pred.data_ptr(), child.cuda_stream, index, parent.cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: IF node not added: CUDA error {err}")
-    try:
-        with torch.cuda.stream(child), torch.cuda.use_mem_pool(
-                branches.pool, dev):
-            body()
-            branches.fired[name].add_(1)
-    finally:
-        err = _build.entry("wst_if_end")(index, child.cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: IF body not captured: CUDA error {err}")
+    with _counted_apart() as made:
+        _build.check(_build.entry("wst_if_begin")(
+            pred.data_ptr(), child.cuda_stream, index, parent.cuda_stream),
+            f"{name}: IF node not added")
+        try:
+            with torch.cuda.stream(child), torch.cuda.use_mem_pool(
+                    branches.pool, dev):
+                body()
+                branches.fired[name].add_(1)
+        finally:
+            err = _build.entry("wst_if_end")(index, child.cuda_stream)
+    _build.check(err, f"{name}: IF body not captured")
     counted = branches.launches[name]
-    for k, v in _launches_since(before).items():
+    for k, v in made.items():
         counted[k] = counted.get(k, 0) + v
 
 

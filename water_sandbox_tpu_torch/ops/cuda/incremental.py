@@ -60,7 +60,7 @@ import torch
 
 from ...core.params import KernelCoeffs, SimConfig, SimParams, _map_tensors
 from ...core.state import FluidState
-from .. import hashing, integrate as integrate_mod
+from .. import grid, hashing, integrate as integrate_mod
 from . import graph as graph_mod
 from . import rescue as rescue_k
 from . import sph_bucket as sb
@@ -234,10 +234,7 @@ def reinsert(pred_c, vel_c, cache: BucketCache, params: SimParams,
     valid = mk < _I32_MAX
 
     # rank among this step's movers into the same column
-    miota = torch.arange(M, dtype=torch.int32, device=dev)
-    first = torch.ones(M, dtype=torch.bool, device=dev)
-    first[1:] = mk[1:] != mk[:-1]
-    rank = miota - torch.cummax(torch.where(first, miota, 0), dim=0).values
+    rank = grid.slots_in_runs(mk)
 
     # rank 0 takes the first free slot, rank 1 the second, rank >= 2 stacks
     # above both the column's top and its second free slot; new slots were

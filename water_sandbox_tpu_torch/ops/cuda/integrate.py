@@ -6,8 +6,8 @@ prediction — ``ops/integrate.py::integrate`` on CUDA tensors.
 ``ops/integrate.py::integrate_plain``, the ATen chain that ``integrate``
 runs for CPU tensors; there is no fallback between the two. The kernel
 reads the parameters through the ``SimParams`` leaves' device pointers, so
-a captured step sees what ``Simulation.tune`` copies into them. Launches
-are counted in ``LAUNCHES``.
+a captured step sees what ``Simulation.tune`` copies into them. It
+launches through ``_build.launch``, which counts.
 """
 
 from __future__ import annotations
@@ -17,14 +17,7 @@ import ctypes
 import torch
 
 from ...core.params import SimParams
-
-# Kernel launches by run_integrate (see sph_bucket.LAUNCHES).
-LAUNCHES = {"sph_integrate": 0}
-
-
-def reset_launches() -> None:
-    LAUNCHES["sph_integrate"] = 0
-
+from . import _build
 
 def _leaves(params: SimParams, t_new: torch.Tensor, dim: int):
     """(tensor, element count) of each parameter the kernel reads, in the
@@ -76,13 +69,9 @@ def run_integrate(pos, vel, acc, params: SimParams, t_new):
     out = [torch.empty((n, dim), dtype=torch.float32, device=dev)
            for _ in range(3)]
     ptrs = (ctypes.c_void_p * len(leaves))(*(t.data_ptr() for t, _ in leaves))
-    from . import _build
-    err = _build.entry("wst_sph_integrate")(
-        pos.data_ptr(), *pos.stride(), vel.data_ptr(), *vel.stride(),
-        acc.data_ptr(), *acc.stride(), ptrs, *(t.data_ptr() for t in out), n,
-        dim, dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"sph_integrate kernel launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES["sph_integrate"] += 1
+    _build.launch(
+        "sph_integrate", pos.data_ptr(), *pos.stride(), vel.data_ptr(),
+        *vel.stride(), acc.data_ptr(), *acc.stride(), ptrs,
+        *(t.data_ptr() for t in out), n, dim, dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream)
     return tuple(out)

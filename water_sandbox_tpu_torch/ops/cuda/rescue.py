@@ -12,8 +12,8 @@ they walk (``Walk``: the build's sorted columns, the row at each position,
 the rescued list in column order) from ``cell_walk``. Each wrapper runs its
 plain version (``density_plain`` / ``force_plain``, the all-pairs
 device-count functions of ``ops/rescue.py``) for CPU tensors and launches
-its kernel for CUDA tensors — there is no fallback between the two — and
-counts its launches in ``LAUNCHES``.
+its kernel for CUDA tensors — there is no fallback between the two —
+through ``_build.launch``, which counts.
 """
 
 from __future__ import annotations
@@ -26,21 +26,13 @@ import torch
 
 from ...core.params import KernelCoeffs, SimConfig, SimParams
 from .. import rescue as rescue_mod
+from . import _build
 from . import sph_bucket as sb
-
-# Kernel launches by the wrappers (callers that need the main path's count
-# reset it first).
-LAUNCHES = {"sph_rescue_density": 0, "sph_rescue_force": 0}
 
 # Blocks of part (a), one rescued row at a time, striding the list by this
 # many: enough to fill the card at thousands of rescued rows, few enough
 # that the empty launch of a step without overflow stays short.
 _BLOCKS_A = 1024
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 class _Counter(threading.local):
@@ -158,14 +150,6 @@ def _check_inputs(rows, sel, slot, count, params_vec, walk: Walk):
         raise ValueError("the rescue needs rescue_capacity > 0")
 
 
-def _launch(name: str, *args) -> None:
-    from . import _build
-    err = _build.entry("wst_" + name)(*args)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
-
-
 def _blocks_a(sel) -> int:
     return min(sel.shape[0], _BLOCKS_A)
 
@@ -212,14 +196,15 @@ def rescue_density(predicted, sel, slot, count, addr, den, nden, dens,
             rescued.add_(count)
         return
     ptrs, grid = _walk_args(walk, cfg)
-    _launch("sph_rescue_density", predicted.data_ptr(), slot.shape[0],
-            *ptrs, slot.data_ptr(), count.data_ptr(),
-            None if addr is None else addr.data_ptr(),
-            params_vec.data_ptr(), den.data_ptr(), nden.data_ptr(),
-            None if dens is None else dens.data_ptr(),
-            None if rescued is None else rescued.data_ptr(), dim, cap_p, L,
-            *grid, _blocks_a(sel), slot.device.index or 0,
-            torch.cuda.current_stream(slot.device).cuda_stream)
+    _build.launch(
+        "sph_rescue_density", predicted.data_ptr(), slot.shape[0],
+        *ptrs, slot.data_ptr(), count.data_ptr(),
+        None if addr is None else addr.data_ptr(),
+        params_vec.data_ptr(), den.data_ptr(), nden.data_ptr(),
+        None if dens is None else dens.data_ptr(),
+        None if rescued is None else rescued.data_ptr(), dim, cap_p, L,
+        *grid, _blocks_a(sel), slot.device.index or 0,
+        torch.cuda.current_stream(slot.device).cuda_stream)
 
 
 def density_plain(predicted, sel, slot, count, addr, den, nden, dens,
@@ -259,12 +244,13 @@ def rescue_force(predicted, vel, den, nden, prs, nprs, sel, slot, count,
                     acc, params, coeffs, cfg)
         return
     ptrs, grid = _walk_args(walk, cfg)
-    _launch("sph_rescue_force", predicted.data_ptr(), vel.data_ptr(),
-            den.data_ptr(), nden.data_ptr(), prs.data_ptr(), nprs.data_ptr(),
-            slot.shape[0], *ptrs, slot.data_ptr(), count.data_ptr(),
-            params_vec.data_ptr(), acc.data_ptr(), dim, *grid,
-            _blocks_a(sel), slot.device.index or 0,
-            torch.cuda.current_stream(slot.device).cuda_stream)
+    _build.launch(
+        "sph_rescue_force", predicted.data_ptr(), vel.data_ptr(),
+        den.data_ptr(), nden.data_ptr(), prs.data_ptr(), nprs.data_ptr(),
+        slot.shape[0], *ptrs, slot.data_ptr(), count.data_ptr(),
+        params_vec.data_ptr(), acc.data_ptr(), dim, *grid,
+        _blocks_a(sel), slot.device.index or 0,
+        torch.cuda.current_stream(slot.device).cuda_stream)
 
 
 def force_plain(predicted, vel, den, nden, prs, nprs, sel, slot, count, acc,

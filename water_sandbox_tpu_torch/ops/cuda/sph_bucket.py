@@ -13,7 +13,7 @@
   (``csrc/sph_force.cu``), hand-written CUDA for Hopper. Each wrapper runs
   its plain PyTorch version (``density_plain`` / ``force_plain``) for CPU
   tensors and launches its kernel for CUDA tensors — there is no fallback
-  between the two — and counts its launches in ``LAUNCHES``.
+  between the two — and launches through ``_build.launch``, which counts.
 * Passes: ``sph_passes`` (density → exact overflow rescue → force →
   gather), ``bucket_sph`` (particle order) and ``bucket_sph_sorted`` (rows
   in this step's bucket order, identity on ``ids``). The rescue's kernels
@@ -33,6 +33,7 @@ import torch
 from ...core.params import DENSITY_PADDING, KernelCoeffs, SimConfig, SimParams
 from ...runtime import profiling
 from .. import hashing
+from . import _build
 
 _FAR = 1.0e15
 
@@ -49,10 +50,6 @@ _P_NEAR_PRESSURE = 7
 _P_TARGET_DENSITY = 8
 _P_VISCOSITY = 9
 
-# Kernel launches by the wrappers (a launch made for any purpose counts;
-# callers that need the main path's count reset it first).
-LAUNCHES = {"sph_density": 0, "sph_force": 0}
-
 # Threads an SM the kernels' row groups aim for (_row_group). On the H100
 # (132 SMs) two threads a row beat one at 65,536 rows (496 threads an SM)
 # and lose at 266,112 (2,016), for both kernels. On the first m rows of the
@@ -66,11 +63,6 @@ _ROW_THREADS_PER_SM = 768
 # Candidate elements (rows x 3^dim x cap_p) per chunk of the plain versions:
 # bounds their temporaries to tens of MB at any particle count.
 _PLAIN_CHUNK = 1 << 21
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 class Geom(NamedTuple):
@@ -135,24 +127,6 @@ def _lane_offsets(g: Geom, dim: int) -> list[int]:
     return offs
 
 
-def _scatter_planes(srows: torch.Tensor, flat: torch.Tensor, dim: int,
-                    cap_p: int, L: int) -> torch.Tensor:
-    """Scatter the (n, 2·dim) sorted feature rows into the planes
-    (2·dim, cap_p, L): one slot-major scatter per feature, then a stack (the
-    JAX package's "stack" build). Position rows fill with _FAR (the kernels'
-    distance test then rejects empty slots), velocity rows with 0. The
-    capacity-overflow address cap_p·L lands in one extra element that is
-    dropped; it is the only address that repeats."""
-    idx = flat.long()
-    out = []
-    for j in range(srows.shape[1]):
-        buf = torch.full((cap_p * L + 1,), _FAR if j < dim else 0.0,
-                         dtype=srows.dtype, device=srows.device)
-        buf[idx] = srows[:, j]
-        out.append(buf[:-1].view(cap_p, L))
-    return torch.stack(out)
-
-
 def _build_core(predicted, vel, params, cfg: SimConfig, carry=(),
                 origin=None, time=None):
     """The bucket build, scattering directly into the kernels' layout: the
@@ -194,7 +168,8 @@ def _build_core(predicted, vel, params, cfg: SimConfig, carry=(),
     sorted_col, order = torch.sort(col, stable=True)
     from . import build
     return (*build.run_build(sorted_col, order, predicted, vel, carry, cap,
-                             _cap_pad(cap), g.L, g.PAD), sorted_col)
+                             _cap_pad(cap), g.L, g.PAD, build._NO_KEY_BOUND),
+            sorted_col)
 
 
 def _particle_addr(flat, order):
@@ -235,7 +210,8 @@ def build_local_slab_buckets(pred, vel, active, origin, gx_loc: int,
     """Per-shard build of the domain-decomposed step: like
     ``_build_slab_buckets`` over the shard's slab range of the global grid
     (``local_columns``; the distance test keeps the stragglers' pairs
-    exact), with inactive slots sorting last and dropped. The halo exchange
+    exact), with inactive rows keyed at the slab's end, so they sort last
+    and take no slot, in ``build.run_build``. The halo exchange
     writes the neighbours' boundary slabs into the lanes just inside the
     pads (``parallel/domain.py``).
 
@@ -245,31 +221,17 @@ def build_local_slab_buckets(pred, vel, active, origin, gx_loc: int,
     sort last —, order (n,) i32 the row at each position): the last two are
     the order the domain rescue's kernels walk, as ``_build_core``'s
     ``sorted_col`` is the single-device rescue's."""
-    n, dim = pred.shape
     cap = cfg_loc.cell_capacity
     g = _geometry(cfg_loc)
-
     col = local_columns(pred, origin, gx_loc, my_dev, params, cfg_loc)
     end = gx_loc * g.S_pad
-    key = torch.where(active > 0, col, end)          # inactive sort last
+    key = torch.where(active > 0, col, end)
     sorted_key, order = torch.sort(key, stable=True)
-    ranks = torch.arange(n, dtype=torch.int32, device=pred.device)
-    first = torch.ones(n, dtype=torch.bool, device=pred.device)
-    first[1:] = sorted_key[1:] != sorted_key[:-1]
-    run_start = torch.cummax(torch.where(first, ranks, 0), dim=0).values
-    slot = ranks - run_start
-    cap_p = _cap_pad(cap)
-    ok = (slot < cap) & (sorted_key < end)
-    flat = torch.where(ok, slot * g.L + g.PAD + sorted_key, cap_p * g.L)
-
-    srows = torch.cat([pred, vel], dim=1)[order]
-    planes = _scatter_planes(srows, flat, dim, cap_p, g.L)
-    counts = (planes[0] < _FAR * 0.5).sum(dim=0, dtype=pred.dtype)[None, :]
-    addr = torch.empty(n, dtype=torch.int32, device=pred.device)
-    addr[order] = flat.to(torch.int32)
-    overflow = (active.sum() - ok.sum()).to(torch.int32)
-    return (planes, counts, addr, overflow, sorted_key,
-            order.to(torch.int32))
+    from . import build
+    planes, counts, flat, order, _, overflow = build.run_build(
+        sorted_key, order, pred, vel, (), cap, _cap_pad(cap), g.L, g.PAD, end)
+    return (planes, counts, _particle_addr(flat, order), overflow, sorted_key,
+            order)
 
 
 def _param_vector(params: SimParams, coeffs: KernelCoeffs) -> torch.Tensor:
@@ -339,14 +301,6 @@ def _check_inputs(cfg, planes, counts, addr, params_vec, dens=None):
     return g, cap_p
 
 
-def _launch(name: str, *args) -> None:
-    from . import _build
-    err = _build.entry("wst_" + name)(*args)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
-
-
 @functools.lru_cache(maxsize=None)
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(
@@ -383,11 +337,12 @@ def _density_kernel(planes, counts, addr, params_vec, cfg: SimConfig,
     cap_p = _cap_pad(cfg.cell_capacity)
     out = torch.empty((6, cap_p, g.L), dtype=torch.float32,
                       device=planes.device)
-    _launch("sph_density", planes.data_ptr(), counts.data_ptr(),
-            addr.data_ptr(), addr.shape[0], params_vec.data_ptr(),
-            out.data_ptr(), cfg.dim, cap_p, g.L, g.S_pad, g.gz, group,
-            planes.device.index or 0,
-            torch.cuda.current_stream(planes.device).cuda_stream)
+    _build.launch(
+        "sph_density", planes.data_ptr(), counts.data_ptr(),
+        addr.data_ptr(), addr.shape[0], params_vec.data_ptr(),
+        out.data_ptr(), cfg.dim, cap_p, g.L, g.S_pad, g.gz, group,
+        planes.device.index or 0,
+        torch.cuda.current_stream(planes.device).cuda_stream)
     return out
 
 
@@ -411,11 +366,12 @@ def _force_kernel(planes, dens, counts, addr, params_vec, cfg: SimConfig,
     cap_p = _cap_pad(cfg.cell_capacity)
     out = torch.empty((2 + cfg.dim, cap_p, g.L), dtype=torch.float32,
                       device=planes.device)
-    _launch("sph_force", planes.data_ptr(), dens.data_ptr(),
-            counts.data_ptr(), addr.data_ptr(), addr.shape[0],
-            params_vec.data_ptr(), out.data_ptr(), cfg.dim, cap_p, g.L,
-            g.S_pad, g.gz, group, planes.device.index or 0,
-            torch.cuda.current_stream(planes.device).cuda_stream)
+    _build.launch(
+        "sph_force", planes.data_ptr(), dens.data_ptr(),
+        counts.data_ptr(), addr.data_ptr(), addr.shape[0],
+        params_vec.data_ptr(), out.data_ptr(), cfg.dim, cap_p, g.L,
+        g.S_pad, g.gz, group, planes.device.index or 0,
+        torch.cuda.current_stream(planes.device).cuda_stream)
     return out
 
 

@@ -81,9 +81,11 @@ def num_cells(cfg: SimConfig) -> int:
     return math.prod(cfg.grid_dims)
 
 
-def _slots_in_runs(sorted_keys: torch.Tensor) -> torch.Tensor:
+def slots_in_runs(sorted_keys: torch.Tensor) -> torch.Tensor:
     """Rank of every entry within its run of equal sorted keys (int32), by a
-    running max over the run boundaries."""
+    running max over the run boundaries: the port's one slot-rank rule (the
+    bucket builds, the hashed table's truncation, the incremental step's
+    mover ranks)."""
     n = sorted_keys.shape[0]
     ranks = torch.arange(n, dtype=torch.int32, device=sorted_keys.device)
     first = torch.ones(n, dtype=torch.bool, device=sorted_keys.device)
@@ -112,7 +114,7 @@ def _scatter_buckets(cid: torch.Tensor, active: torch.Tensor | None,
     key = cid if active is None else torch.where(active > 0, cid, nc)
     # stable, as jnp.argsort is: the slot of every particle hangs on it
     sorted_key, order = torch.sort(key, stable=True)
-    slot = _slots_in_runs(sorted_key)
+    slot = slots_in_runs(sorted_key)
     ok = (slot < cap) & (sorted_key < nc)
     flat = torch.where(ok, slot * nc + sorted_key, cap * nc)
     idx = flat.long()
@@ -501,7 +503,7 @@ def build_hash_grid(predicted: torch.Tensor, params: SimParams,
                         device=predicted.device)
     starts.scatter_reduce_(0, sorted_keys.long(), ranks, "amin",
                            include_self=True)
-    truncated = (_slots_in_runs(sorted_keys) >= cfg.max_run).sum().to(
+    truncated = (slots_in_runs(sorted_keys) >= cfg.max_run).sum().to(
         torch.int32)
     return HashGrid(order=order.to(torch.int32), sorted_keys=sorted_keys,
                     starts=starts, overflow=truncated)

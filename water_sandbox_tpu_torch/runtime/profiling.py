@@ -162,12 +162,10 @@ def _mark(name: str, device: int) -> None:
     """Launch the marker of phase ``name`` on the current stream of
     ``device``."""
     from ..ops.cuda import _build
-    err = _build.entry("wst_phase_mark")(
+    _build.check(_build.entry("wst_phase_mark")(
         PHASES.index(name), device,
-        torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"phase marker {name!r} not launched: CUDA error "
-                           f"{err}")
+        torch.cuda.current_stream(device).cuda_stream),
+        f"phase marker {name!r} not launched")
 
 
 @contextlib.contextmanager
