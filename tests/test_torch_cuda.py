@@ -11,9 +11,12 @@ it also runs where JAX is absent:
 Bar: rtol = atol = 2e-4 (the kernels sum pairs in another order; the force
 kernel uses rsqrtf)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from _torch_fixtures import cuda_device  # noqa: F401 (fixture)
 import water_sandbox_tpu_torch as wt
@@ -537,7 +540,6 @@ def test_captured_step_integrates_as_the_chain(cuda_device, monkeypatch,
     steps fall through its landing), against the same graph captured with
     ``integrate`` patched to the ATen chain: every state field bit for
     bit; the kernel launches once a replay, the chain's graph none."""
-    import dataclasses
     from water_sandbox_tpu_torch.core.params import _map_tensors
     from water_sandbox_tpu_torch.core.state import FluidState
     from water_sandbox_tpu_torch.ops import integrate as integ
@@ -583,6 +585,102 @@ def test_integrate_wrapper_refuses_what_the_kernel_does_not_take(
         with pytest.raises(ValueError, match=match):
             ik.run_integrate(*args, t)
     assert _build.LAUNCHES["sph_integrate"] == 0
+
+
+# Radii of the parameter kernels' bit test beside every scene's own.
+_RADII = (0.05, 0.1, 0.25, 0.3317, 0.7, 1.0, 1.5, 2.0)
+
+
+class _AtenOps(TorchDispatchMode):
+    """Records the ATen ops dispatched while it is open."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_parameter_kernels_match_the_chain(cuda_device, dim):
+    """The coefficient and parameter-vector kernels (csrc/sph_coeffs.cu)
+    against the ATen chains (``coeffs_plain``, ``param_vector_plain``) on
+    the same CUDA tensors, bit for bit on the five coefficients and the
+    (1, 16) vector: every scene of this dim with its own parameters
+    (mini-3d among them) and radii from 0.05 to 2.0. One launch of each a
+    call, and no ATen op beside the outputs' allocation and views."""
+    from water_sandbox_tpu_torch.core.params import coeffs_plain
+    cases = []
+    for name in wt.scenes.names():
+        cfg, params, _ = wt.scenes.build(name, device=cuda_device)
+        if cfg.dim == dim:
+            cases.append((name, params))
+    assert cases
+    cases += [(f"h={h}", wt.SimParams.create(dim=dim, smoothing_radius=h,
+                                             device=cuda_device))
+              for h in _RADII]
+    for label, params in cases:
+        h = params.smoothing_radius
+        _build.reset_launches()
+        with _AtenOps() as rec:
+            got = KernelCoeffs.from_radius(h, dim)
+            pv = sb._param_vector(params, got)
+        torch.cuda.synchronize()
+        assert _launched("sph_coeffs", "sph_param_vector") == (1, 1), label
+        assert set(rec.ops) <= {"aten.empty.memory_format",
+                                "aten.unbind.int"}, (label, rec.ops)
+        want = coeffs_plain(h, dim)
+        for f in dataclasses.fields(KernelCoeffs):
+            a, b = getattr(got, f.name), getattr(want, f.name)
+            assert a.shape == () and _same_bits(a, b), (label, f.name)
+        pv_plain = sb.param_vector_plain(params, want)
+        assert pv.shape == (1, 16) and _same_bits(pv, pv_plain), label
+
+
+def test_tuned_radius_reaches_the_parameter_kernels_on_replay(cuda_device):
+    """Inside a captured StepGraph, ``Simulation.tune(smoothing_radius=...)``
+    is read by the parameter kernels on the next replay with no recapture:
+    the replays equal eager steps under the tuned radius bit for bit, and
+    differ from steps under the old one."""
+    from water_sandbox_tpu_torch.core.params import _map_tensors
+    cfg, params, state = wt.scenes.build("mini-3d", device=cuda_device)
+    sim = wt.Simulation(cfg, _map_tensors(params, torch.clone), state)
+    sim.run(2)
+    g, plain = sim.graph, sim.graph.graph
+    assert g.per_replay["sph_coeffs"] == g.per_replay["sph_param_vector"] == 1
+    start = sim.state.clone()
+    sim.tune(smoothing_radius=0.24)
+    sim.run(2)
+    torch.cuda.synchronize()
+    assert sim.graph is g and g.graph is plain
+    tuned, old = start, start
+    for _ in range(2):
+        tuned = wt.step(tuned, params.replace(smoothing_radius=0.24), cfg)
+        old = wt.step(old, params, cfg)
+    for f in ("pos", "vel", "density", "near_density", "acc"):
+        assert _same_bits(getattr(sim.state, f), getattr(tuned, f)), f
+    assert not torch.equal(sim.state.density, old.density)
+
+
+def test_flipped_near_derivative_negates_slot_4_on_the_card(cuda_device):
+    """``golden.flipped_near_derivative`` reaches the kernels through
+    ``from_radius`` on the card as on the CPU: inside it the parameter
+    vector's ``pow3_der`` slot (4) is negated, every other slot as before;
+    after it the vector is the plain one again."""
+    from water_sandbox_tpu_torch import golden
+    params = wt.SimParams.create(dim=3, device=cuda_device)
+    h = params.smoothing_radius
+    before = sb._param_vector(params, KernelCoeffs.from_radius(h, 3))
+    with golden.flipped_near_derivative():
+        flipped = sb._param_vector(params, KernelCoeffs.from_radius(h, 3))
+    after = sb._param_vector(params, KernelCoeffs.from_radius(h, 3))
+    torch.cuda.synchronize()
+    assert sb._P_POW3_DER == 4 and float(before[0, 4]) > 0
+    want = before.clone()
+    want[0, 4] = -want[0, 4]
+    assert _same_bits(flipped, want) and _same_bits(after, before)
 
 
 def _crowded_rescue(device, dim):
@@ -766,7 +864,7 @@ def test_captured_rollout_matches_eager(cuda_device):
     """The kernel pipeline's captured step (ops/cuda/graph.py) against the
     eager step on the card, bit for bit over 6 steps with the rescue firing
     past its budget; the eager step runs with no synchronisation (sync
-    debug mode "error"); each replay counts one launch of each of the six
+    debug mode "error"); each replay counts one launch of each of the eight
     kernels; a Simulation replays its own graph, and tune takes effect
     without a recapture."""
     cfg, params, state = wt.scenes.build(
@@ -791,7 +889,8 @@ def test_captured_rollout_matches_eager(cuda_device):
     assert _launched("sph_density", "sph_force", "sph_build") == (6, 6, 6)
     g = graph.StepGraph(state.clone(), params, cfg)
     g.run(1)
-    assert g.per_replay == {"sph_build": 1, "sph_density": 1,
+    assert g.per_replay == {"sph_coeffs": 1, "sph_param_vector": 1,
+                            "sph_build": 1, "sph_density": 1,
                             "sph_force": 1, "sph_rescue_density": 1,
                             "sph_rescue_force": 1, "sph_integrate": 1}
     sim = wt.Simulation(cfg, params, state)
@@ -948,7 +1047,8 @@ def test_domain_graph_replays_the_eager_step(cuda_device):
     _build.reset_launches()
     g.run(6)
     torch.cuda.synchronize()
-    assert g.per_replay == {"sph_build": 8, "sph_density": 8, "sph_force": 8,
+    assert g.per_replay == {"sph_coeffs": 8, "sph_param_vector": 8,
+                            "sph_build": 8, "sph_density": 8, "sph_force": 8,
                             "sph_domain_rescue_density": 8,
                             "sph_domain_rescue_force": 8, "sph_integrate": 8}
     assert _build.LAUNCHES["sph_domain_rescue_density"] == 48
@@ -1107,7 +1207,8 @@ def test_captured_incremental_step_equals_eager(cuda_device):
     fired = g.fired()
     assert fired == {k: int(v) for k, v in br.fired.items()}
     assert fired["rebuild"] >= 2 and fired["drop"] >= 5
-    assert g.per_replay == {"sph_density": 1, "sph_force": 1}
+    assert g.per_replay == {"sph_coeffs": 1, "sph_param_vector": 1,
+                            "sph_density": 1, "sph_force": 1}
     assert _launched("sph_density", "sph_force") == (10, 10)
     assert _launched("sph_rescue_density",
                      "sph_rescue_force") == (fired["drop"],) * 2
@@ -1116,7 +1217,6 @@ def test_captured_incremental_step_equals_eager(cuda_device):
 def _bucket_grid_case(dev, cap=3):
     """mini-3d in bucket_grid mode at cell capacity ``cap`` with a rescue
     budget of 64 rows: the rescue fires on every step."""
-    import dataclasses
     cfg, params, state = wt.scenes.build("mini-3d", device=dev,
                                          neighbor_mode="bucket_grid",
                                          sorted_state=False)
@@ -1127,8 +1227,8 @@ def _bucket_grid_case(dev, cap=3):
 def test_bucket_grid_step_is_device_only(cuda_device):
     """The bucket_grid step raises nothing under sync debug "error", its
     StepGraph replays it bit for bit, and its rescue launches R1 and R2
-    once a step, not their plain versions (and the integrate kernel once a
-    replay)."""
+    once a step, not their plain versions (and the integrate kernel and
+    the two parameter kernels once a replay)."""
     from water_sandbox_tpu_torch.ops import grid
     from water_sandbox_tpu_torch.ops.cuda import graph
     cfg, params, state = _bucket_grid_case(cuda_device)
@@ -1148,7 +1248,8 @@ def test_bucket_grid_step_is_device_only(cuda_device):
     g.run(4)
     torch.cuda.synchronize()
     assert g.graph is not None
-    assert g.per_replay == {"sph_rescue_density": 1, "sph_rescue_force": 1,
+    assert g.per_replay == {"sph_coeffs": 1, "sph_param_vector": 1,
+                            "sph_rescue_density": 1, "sph_rescue_force": 1,
                             "sph_integrate": 1}
     for f in ("pos", "vel", "density", "acc", "overflow_total"):
         assert torch.equal(getattr(g.state, f), getattr(s, f)), f
@@ -1229,8 +1330,8 @@ def test_sharded_rollout_captured_equals_eager(cuda_device):
 def test_plain_mode_step_is_captured(cuda_device, mode):
     """The dense and hash_grid steps at mini-3d raise nothing under sync
     debug "error", and 10 replays of their StepGraph equal 10 eager steps
-    bit for bit, with the integrate kernel the one hand kernel a replay; a
-    Simulation and rollout replay the same graph."""
+    bit for bit, with the coefficient and integrate kernels the hand
+    kernels of a replay; a Simulation and rollout replay the same graph."""
     from water_sandbox_tpu_torch.ops.cuda import graph
     cfg, params, state = wt.scenes.build("mini-3d", device=cuda_device,
                                          neighbor_mode=mode)
@@ -1246,7 +1347,8 @@ def test_plain_mode_step_is_captured(cuda_device, mode):
     g = graph.StepGraph(state.clone(), params, cfg)
     g.run(10)
     torch.cuda.synchronize()
-    assert g.graph is not None and g.per_replay == {"sph_integrate": 1}
+    assert g.graph is not None and g.per_replay == {"sph_coeffs": 1,
+                                                    "sph_integrate": 1}
     for f in ("pos", "vel", "predicted", "acc", "density", "near_density",
               "pressure", "near_pressure", "overflow_total", "time"):
         assert _same_bits(getattr(g.state, f), getattr(s, f)), f

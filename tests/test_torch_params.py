@@ -4,6 +4,8 @@ coefficients, every scene's configuration, parameters and initial state
 carry-across of parameters and state."""
 
 import dataclasses
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -15,7 +17,9 @@ import water_sandbox_tpu as wj
 import water_sandbox_tpu_torch as wt
 from water_sandbox_tpu.ops import kernels as jkernels
 from water_sandbox_tpu_torch.core import convert
+from water_sandbox_tpu_torch.core import params as params_mod
 from water_sandbox_tpu_torch.ops import kernels as tkernels
+from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
 
 
 @pytest.mark.parametrize("h", [0.25, 0.1, 0.3317])
@@ -28,6 +32,51 @@ def test_kernel_coeffs_match_jax(dim, h):
         np.testing.assert_array_equal(getattr(tc, f.name).numpy(),
                                       np.asarray(getattr(jc, f.name)),
                                       err_msg=f.name)
+
+
+def test_param_vector_slots_match_the_kernels_header():
+    """The ``_P_*`` slots of ``sph_bucket`` are the ``P_*`` constants of
+    ``csrc/sph_common.cuh``, which the kernels read and
+    ``csrc/sph_coeffs.cu`` writes."""
+    header = (Path(sb.__file__).resolve().parents[2] / "csrc"
+              / "sph_common.cuh").read_text()
+    in_c = {m[1]: int(m[2]) for m in
+            re.finditer(r"constexpr int P_(\w+) = (\d+);", header)}
+    in_py = {k[len("_P_"):]: v for k, v in vars(sb).items()
+             if k.startswith("_P_")}
+    assert len(in_c) == 10 and in_c == in_py
+
+
+def test_param_vector_puts_each_value_in_its_slot():
+    """``_param_vector``'s plain output holds each parameter and coefficient
+    in its slot and zeros past them: the layout the CUDA kernel copies from
+    ``_param_values``."""
+    params = wt.SimParams.create(
+        3, smoothing_radius=0.5, target_density=11.0, pressure_scalar=23.0,
+        near_pressure_scalar=3.0, viscosity_strength=0.25, device="cpu")
+    coeffs = wt.KernelCoeffs(*(torch.tensor(v) for v in
+                               (101.0, 102.0, 103.0, 104.0, 105.0)))
+    v = sb._param_vector(params, coeffs)
+    assert v.shape == (1, 16) and v.dtype == torch.float32
+    want = {sb._P_H: 0.5, sb._P_POW2: 101.0, sb._P_POW2_DER: 102.0,
+            sb._P_POW3: 103.0, sb._P_POW3_DER: 104.0, sb._P_SPIKEY: 105.0,
+            sb._P_PRESSURE: 23.0, sb._P_NEAR_PRESSURE: 3.0,
+            sb._P_TARGET_DENSITY: 11.0, sb._P_VISCOSITY: 0.25}
+    assert v[0].tolist() == [want.get(k, 0.0) for k in range(16)]
+
+
+def test_parameter_kernels_refuse_cpu_tensors():
+    """The wrappers of ``csrc/sph_coeffs.cu`` check what they hand the
+    kernels before any build or launch: CUDA f32 scalars only."""
+    from water_sandbox_tpu_torch.ops.cuda import coeffs as coeffs_k
+    h = torch.tensor(0.25)
+    with pytest.raises(ValueError, match="CUDA"):
+        coeffs_k.run_coeffs(h, params_mod._COEFF_TERMS[3])
+    with pytest.raises(ValueError, match="float32"):
+        coeffs_k.run_coeffs(torch.tensor([0.25, 0.5]),
+                            params_mod._COEFF_TERMS[3])
+    with pytest.raises(ValueError, match="CUDA"):
+        coeffs_k.run_param_vector((h,) * 10)
 
 
 @pytest.mark.parametrize("name", wj.scenes.names())

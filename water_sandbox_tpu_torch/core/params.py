@@ -214,6 +214,17 @@ def _coef(num: float, den_scale: float, hp: torch.Tensor) -> torch.Tensor:
     return torch.div(torch.full_like(hp, num), den_scale * hp)
 
 
+# (num, den_scale, power) of each coefficient num / (den_scale * h**power),
+# in KernelCoeffs' field order, by dim: the ATen chain and the CUDA kernel
+# (ops/cuda/coeffs.py) read the same table.
+_COEFF_TERMS = {
+    3: ((15.0, 2.0 * math.pi, 5), (15.0, math.pi, 5), (15.0, math.pi, 6),
+        (45.0, math.pi, 6), (315.0, 64.0 * math.pi, 9)),
+    2: ((6.0, math.pi, 4), (12.0, math.pi, 4), (10.0, math.pi, 5),
+        (30.0, math.pi, 5), (4.0, math.pi, 8)),
+}
+
+
 @dataclasses.dataclass(frozen=True)
 class KernelCoeffs:
     """Smoothing-kernel normalization constants derived from the radius."""
@@ -226,22 +237,27 @@ class KernelCoeffs:
 
     @staticmethod
     def from_radius(h: torch.Tensor, dim: int) -> "KernelCoeffs":
-        pi = math.pi
-        if dim == 3:
-            return KernelCoeffs(
-                pow2=_coef(15.0, 2.0 * pi, _ipow(h, 5)),
-                pow2_der=_coef(15.0, pi, _ipow(h, 5)),
-                pow3=_coef(15.0, pi, _ipow(h, 6)),
-                pow3_der=_coef(45.0, pi, _ipow(h, 6)),
-                spikey_pow3=_coef(315.0, 64.0 * pi, _ipow(h, 9)))
-        if dim == 2:
-            return KernelCoeffs(
-                pow2=_coef(6.0, pi, _ipow(h, 4)),
-                pow2_der=_coef(12.0, pi, _ipow(h, 4)),
-                pow3=_coef(10.0, pi, _ipow(h, 5)),
-                pow3_der=_coef(30.0, pi, _ipow(h, 5)),
-                spikey_pow3=_coef(4.0, pi, _ipow(h, 8)))
+        """The coefficients of the () radius ``h``: on a CUDA tensor one
+        kernel (``ops/cuda/coeffs.py::run_coeffs``), on the CPU the ATen
+        chain (``coeffs_plain``); both give the JAX package's bits."""
+        if h.device.type != "cuda":
+            return coeffs_plain(h, dim)
+        from ..ops.cuda.coeffs import run_coeffs
+        return KernelCoeffs(*run_coeffs(h, _terms(dim)))
+
+
+def _terms(dim: int):
+    terms = _COEFF_TERMS.get(dim)
+    if terms is None:
         raise ValueError(f"dim must be 2 or 3, got {dim}")
+    return terms
+
+
+def coeffs_plain(h: torch.Tensor, dim: int) -> KernelCoeffs:
+    """``KernelCoeffs.from_radius`` as the ATen chain, on any device: the
+    CPU path, and on the card the yardstick of its kernel."""
+    return KernelCoeffs(*(_coef(num, den_scale, _ipow(h, p))
+                          for num, den_scale, p in _terms(dim)))
 
 
 # TPU kernel-layout probe fields of the JAX SimConfig: accepted at these

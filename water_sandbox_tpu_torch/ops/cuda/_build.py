@@ -47,6 +47,8 @@ _ENTRY_POINTS = {
                   [_P] * 5 + [_I, _P, _I] + [_P] * 6 + [_I] * 8 + [_P]),
     "sph_integrate": ("wst_sph_integrate",
                       [_P, _I, _I] * 3 + [_P] * 4 + [_I] * 3 + [_P]),
+    "sph_coeffs": [("wst_sph_coeffs", [_P] * 5 + [_I, _P]),
+                   ("wst_sph_param_vector", [_P, _P, _I, _P])],
     "bitonic_sort": ("wst_bitonic_sort", [_P, _P, _P, _P, _I, _I, _I, _P]),
     "sph_rescue": [
         ("wst_sph_rescue_density",

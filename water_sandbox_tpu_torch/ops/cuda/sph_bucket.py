@@ -234,12 +234,28 @@ def build_local_slab_buckets(pred, vel, active, origin, gx_loc: int,
             order)
 
 
-def _param_vector(params: SimParams, coeffs: KernelCoeffs) -> torch.Tensor:
-    """(1, 16) f32 scalars the kernels read, assembled on the device."""
-    vals = [params.smoothing_radius, coeffs.pow2, coeffs.pow2_der,
+def _param_values(params: SimParams, coeffs: KernelCoeffs) -> tuple:
+    """The parameter vector's scalars in slot order, ``_P_H`` first."""
+    return (params.smoothing_radius, coeffs.pow2, coeffs.pow2_der,
             coeffs.pow3, coeffs.pow3_der, coeffs.spikey_pow3,
             params.pressure_scalar, params.near_pressure_scalar,
-            params.target_density, params.viscosity_strength]
+            params.target_density, params.viscosity_strength)
+
+
+def _param_vector(params: SimParams, coeffs: KernelCoeffs) -> torch.Tensor:
+    """(1, 16) f32 scalars the kernels read, assembled on the device: on
+    CUDA tensors one kernel (``ops/cuda/coeffs.py::run_param_vector``), on
+    the CPU ``param_vector_plain``."""
+    if params.device.type != "cuda":
+        return param_vector_plain(params, coeffs)
+    from . import coeffs as coeffs_k
+    return coeffs_k.run_param_vector(_param_values(params, coeffs))
+
+
+def param_vector_plain(params: SimParams, coeffs: KernelCoeffs):
+    """``_param_vector`` as the ATen chain, on any device: zeros past the
+    scalars of ``_param_values``."""
+    vals = _param_values(params, coeffs)
     v = torch.zeros(16, dtype=torch.float32, device=params.device)
     v[:len(vals)] = torch.stack(vals)
     return v[None, :]
