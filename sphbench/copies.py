@@ -4,7 +4,9 @@ does not move when the program does.
 ``true_pairs`` is copied from ``water_sandbox_tpu_torch/bench.py::
 true_pairs``; ``fingerprint`` from ``water_sandbox_tpu_torch/bench.py::
 fingerprint`` (it reads what the program runs; it takes the program's
-``Simulation``, and imports the program's ``sph_bucket`` for its picks).
+``Simulation``, or the harness's ``sharded.Sharded`` around its
+``DistributedSimulation``, and imports the program's ``sph_bucket`` for
+its picks).
 """
 
 from __future__ import annotations
@@ -37,9 +39,13 @@ def fingerprint(sim) -> dict:
     on the kernel pipeline ("pallas"), each hand kernel's source file, the
     threads a row ``G`` that ``ops/cuda/sph_bucket.py::_row_group`` picks
     for the scene's rows on this card (None off the card), and the
-    lane-tile width of the bucket layout."""
+    lane-tile width of the bucket layout. Of a ``DistributedSimulation``
+    also the shard count and the particles each shard holds; its rescue is
+    the cross-shard one, and its bucket layout and rows are a shard's, not
+    the scene's, so ``tile`` and ``row_group`` stay None."""
     from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
     cfg = sim.cfg
+    shards = getattr(sim, "n_shards", None)
     out = {
         "scene": sim.name, "n": cfg.n,
         "neighbor_mode": cfg.neighbor_mode,  # resolved by Simulation
@@ -55,11 +61,17 @@ def fingerprint(sim) -> dict:
         "device": (torch.cuda.get_device_name(sim.device)
                    if sim.device.type == "cuda" else "cpu"),
     }
+    if shards is not None:
+        out["n_shards"] = shards
+        out["shard_counts"] = sim.shard_counts()
     if cfg.neighbor_mode == "pallas":
+        rescue = "sph_rescue" if shards is None else "sph_domain_rescue"
         out["kernels"] = {
             "sph_density": "water_sandbox_tpu_torch/csrc/sph_density.cu",
             "sph_force": "water_sandbox_tpu_torch/csrc/sph_force.cu",
-            "sph_rescue": "water_sandbox_tpu_torch/csrc/sph_rescue.cu"}
+            rescue: f"water_sandbox_tpu_torch/csrc/{rescue}.cu"}
+        if shards is not None:
+            return out
         out["tile"] = sb._geometry(cfg).T
         if sim.device.type == "cuda":
             out["row_group"] = sb._row_group(

@@ -39,6 +39,10 @@ the frame's reads. With ``--trace 1`` a span of the window
 (``trace_from_chunk`` / ``trace_chunks``, ``trace_from_frame`` /
 ``trace_frames``) runs under the profiler; samples are not taken there.
 With ``reset_every`` the traced span is whole drops from a reset.
+
+A configuration with a ``runtime`` runs the port's ``DistributedSimulation``
+in the closed loop without ``reset_every``: ``sharded.py`` builds it, stands
+in for the ``Simulation`` and its state, and keeps the samples.
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ import time
 import numpy as np
 import torch
 
-from . import inputs
+from . import inputs, sharded
 from .trace import traced
 
 
@@ -181,6 +185,9 @@ class Snapshots:
             getattr(buf, f.name).copy_(getattr(state, f.name))
         return buf
 
+    def finish(self, run) -> None:
+        """After the window: the samples are the states as taken."""
+
 
 def _params(sim) -> dict:
     p = sim.params
@@ -209,6 +216,8 @@ def setup(cell, seed: int, device) -> tuple:
     inputs (0 when the constructors keep them exactly); buffers for the
     window's samples and the traced span's two states."""
     conf, tr = cell.config, cell.traffic
+    if "runtime" in conf:
+        return sharded.setup(cell, seed, device)
     check_traffic(tr)
     pos = inputs.start_positions(conf, seed, device)
     sim = inputs.simulation(conf, pos.clone(), conf["name"])
@@ -262,10 +271,11 @@ def closed(sim, tr: dict, seconds: float, seed: int, trace: bool,
     s = sim.state
     last = s.overflow_total.clone()
     failed = torch.zeros((), dtype=torch.int64, device=sim.device)
-    rescued = sim.graph.rescued
+    # the domain step keeps no count of rescued rows
+    rescued = getattr(sim.graph, "rescued", None)
     # the rows rescued in the window: the counter's start taken off, and
     # each drop's count added before its reset zeroes the counter
-    held = rescued.neg()
+    held = None if rescued is None else rescued.neg()
     covered, steps, c = 0, 0, 0
     todo: list = []          # sampled steps of this chunk or drop, ascending
 
@@ -342,9 +352,11 @@ def closed(sim, tr: dict, seconds: float, seed: int, trace: bool,
     check()
     run.steps = run.attempted = steps
     run.failed = int(failed)
-    run.rescued_rows = int(held + rescued)
+    if rescued is not None:
+        run.rescued_rows = int(held + rescued)
     for sm in run.samples:
         sm.params = _params(sim)
+    snaps.finish(run)
 
 
 def open_loop(sim, tr: dict, seconds: float, seed: int, trace: bool,

@@ -62,7 +62,9 @@ def start_positions(conf: dict, seed: int, device) -> torch.Tensor:
 def simulation(conf: dict, pos: torch.Tensor, name: str):
     """The port's ``Simulation`` over start positions ``pos``, built from
     the configuration through ``SimConfig``, ``SimParams.create`` and
-    ``init_state``."""
+    ``init_state``; where the configuration names its ``runtime``
+    (``{"kind": "distributed", "n_shards", "slack", "mig_cap"}``), the
+    port's ``DistributedSimulation`` built from the same objects."""
     from water_sandbox_tpu_torch.core.params import (Container, SimConfig,
                                                      SimParams)
     from water_sandbox_tpu_torch.core.state import init_state
@@ -81,5 +83,20 @@ def simulation(conf: dict, pos: torch.Tensor, name: str):
     prm = SimParams.create(dim=conf["dim"], gravity=p["gravity"],
                            container=container, device=device,
                            **{k: p[k] for k in PARAM_NAMES})
+    if "runtime" in conf:
+        return _distributed(conf["runtime"], cfg, prm,
+                            init_state(pos, device=device), name, device)
     return Simulation(cfg, prm, init_state(pos, device=device), name=name,
                       device=device)
+
+
+def _distributed(rt: dict, cfg, prm, state, name: str, device):
+    from water_sandbox_tpu_torch.runtime.distributed import (
+        DistributedSimulation)
+    if rt.get("kind") != "distributed":
+        raise ValueError(f"unknown runtime {rt!r}: the benchmark builds a "
+                         "'distributed' runtime or, without the key, a "
+                         "Simulation")
+    return DistributedSimulation(cfg, prm, state, n_shards=rt["n_shards"],
+                                 slack=rt["slack"], mig_cap=rt["mig_cap"],
+                                 name=name, device=device)
