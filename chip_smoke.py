@@ -2984,7 +2984,8 @@ def phase_domain_full(record, scene="sharded-1m", dev="cuda",
     device ms, busy share, overlapping kernels of different streams), and
     the mesh with a stream a shard against the serial reference
     (``concurrent_vs_serial``, 20 traced replays each). Then the forced
-    rescue (phase_domain_rescue). Returns the kernel launches of the
+    rescue (phase_domain_rescue) and the migration settled
+    (domain_migration). Returns the kernel launches of the
     30 captured steps and 30."""
     import water_sandbox_tpu_torch as wst
     from water_sandbox_tpu_torch.core.params import _map_tensors
@@ -3139,8 +3140,74 @@ def phase_domain_full(record, scene="sharded-1m", dev="cuda",
         f"per-shard counts {st['per_shard_counts']}, ke "
         f"{st['kinetic_energy']:.2f}, launches {launches}")
     phase_domain_rescue(sim, record)
+    domain_migration(sim, scene)
     log(f"[domain] phase passed in {time.perf_counter() - t_phase:.1f} s")
     return launches, warm + same
+
+
+def carried_gaps(got, want, params, rows) -> tuple:
+    """The carried fields of ``got`` against ``want`` (states in id order)
+    on the rows ``rows`` marks, by the benchmark check's gaps
+    (``sphbench/check.py``): the worst of the densities and pressures,
+    relative to the wanted density (k times it for pressures), and of the
+    accelerations, over the wanted ones' rms on those rows."""
+    from sphbench import check as bench_check, inputs
+    prm = {k: float(getattr(params, k)) for k in inputs.PARAM_NAMES}
+    prm["gravity"] = [float(x) for x in params.gravity]
+    keep = rows.cpu().numpy()
+
+    def on_rows(state):
+        d = bench_check.by_id(state)
+        return {k: v[keep] if isinstance(v, np.ndarray) else v
+                for k, v in d.items()}
+    g, w = on_rows(got), on_rows(want)
+    w.update(predicted_alt=w["predicted"], vel_alt=w["vel"])
+    gaps = bench_check._gaps(g, w, prm, int(got.step_count))
+    return gaps["density"], gaps["acc"]
+
+
+def domain_migration(sim, scene: str, settle: int = 600,
+                     window: int = 50) -> None:
+    """The migration of ``sim`` (a DistributedSimulation) on the settled
+    scene: the particles that change shards a step, by the graph's
+    counter over ``window`` replays from step ``settle``; then one more
+    step, whose moved particles' carried fields (density, near density,
+    pressures, acceleration) are held by id against one single-device step
+    from the same state (the migration once left them in the old slot,
+    which read ~1 here)."""
+    import water_sandbox_tpu_torch as wst
+    from water_sandbox_tpu_torch.parallel import domain
+    g = sim.graph
+    sim.run(max(1, settle - int(sim.states[0].step_count)))
+    start, before = int(sim.states[0].step_count), int(g.migrated)
+    sim.run(window)
+    per_step = (int(g.migrated) - before) / window
+    pre, shard_pre = domain.dense_by_id(sim.states, sim.active)
+    check(torch.equal(pre.ids.long(),
+                      torch.arange(pre.n, device=pre.ids.device)),
+          f"{scene}: the sharded ids are no permutation")
+    before = int(g.migrated)
+    sim.run(1)
+    post, shard_post = domain.dense_by_id(sim.states, sim.active)
+    moved = shard_post != shard_pre
+    single = wst.step(pre, sim.params, sim.cfg)
+    gaps = carried_gaps(post, single, sim.params, moved)
+    stayed = carried_gaps(post, single, sim.params, ~moved)
+    n_moved = int(moved.sum())
+    log(f"[domain] {scene} migration from step {start}: {per_step:.2f} "
+        f"particles changed shards a step ({window} replays, "
+        f"DomainGraph.migrated; stats()['migrated_particles'] "
+        f"{sim.stats()['migrated_particles']} over every step run); one "
+        f"more step moved {n_moved} (the counter: "
+        f"{int(g.migrated) - before}), their carried fields by id against "
+        f"one single-device step from the same state (densities and "
+        f"pressures, acc): {gaps[0]:.3e}, {gaps[1]:.3e}; the rows that "
+        f"stayed: {stayed[0]:.3e}, {stayed[1]:.3e}")
+    check(n_moved > 0 and int(g.migrated) - before == n_moved,
+          f"{scene}: {n_moved} moved, the counter read "
+          f"{int(g.migrated) - before}")
+    check(gaps[0] <= 1e-4 and gaps[1] <= 1e-2,
+          f"{scene}: the moved particles' fields {gaps}")
 
 
 def domain_rescue_bounds(args, cfg_loc, h):

@@ -34,6 +34,8 @@ from water_sandbox_tpu_torch.ops.cuda import sph_bucket as sb
 from water_sandbox_tpu_torch.parallel import domain, mesh as mesh_mod
 from water_sandbox_tpu_torch.runtime import checkpoint as tcheckpoint
 from water_sandbox_tpu_torch.runtime.distributed import DistributedSimulation
+from sphbench import check, inputs
+from sphbench.reference import sph
 
 ATOL = 1e-4
 
@@ -285,6 +287,110 @@ def test_local_buckets_bit_identical(my_dev):
         assert a.dtype == b.dtype, name
         np.testing.assert_array_equal(a, b, err_msg=name)
     assert got[5] == want[5] == 256 and int(got[4]) > 0
+
+
+def _reference_inputs(params) -> tuple:
+    """The parameters and the box as ``sphbench/reference/sph.py`` takes
+    them."""
+    prm = {k: float(getattr(params, k)) for k in inputs.PARAM_NAMES}
+    prm["gravity"] = [float(x) for x in params.gravity]
+    c = params.container
+    box = {"center": c.center.tolist(), "size": (2 * c.half_size).tolist(),
+           "velocity": c.velocity.tolist(),
+           "angular_velocity": float(c.angular_velocity),
+           "angle": float(c.angle)}
+    return prm, box
+
+
+def _as_reference(state) -> dict:
+    """A state by id (``sphbench/check.py::by_id``) as the check takes its
+    reference: one outcome at the walls."""
+    d = check.by_id(state)
+    return dict(d, predicted_alt=d["predicted"], vel_alt=d["vel"])
+
+
+def _carried(got: dict, want: dict, prm: dict) -> tuple:
+    """The benchmark check's gaps of the carried fields (by id): the worst
+    of the densities and pressures, relative to the wanted density (k times
+    it for pressures), and of the accelerations, over the wanted ones' rms.
+    The clock is not read."""
+    gaps = check._gaps(dict(got, step=0.0), want, prm, 0)
+    return gaps["density"], gaps["acc"]
+
+
+def test_migrated_particles_keep_their_fields():
+    """The density, near density, pressures and acceleration a domain step
+    leaves with each particle are the ones it computed for that particle,
+    also where the particle changed shards in the step: 4 steps of the
+    rightward flow on 8 shards, each held by id against one single-device
+    step from the same state and against the float64 plain reference
+    (``sphbench/reference/sph.py``), which the bfloat16 reference fails.
+
+    Gaps as the benchmark's check scales them (``_carried``). Bars: 1e-6
+    against the single-device step (the same float32 formulas, the pair
+    sums taken in another order: a few ulps; ~1.4e-7 read for densities
+    and pressures, up to 6.8e-7 for accelerations); 1e-5 against the
+    float64 reference (float32 rounding, and the predicted positions the
+    reference forms in float64 where the state holds them rounded; ~1.3e-7
+    and up to 3.5e-6 read), which the bfloat16 reference misses by 8e-3
+    and more. A particle that changed shards and kept its slot's old values
+    misses them by ~1."""
+    _, _, _, params, state, cfg = _setup(rightward=True)
+    mesh = mesh_mod.make_mesh(8, "cpu")
+    states, active = domain.shard_state(state, mesh, cfg, params, slack=8.0)
+    step = domain.make_domain_step(mesh, cfg)
+    prm, box = _reference_inputs(params)
+    crossed = 0
+    for done in range(4):
+        pre, shard_before = domain.dense_by_id(states, active)
+        states, active, lost = step(states, active, params)
+        assert float(lost) == 0.0
+        post, shard_after = domain.dense_by_id(states, active)
+        crossed += int((shard_after != shard_before).sum())
+        got = check.by_id(post)
+        assert got is not None, "the ids are no permutation"
+        gaps = _carried(got, _as_reference(wt.step(pre, params, cfg)), prm)
+        assert max(gaps) <= 1e-6, (done, gaps)
+        ref = check._np(sph.step(pre.pos, pre.vel, prm, box, done))
+        gaps = _carried(got, ref, prm)
+        assert max(gaps) <= 1e-5, (done, gaps)
+    low = check._np(sph.step(pre.pos, pre.vel, prm, box, done,
+                             dtype=torch.bfloat16))
+    assert min(_carried(low, ref, prm)) > 1e-3
+    assert crossed > 0, "no shard crossing"
+
+
+def test_migrated_counter_counts_shard_changes():
+    """``DomainGraph.migrated`` and ``stats()["migrated_particles"]`` add
+    up, step by step, the particles whose shard changed, worked out from
+    the ids on both sides of each step. Every other particle flows right at
+    3 m/s, the rest left, so shards send and receive in one step and an
+    arrival takes a slot that a departure freed in the same step: active
+    on both sides of the step, it holds another particle after it."""
+    _, _, _, params, state, cfg = _setup()
+    vel = state.vel.clone()
+    vel[:, 0] = 3.0 * (1 - 2 * (torch.arange(state.n) % 2))
+    sim = DistributedSimulation(cfg, params,
+                                dataclasses.replace(state, vel=vel),
+                                n_shards=8, slack=8.0, device="cpu")
+    total, reused = 0, 0
+    for _ in range(7):
+        ids_before = [s.ids.clone() for s in sim.states]
+        was = [a.clone() for a in sim.active]
+        _, shard_before = domain.dense_by_id(sim.states, sim.active)
+        sim.run(1)
+        _, shard_after = domain.dense_by_id(sim.states, sim.active)
+        total += int((shard_after != shard_before).sum())
+        assert int(sim.graph.migrated) == total
+        reused += sum(int(((w > 0) & (a > 0) & (i != s.ids)).sum())
+                      for i, w, s, a in zip(ids_before, was, sim.states,
+                                            sim.active))
+    assert sim.stats()["migrated_particles"] == total > 0
+    assert reused > 0, "no slot changed hands"
+    saved = sim.graph._save()
+    sim.run(1)
+    sim.graph._restore(saved)
+    assert int(sim.graph.migrated) == total
 
 
 def _port_single(state, params, cfg, steps):

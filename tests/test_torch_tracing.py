@@ -74,6 +74,22 @@ def test_only_the_kernel_pipeline_step_is_marked(mode):
     assert not [n for n in names if n.startswith("wst.phase.")]
 
 
+def test_the_domain_step_spans_its_migration():
+    """The eager domain step's migration is a ``wst.phase.migrate`` span of
+    FUNCTION scope inside ``wst.run``, once a step."""
+    sim = wt.DistributedSimulation.from_scene("mini-3d", n_shards=2,
+                                              device="cpu")
+    with _cpu_profile() as prof:
+        sim.run(2)
+    events = _wst_events(prof)
+    run, = [e for e in events if e.name == "wst.run"]
+    spans = [e for e in events if e.name == "wst.phase.migrate"]
+    assert len(spans) == 2
+    assert all(e.scope == FUNCTION_SCOPE
+               and run.time_range.start <= e.time_range.start
+               and e.time_range.end <= run.time_range.end for e in spans)
+
+
 def test_program_spans_are_of_function_scope():
     sim = _mini(rescue_capacity=16)
     sim.run(1)

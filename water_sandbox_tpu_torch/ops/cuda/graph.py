@@ -246,7 +246,9 @@ class DomainGraph(_Graph):
     """``run(n)`` advances a sharded state (``parallel/domain.py``: the
     per-shard ``states`` and ``active`` masks) by n calls of ``step``, a
     domain step, in place, reading ``params`` in place and adding each
-    step's migration losses into ``lost`` (() f32 on shard 0's device).
+    step's migration losses into ``lost`` (() f32 on shard 0's device) and
+    the particles that changed shards in it into ``migrated`` (() i64
+    there: ``_arrivals``).
 
     It captures only when every shard of ``mesh`` sits on one CUDA device
     (``DistributedSimulation``'s case on one card): then n replays of one
@@ -268,6 +270,8 @@ class DomainGraph(_Graph):
         self.active = active
         self.params = params
         self.lost = torch.zeros((), device=mesh.devices[0])
+        self.migrated = torch.zeros((), dtype=torch.int64,
+                                    device=mesh.devices[0])
         self.captures = _one_card(mesh)
         self.streams = tuple(mesh.streams or ())
 
@@ -278,6 +282,10 @@ class DomainGraph(_Graph):
     def _advance(self) -> None:
         states, active, lost = self.step(self.states, self.active,
                                          self.params)
+        for old, was, new, now in zip(self.states, self.active, states,
+                                      active):
+            self.migrated.add_(_arrivals(old.ids, was, new.ids, now).to(
+                self.device))
         for dst, src in zip(self.states, states):
             copy_state(dst, src)
         for dst, src in zip(self.active, active):
@@ -286,15 +294,26 @@ class DomainGraph(_Graph):
 
     def _save(self):
         return ([s.clone() for s in self.states],
-                [a.clone() for a in self.active], self.lost.clone())
+                [a.clone() for a in self.active], self.lost.clone(),
+                self.migrated.clone())
 
     def _restore(self, saved) -> None:
-        states, active, lost = saved
+        states, active, lost, migrated = saved
         for dst, src in zip(self.states, states):
             copy_state(dst, src)
         for dst, src in zip(self.active, active):
             dst.copy_(src)
         self.lost.copy_(lost)
+        self.migrated.copy_(migrated)
+
+
+def _arrivals(ids_before, active_before, ids_after, active_after):
+    """The particles a shard's step brought in, () i64: its slots active
+    after the step that were inactive before or held another particle (the
+    migration fills the slots freed in the same step first, so a slot
+    active on both sides may have changed hands)."""
+    stayed = active_before * (ids_after == ids_before)
+    return (active_after > stayed).sum()
 
 
 def _one_card(mesh) -> bool:

@@ -17,9 +17,9 @@ Scheme (1-D mesh of shards over the container's x axis, ``parallel/mesh.py``):
   computed by its owner with exact neighbour data.
 * Capacity overflow gets the exact rescue, across shard boundaries.
 * Migration: after integration, particles whose cell-x left the local slab
-  move to the neighbour's free slots (at most ``mig_cap`` each way a step;
-  the rest stay and move next step; arrivals with no free slot are counted
-  in ``lost``).
+  move to the neighbour's free slots with every per-row field the step
+  gave them (at most ``mig_cap`` each way a step; the rest stay and move
+  next step; arrivals with no free slot are counted in ``lost``).
 
 A sharded state is a list of per-shard ``FluidState``s (P rows each, the
 scalars replicated) and a list of per-shard ``active`` masks (P,) f32.
@@ -51,6 +51,7 @@ from ..ops import grid as grid_mod, integrate as integrate_mod
 from ..ops import rescue as rescue_mod
 from ..ops.cuda import domain_rescue as dr, graph as graph_mod
 from ..ops.cuda import sph_bucket as sb
+from ..runtime import profiling
 from .mesh import Mesh
 
 _FAR = sb._FAR
@@ -538,13 +539,45 @@ def _rescued(slot, mine, x, R: int):
     return torch.where((slot >= 0) & (slot < R), mine[at], x)
 
 
+# What a migrating particle takes to its new slot: every per-row field of
+# its state, the vector fields and then the scalar ones, in one flat buffer
+# a shard (``_packed``), so that one gather and one scatter of each kind
+# move a row whole. ``ids`` rides bit-cast to float32: gathers, selects and
+# copies keep its bits.
+_VECTORS = ("pos", "vel", "predicted", "acc")
+_SCALARS = ("density", "near_density", "pressure", "near_pressure", "ids")
+
+
+def _packed(s: FluidState) -> tuple:
+    """Shard state ``s``'s per-row fields copied into one buffer, as the
+    views (len(_VECTORS), P, dim) and (len(_SCALARS), P)."""
+    P, dim = s.pos.shape
+    flat = torch.cat([getattr(s, f).reshape(-1) for f in _VECTORS]
+                     + [getattr(s, f).view(torch.float32) for f in _SCALARS])
+    nv = len(_VECTORS) * P * dim
+    return (flat[:nv].view(len(_VECTORS), P, dim),
+            flat[nv:].view(len(_SCALARS), P))
+
+
+def _unpacked(s: FluidState, vec: torch.Tensor,
+              sca: torch.Tensor) -> FluidState:
+    """``s`` with its per-row fields read from ``_packed``'s views (each a
+    contiguous slice of the buffer)."""
+    fields = dict(zip(_VECTORS, vec.unbind(0)))
+    fields.update(zip(_SCALARS, sca.unbind(0)))
+    fields["ids"] = fields["ids"].view(s.ids.dtype)
+    return dataclasses.replace(s, **fields)
+
+
 def _migrate(states, active, params, cfg: SimConfig, gx_loc: int,
              mesh: Mesh, mig_cap: int):
     """Move particles whose predicted cell-x left the local slab to the
-    neighbour shard (one slab a step at most). Returns (states, active,
-    lost per shard (), f32)."""
+    neighbour shard (one slab a step at most), each with every per-row
+    field the step gave it (the JAX package's ``_migrate`` moves ``pos``,
+    ``vel``, ``predicted`` and ``ids`` alone and leaves the slot's old
+    density, pressures and acceleration beside them). Returns (states,
+    active, lost per shard (), f32)."""
     ndev = mesh.size
-    fields = ("pos", "vel", "predicted", "ids")
 
     def depart(d):
         s, p = states[d], params[d]
@@ -553,6 +586,7 @@ def _migrate(states, active, params, cfg: SimConfig, gx_loc: int,
                          / p.smoothing_radius).to(torch.int32)
         cx = torch.clamp(cx, 0, cfg.grid_dims[0] - 1)
         target = torch.clamp(cx // gx_loc, 0, ndev - 1)
+        vec, sca = _packed(s)
         a = active[d].clone()
         sinks = []
         for mask in ((target < d) & (a > 0), (target > d) & (a > 0)):
@@ -560,14 +594,14 @@ def _migrate(states, active, params, cfg: SimConfig, gx_loc: int,
             prio = torch.where(mask, 0, 1)
             order = torch.sort(prio, stable=True).indices[:mig_cap]
             valid = mask[order]
-            rows = {f: getattr(s, f)[order] for f in fields}
-            rows["valid"] = valid.to(torch.float32)
-            sinks.append(rows)
+            sinks.append({"vec": vec.index_select(1, order),
+                          "sca": sca.index_select(1, order),
+                          "valid": valid.to(torch.float32)})
             # departed rows go inactive
             a[order] = torch.where(valid, 0.0, a[order])
-        return (*sinks, a)
+        return (*sinks, vec, sca, a)
 
-    out_l, out_r, act = _split(mesh.each(depart))
+    out_l, out_r, vecs, scas, act = _split(mesh.each(depart))
 
     def shift(rows, move):
         moved = [dict() for _ in rows]
@@ -579,20 +613,18 @@ def _migrate(states, active, params, cfg: SimConfig, gx_loc: int,
     in_from_right = shift(out_l, mesh.shift_left)
     in_from_left = shift(out_r, mesh.shift_right)
 
-    def merge(s, a, inc):
-        """Arrivals into free slots (inactive slots first, in row order)."""
+    def merge(vec, sca, a, inc):
+        """Arrivals into free slots (inactive slots first, in row order),
+        written in place into the shard's buffer and ``a``; returns the
+        arrivals that found no free slot."""
         free = torch.sort(a, stable=True).indices[:inc["valid"].shape[0]]
         take = (inc["valid"] > 0) & (a[free] == 0.0)
-        lost = inc["valid"].sum() - take.sum()
-        new = {}
-        for f in fields:
-            arr = getattr(s, f).clone()
-            sel = take.reshape((-1,) + (1,) * (arr.dim() - 1))
-            arr[free] = torch.where(sel, inc[f], arr[free])
-            new[f] = arr
-        a = a.clone()
+        for buf, rows in ((vec, inc["vec"]), (sca, inc["sca"])):
+            sel = take.reshape((-1,) + (1,) * (rows.dim() - 2))
+            buf.index_copy_(1, free, torch.where(
+                sel, rows, buf.index_select(1, free)))
         a[free] = torch.where(take, 1.0, a[free])
-        return dataclasses.replace(s, **new), a, lost
+        return inc["valid"].sum() - take.sum()
 
     def arrive(d):
         inc_r, inc_l = in_from_right[d], in_from_left[d]
@@ -601,9 +633,10 @@ def _migrate(states, active, params, cfg: SimConfig, gx_loc: int,
             inc_r = dict(inc_r, valid=torch.zeros_like(inc_r["valid"]))
         if d == 0:
             inc_l = dict(inc_l, valid=torch.zeros_like(inc_l["valid"]))
-        s, a, lost_r = merge(states[d], act[d], inc_r)
-        s, a, lost_l = merge(s, a, inc_l)
-        return s, a, (lost_r + lost_l).to(torch.float32)
+        lost = (merge(vecs[d], scas[d], act[d], inc_r)
+                + merge(vecs[d], scas[d], act[d], inc_l))
+        return (_unpacked(states[d], vecs[d], scas[d]), act[d],
+                lost.to(torch.float32))
 
     return _split(mesh.each(arrive))
 
@@ -658,8 +691,10 @@ def make_domain_step(mesh: Mesh, cfg: SimConfig, mig_cap: int = 256,
                     + ovf[d].to(torch.float32),
                     ids=s.ids)
 
-            stepped, active, lost = _migrate(mesh.each(integrate), active, ps,
-                                             cfg, gx_loc, mesh, mig_cap)
+            stepped = mesh.each(integrate)
+            with profiling.span("wst.phase.migrate"):
+                stepped, active, lost = _migrate(stepped, active, ps, cfg,
+                                                 gx_loc, mesh, mig_cap)
             return stepped, active, mesh.psum(lost)[0]
 
     return domain_step
@@ -700,3 +735,22 @@ def gather_dense(states, active) -> tuple:
     pos = np.concatenate([s.pos.cpu().numpy() for s in states])
     vel = np.concatenate([s.vel.cpu().numpy() for s in states])
     return pos[act], vel[act]
+
+
+def dense_by_id(states, active) -> tuple:
+    """The active particles as one FluidState on shard 0's device, rows in
+    id order (shard 0's scalars), and the shard that holds each row."""
+    dev = states[0].pos.device
+    act = torch.cat([a.to(dev) for a in active]) > 0
+
+    def rows(per_shard):
+        return torch.cat([x.to(dev) for x in per_shard])[act]
+    order = torch.argsort(rows([s.ids for s in states]).long())
+    fields = {}
+    for f in dataclasses.fields(FluidState):
+        x = getattr(states[0], f.name)
+        fields[f.name] = x.clone() if x.dim() == 0 else rows(
+            [getattr(s, f.name) for s in states])[order]
+    shard = rows([torch.full(a.shape, d, device=a.device)
+                  for d, a in enumerate(active)])[order]
+    return FluidState(**fields), shard

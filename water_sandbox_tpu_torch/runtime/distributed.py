@@ -140,18 +140,9 @@ class DistributedSimulation:
         return domain.gather_dense(self.states, self.active)
 
     def to_dense_state(self) -> FluidState:
-        """The active particles as one dense FluidState on the CPU (rows in
-        shard order, ``ids`` carried) — feeds ``runtime.checkpoint.save``."""
-        act = torch.cat([a.cpu() for a in self.active]) > 0
-        s0 = self.states[0]
-        fields = {}
-        for name in FluidState.__dataclass_fields__:
-            if getattr(s0, name).dim() == 0:
-                fields[name] = getattr(s0, name).cpu()
-            else:
-                fields[name] = torch.cat(
-                    [getattr(s, name).cpu() for s in self.states])[act]
-        return FluidState(**fields)
+        """The active particles as one dense FluidState on the CPU, rows in
+        id order — feeds ``runtime.checkpoint.save``."""
+        return domain.dense_by_id(self.states, self.active)[0].to("cpu")
 
     def stats(self) -> dict:
         pos, vel = self.particles()
@@ -162,6 +153,8 @@ class DistributedSimulation:
             "step": int(s0.step_count),
             "active_particles": int(pos.shape[0]),
             "lost_particles": self.lost_total,
+            # particles that changed shards, summed over every step run
+            "migrated_particles": int(self.graph.migrated),
             "overflow_total": float(s0.overflow_total),
             "kinetic_energy": float(0.5 * (vel ** 2).sum()),
             "per_shard_counts": counts,

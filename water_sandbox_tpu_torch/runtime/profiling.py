@@ -6,7 +6,9 @@ simulation span through ``torch.profiler``, written as a Chrome trace
 * Host spans (``span``): the runtime's and the front end's work as
   ``wst.*`` spans on the profiler's host timeline — ``wst.run``,
   ``wst.sync``, ``wst.capture``, ``wst.reset``, ``wst.tune``,
-  ``wst.read.copy`` and ``wst.read.reorder``, ``wst.stats``. A span is a
+  ``wst.read.copy`` and ``wst.read.reorder``, ``wst.stats``, and the
+  eager domain step's ``wst.phase.migrate`` around its migration
+  (``parallel/domain.py``; a replayed step makes no host span). A span is a
   FUNCTION-scope record function, made only while a profiler records: with
   none, a span costs one flag read. (``torch.profiler.record_function``
   opens a USER_SCOPE span, which the profiler also lays on the device's
